@@ -1,0 +1,2 @@
+"""Core CAMR library of the port: the numpy schedule (copies of the JAX
+package's numpy-only modules) and the stacked-device shuffle executor."""

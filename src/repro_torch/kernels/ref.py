@@ -1,0 +1,78 @@
+"""Plain-PyTorch versions of the hand-written kernels.
+
+Each has the kernel's signature, with the leading virtual-device axis
+``K`` the stacked executor gives every codec tensor. The wrappers in
+:mod:`.xor_code` and :mod:`.aggregate` take these for tensors on the
+CPU; the tests hold them against the JAX package's Pallas kernels, and
+``chip_smoke.py`` holds the CUDA kernels against them on the card.
+
+Wire words are 32-bit patterns. ``torch.int32`` is the working view
+(bitwise identical to ``uint32``; XOR, gathers and ``where`` never look
+at the sign), and ``uint32`` inputs are viewed as ``int32`` here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["xor_encode_gather_ref", "xor_decode_gather_ref",
+           "aggregate_ref", "as_words"]
+
+
+def as_words(x: torch.Tensor) -> torch.Tensor:
+    """u32/i32 wire words -> their ``int32`` view (no copy)."""
+    if x.dtype == torch.int32:
+        return x
+    if x.dtype == torch.uint32:
+        return x.view(torch.int32)
+    raise TypeError(f"XOR word lane expects uint32/int32, got {x.dtype}")
+
+
+def _masked_fold(chunks, idx, mask, acc):
+    """``acc ^= XOR_j chunks[v, idx[v, :, j]] where mask`` (per device v)."""
+    dev = torch.arange(chunks.shape[0], device=chunks.device)[:, None]
+    idx = idx.long()
+    for j in range(idx.shape[-1]):
+        rows = chunks[dev, idx[..., j]]                     # [K, n, pk]
+        acc = acc ^ torch.where(mask[..., j, None], rows, 0)
+    return acc
+
+
+def xor_encode_gather_ref(chunks: torch.Tensor, idx: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """``out[v, i] = XOR_j chunks[v, idx[v, i, j]] & mask[v, i, j]``.
+
+    chunks ``[K, P, pk]`` words, idx ``i32[K, n, m]``, mask
+    ``bool[K, n, m]`` -> ``[K, n, pk]`` in the dtype of ``chunks``.
+    """
+    words = as_words(chunks)
+    K, n = idx.shape[:2]
+    acc = torch.zeros((K, n, words.shape[2]), dtype=torch.int32,
+                      device=words.device)
+    return _masked_fold(words, idx, mask, acc).view(chunks.dtype)
+
+
+def xor_decode_gather_ref(recv: torch.Tensor, chunks: torch.Tensor,
+                          rsel: torch.Tensor, idx: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """``out[v, i] = recv[v, rsel[v, i]] ^ XOR_j chunks[v, idx[v, i, j]]
+    & mask[v, i, j]`` (recv ``[K, Rr, pk]``, rsel ``i32[K, rows]``)."""
+    words = as_words(chunks)
+    dev = torch.arange(recv.shape[0], device=recv.device)[:, None]
+    acc = as_words(recv)[dev, rsel.long()]                  # [K, rows, pk]
+    return _masked_fold(words, idx, mask, acc).view(chunks.dtype)
+
+
+def aggregate_ref(values: torch.Tensor, segment_ids: torch.Tensor,
+                  num_segments: int) -> torch.Tensor:
+    """The paper's alpha-combiner: ``out[s] = sum of values[r]`` over rows
+    with ``segment_ids[r] == s``, accumulated in f32 from 0.0 in
+    ascending row order; ids outside ``[0, num_segments)`` drop.
+    values ``[n, d]`` -> ``[num_segments, d]`` in the values' dtype."""
+    n, d = values.shape
+    out = torch.zeros((num_segments, d), dtype=torch.float32,
+                      device=values.device)
+    for r, s in enumerate(segment_ids.tolist()):
+        if 0 <= s < num_segments:
+            out[s] += values[r].float()
+    return out.to(values.dtype)

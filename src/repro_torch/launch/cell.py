@@ -1,0 +1,30 @@
+"""The port's measured cell, defined once.
+
+``granite_3_2b`` (hf:ibm-granite/granite-3.0-2b-base) at full width,
+depth cut from 40 to 2 layers, q=2, k=3 (K=6 virtual workers, J=4
+models), trained on ``ShardedTokenPipeline(seq_len=512,
+global_batch=1)`` from seed 0. ``chip_smoke.py`` and
+:mod:`repro_torch.launch.profile` both build it here.
+"""
+
+from __future__ import annotations
+
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import ShardedTokenPipeline
+from repro_torch.runtime import MultiModelCAMRTrainer
+
+ARCH = "granite_3_2b"
+N_LAYERS = 2
+Q, K = 2, 3
+SEQ_LEN = 512
+GLOBAL_BATCH = 1
+
+
+def make_cell(device=None):
+    """The cell's ``(trainer, pipeline)``; ``device=None`` is the current
+    CUDA device."""
+    cfg = get_config(ARCH).replace(n_layers=N_LAYERS)
+    tr = MultiModelCAMRTrainer(cfg, q=Q, k=K, seed=0, device=device)
+    pipe = ShardedTokenPipeline(vocab=cfg.vocab, seq_len=SEQ_LEN,
+                                global_batch=GLOBAL_BATCH)
+    return tr, pipe

@@ -1,0 +1,60 @@
+"""Where one training step's device time goes.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile
+
+Builds the measured cell (:mod:`repro_torch.launch.cell`) on the current
+CUDA device, runs ``WARM`` steps, then one step under
+``torch.profiler`` and prints: the step's wall time, the summed device
+time of its kernels and their share of the wall time (one stream, so
+kernels do not overlap), and the kernels with the most device time.
+Prints "device time: not measured" when the profiler records no device
+activity.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.launch.cell import make_cell
+
+WARM = 2     # steps before the traced one: cuBLAS and allocator warm-up
+TOP = 25     # kernels listed
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def main():
+    tr, pipe = make_cell()
+    tr.train_steps(pipe, WARM)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rep = tr.train_steps(pipe, 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if _device_us(e) > 0
+               and e.device_type.name == "CUDA"]
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3
+    print(json.dumps({"step_wall_ms": wall_ms, "phase_ms": rep.phase_ms[0]}))
+    if not kernels:
+        print("device time: not measured (the profiler recorded none)")
+        return
+    print(f"device time: {busy_ms:.1f} ms of {wall_ms:.1f} ms wall "
+          f"({100 * busy_ms / wall_ms:.1f}% busy)")
+    kernels.sort(key=_device_us, reverse=True)
+    for e in kernels[:TOP]:
+        print(f"{_device_us(e) / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:110]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,311 @@
+"""The paper's multi-model trainer on one card: J = q^(k-1) models whose
+per-batch gradients are aggregated through the CAMR coded shuffle.
+
+Counterpart of ``repro.runtime.train_loop.MultiModelCAMRTrainer`` with
+``mode="camr_spmd"`` and f32 grad sync. Per step:
+
+1. **map** — every (job, subfile) batch is mapped once to the gradient of
+   its model's loss w.r.t. the flat f32 parameter row (computation
+   redundancy k-1 is served from a per-step memo);
+2. **aggregate** — each worker compresses the gradients of its stored
+   (job, batch) pairs with the alpha-combiner kernel
+   (:func:`repro_torch.kernels.aggregate`, one launch per worker) into
+   its rows of the stacked contribution tensor ``[K, J_own, k-1, K, d]``;
+   the memo is dropped once the contributions are built;
+3. **shuffle** — the 3-stage coded shuffle of all K virtual workers
+   (:class:`repro_torch.core.collective.ShuffleStream`; one encode and
+   one decode kernel launch per coded stage);
+4. **update** — the worker-sharded AdamW update of the flat ``[J, Dpad]``
+   master, moments updated in place.
+
+Everything stays on the card: the JAX trainer's host round trip of each
+gradient is not carried over. Float32 products run in full f32: while
+``train_steps`` runs on a card, TF32 and reduced-precision bf16
+reductions are switched off, and the caller's settings are restored when
+it returns. The synced gradient of the same per-subfile gradients is
+bitwise the JAX trainer's; parameters match it within tolerance (the
+clip norm sums in another order).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..configs import ModelConfig
+from ..core import loads as Lo
+from ..core.collective import ShuffleStream, camr_collective_bytes, make_plan
+from ..data.pipeline import ShardedTokenPipeline, make_camr_job_datasets
+from ..device import resolve_device
+from ..kernels.aggregate import aggregate
+from ..models import lm
+from ..optim import AdamWState, adamw_update
+from ..weights import flat_spec, ravel, split, tree, unravel
+
+__all__ = ["CAMRTrainReport", "MultiModelCAMRTrainer", "PHASES"]
+
+#: the step's phases, in order, as timed in ``CAMRTrainReport.phase_ms``
+PHASES = ("map", "aggregate", "shuffle", "update")
+
+
+@dataclass
+class CAMRTrainReport:
+    loads: dict = field(default_factory=dict)
+    bytes_total: int = 0
+    losses: list = field(default_factory=list)
+    mode: str = ""
+    sync: dict = field(default_factory=dict)   # executor-reuse stats
+    grad_sync_dtype: str = "float32"           # shuffle payload dtype
+    #: per step, milliseconds of each of :data:`PHASES` (CUDA events on
+    #: a card, the host clock on the CPU)
+    phase_ms: list = field(default_factory=list)
+
+
+def _mean_losses(per_job: list) -> list[float]:
+    """Per-job mean loss for one step (keyed by subfile index, so every
+    grad-sync mode averages in the same order; an empty map is NaN)."""
+    return [float(np.mean([d[n] for n in sorted(d)])) if d
+            else float("nan") for d in per_job]
+
+
+@contextlib.contextmanager
+def _full_f32(device: torch.device):
+    """No TF32 products and no reduced-precision bf16 reductions on a
+    card for the duration; the process-wide flags are restored after."""
+    if device.type != "cuda":
+        yield
+        return
+    mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (mm.allow_tf32, cudnn.allow_tf32,
+             mm.allow_bf16_reduced_precision_reduction)
+    mm.allow_tf32 = cudnn.allow_tf32 = False
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        (mm.allow_tf32, cudnn.allow_tf32,
+         mm.allow_bf16_reduced_precision_reduction) = saved
+
+
+class _PhaseClock:
+    """Marks phase boundaries without synchronising the card: CUDA events
+    there, ``time.perf_counter`` on the CPU; read once per step."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks: list = []
+
+    def mark(self) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def read(self) -> dict:
+        if self.cuda:
+            self.marks[-1].synchronize()
+            ms = [a.elapsed_time(b)
+                  for a, b in zip(self.marks, self.marks[1:])]
+        else:
+            ms = [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+        return dict(zip(PHASES, ms))
+
+
+class MultiModelCAMRTrainer:
+    """Train J = q^(k-1) models with CAMR-coded gradient aggregation.
+
+    ``params`` optionally gives the J initial parameter trees (e.g. from
+    :func:`repro_torch.weights.params_from_jax`); otherwise each job's
+    parameters are drawn from a ``torch.Generator`` seeded from
+    ``(seed, job)`` on the trainer's device. ``device=None`` is the
+    current CUDA device and raises when there is none.
+
+    State layout (the JAX trainer's): parameters, moments and synced
+    gradients are flat padded f32 rows of ``Dpad = K * d_shard`` elements
+    per job, ``(k-1) | d_shard``; worker s owns shard s of every job.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, q: int, k: int,
+                 lr: float = 1e-3, seed: int = 0, params=None,
+                 router: str = "all_to_all", device=None):
+        self.device = resolve_device(device)
+        if cfg.grad_sync_dtype != "float32":
+            raise NotImplementedError(
+                f"grad_sync_dtype={cfg.grad_sync_dtype!r}: the bf16 "
+                "grad-sync lane is not ported yet (ROADMAP.md, Queue 1)")
+        self.grad_sync_dtype = "float32"
+        self.cfg, self.q, self.k = cfg, q, k
+        self.K, self.J, self.N = q * k, q ** (k - 1), k   # gamma = 1
+        J, K = self.J, self.K
+        if params is None:
+            params = []
+            for j in range(J):
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(int(np.random.SeedSequence([seed, j])
+                                    .generate_state(1)[0]))
+                params.append(lm.init_params(cfg, gen))
+        if len(params) != J:
+            raise ValueError(f"params: need {J} trees (one per job), got "
+                             f"{len(params)}")
+        self._spec = flat_spec(params[0])
+        self.D = self._spec.size
+        # pad so the K function-shards are equal AND each shard splits
+        # into k-1 codec packets
+        d = -(-self.D // K)
+        d += (-d) % (k - 1)
+        self.d_shard = d
+        self.Dpad = K * d
+        self.flat = torch.zeros((J, self.Dpad), dtype=torch.float32,
+                                device=self.device)    # f32 master [J, Dpad]
+        for j in range(J):
+            self.flat[j, :self.D] = ravel(params[j]).to(self.device,
+                                                        torch.float32)
+        del params
+        self.opt = AdamWState(
+            step=torch.zeros((J,), dtype=torch.int32, device=self.device),
+            mu=torch.zeros_like(self.flat), nu=torch.zeros_like(self.flat))
+        self.lr = lr
+        self.step = 0
+        self.router = router
+        self._stream = None                    # lazy ShuffleStream
+        self.map_calls = 0                     # gradient computations paid
+        self.plan = make_plan(q, k, d)
+
+    # ------------------------------------------------------------------ #
+    @property
+    def params(self) -> list:
+        """Per-job parameter trees (cast views of the master rows)."""
+        return [unravel(self.flat[j], self._spec) for j in range(self.J)]
+
+    def _grad_vec(self, j: int, n: int, batch) -> torch.Tensor:
+        """Loss gradient of job j on one subfile as a flat f32 row
+        ``[Dpad]`` (zero past ``D``): autograd to each cast leaf, then one
+        concatenation in flat order. The gradient of ``ravel_pytree``'s
+        f32 -> leaf-dtype cast is the leaf gradient cast back to f32; a
+        flat row with ``requires_grad`` and sliced views would cost one
+        zero-filled ``[Dpad]`` buffer per leaf in the backward pass."""
+        ps = [t.detach().requires_grad_(True)
+              for t in split(self.flat[j], self._spec)]
+        b = {key: torch.as_tensor(v, device=self.device)
+             for key, v in batch.items()}
+        loss, _ = lm.train_loss(self.cfg, tree(self._spec, ps), b)
+        grads = torch.autograd.grad(loss, ps)
+        self._last_loss[j][n] = loss.detach()
+        self.map_calls += 1
+        row = torch.empty(self.Dpad, dtype=torch.float32, device=self.device)
+        torch.cat([g.reshape(-1) for g in grads], out=row[:self.D])
+        row[self.D:] = 0
+        return row
+
+    def _build_contribs(self, map_fn, datasets) -> torch.Tensor:
+        """The map lane of the SPMD path: per worker, the alpha-combiner
+        kernel compresses the gradients of the stored (job, batch)
+        subfiles into the stacked contribution tensor
+        ``[K, J_own, k-1, K, d]`` (gamma == 1: one subfile per segment,
+        bit-exact)."""
+        prog = self.plan.program
+        K, k = self.K, self.k
+        J_own = self.q ** (self.k - 2)
+        S = J_own * (k - 1)
+        out = torch.empty((K, J_own, k - 1, K, self.d_shard),
+                          dtype=torch.float32, device=self.device)
+        for s in range(K):
+            vals, ids = [], []
+            for a in range(J_own):
+                j = int(prog.owned_jobs[s, a])
+                for b in range(k - 1):
+                    t = int(prog.stored_batches[s, a, b])
+                    for n in prog.placement.batch_subfiles(t):
+                        vals.append(map_fn(j, datasets[j][n]))
+                        ids.append(a * (k - 1) + b)
+            seg = torch.tensor(ids, dtype=torch.int32, device=self.device)
+            aggregate(torch.stack(vals), seg, S, out=out[s].view(S, -1))
+            del vals
+        return out
+
+    def _spmd_stream(self) -> ShuffleStream:
+        if self._stream is None:
+            self._stream = ShuffleStream(self.q, self.k, self.d_shard,
+                                         device=self.device,
+                                         router=self.router)
+        return self._stream
+
+    def _sync_spmd(self, contribs, report) -> torch.Tensor:
+        stream = self._spmd_stream()
+        out = stream.sync(contribs)             # [K, J, d] on the card
+        report.loads = {"L_total_bus": Lo.camr_load(self.q, self.k),
+                        "L_total_p2p": Lo.camr_load_p2p(self.q, self.k)}
+        report.bytes_total += camr_collective_bytes(
+            self.plan, dtype=torch.float32)["camr_total"]
+        report.sync = stream.stats()
+        return out
+
+    def _apply(self, gsync: torch.Tensor) -> None:
+        """The worker-sharded AdamW update from ``gsync [K, J, d]`` (worker
+        s holds shard s of every job's summed gradient; consumed). The
+        transpose is pure data movement; /N and AdamW are elementwise
+        plus the per-job clip norm."""
+        grads = gsync.transpose(0, 1).reshape(self.J, self.Dpad)
+        grads.div_(self.N)
+        adamw_update(self.flat, grads, self.opt, lr=self.lr)
+
+    # ------------------------------------------------------------------ #
+    def train_steps(self, pipeline: ShardedTokenPipeline, steps: int,
+                    mode: str = "camr_spmd") -> CAMRTrainReport:
+        """Run ``steps`` training steps; ``self.step`` advances, so
+        consecutive calls continue the same data stream."""
+        if mode in ("camr", "uncoded"):
+            raise NotImplementedError(
+                f"mode={mode!r} is not ported yet (ROADMAP.md, Queue 1: "
+                "the camr/uncoded grad-sync modes); use mode='camr_spmd'")
+        if mode != "camr_spmd":
+            raise ValueError(f"unknown mode {mode!r}; choose from "
+                             "['camr', 'camr_spmd', 'uncoded']")
+        report = CAMRTrainReport(mode=mode,
+                                 grad_sync_dtype=self.grad_sync_dtype)
+        with _full_f32(self.device):
+            for _ in range(steps):
+                self._step(pipeline, report)
+        return report
+
+    def _step(self, pipeline: ShardedTokenPipeline,
+              report: CAMRTrainReport) -> None:
+        J, N = self.J, self.N
+        clock = _PhaseClock(self.device)
+        clock.mark()
+        self._last_loss = [dict() for _ in range(J)]
+        base = make_camr_job_datasets(pipeline, J, N, self.step)
+        # subfile payloads carry their index: the memo is keyed by
+        # (job, subfile_index)
+        datasets = [[(n, base[j][n]) for n in range(N)] for j in range(J)]
+        cache: dict = {}
+
+        def map_fn(j, subfile):
+            n, batch = subfile
+            if (j, n) not in cache:       # each (job, subfile) mapped once
+                cache[(j, n)] = self._grad_vec(j, n, batch)
+            return cache[(j, n)]
+
+        for j in range(J):
+            for n in range(N):
+                map_fn(j, datasets[j][n])
+        clock.mark()
+        contribs = self._build_contribs(map_fn, datasets)
+        cache.clear()                     # drop the memo: contribs hold it
+        clock.mark()
+        gsync = self._sync_spmd(contribs, report)
+        del contribs
+        clock.mark()
+        self._apply(gsync)
+        del gsync
+        clock.mark()
+        report.phase_ms.append(clock.read())
+        report.losses.append(_mean_losses(
+            [{n: float(v) for n, v in d.items()} for d in self._last_loss]))
+        self.step += 1

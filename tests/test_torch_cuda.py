@@ -1,0 +1,112 @@
+"""The port on a card: each CUDA kernel against its plain version, the
+stacked shuffle and a training step against the same code on the CPU.
+
+Every test here is marked ``cuda`` and skips without a card. The file
+imports neither jax nor the JAX package, so it also runs on a machine
+that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
+
+Tolerances: XOR gathers, ``aggregate`` with one row per segment and the
+shuffle are bitwise (bit movers, exact sums); ``aggregate`` with several
+rows per segment is rtol 1e-6 as stated for the kernel (it is in fact
+the same ascending f32 sum); the tiny trainer's loss on the card is
+within rtol 1e-4 of the CPU's (cuBLAS and the CPU's BLAS sum products
+in other orders, TF32 off).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.core.collective import (camr_shuffle, make_plan,
+                                         scatter_contributions)
+from repro_torch.data.pipeline import ShardedTokenPipeline
+from repro_torch.kernels import (aggregate, launch_counts, ref,
+                                 xor_decode_gather, xor_encode_gather)
+from repro_torch.runtime import MultiModelCAMRTrainer
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _words(rng, shape):
+    return torch.from_numpy(
+        rng.integers(0, 2**32, size=shape, dtype=np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("pk", [1, 7, 1002, 4096])
+def test_cuda_gathers_match_plain(cuda_device, pk):
+    rng = np.random.default_rng(pk)
+    K, P, n, m = 3, 6, 5, 4
+    c = _words(rng, (K, P, pk)).to(cuda_device)
+    mask = torch.from_numpy(rng.integers(0, 2, size=(K, n, m)).astype(bool))
+    idx = torch.from_numpy(rng.integers(0, P, size=(K, n, m)).astype(np.int32))
+    idx[~mask] = 0
+    i, mk = idx.to(cuda_device), mask.to(cuda_device)
+    r = _words(rng, (K, n, pk)).to(cuda_device)
+    s = torch.from_numpy(np.stack([rng.permutation(n) for _ in range(K)])
+                         .astype(np.int32)).to(cuda_device)
+    before = launch_counts()
+    assert torch.equal(xor_encode_gather(c, i, mk),
+                       ref.xor_encode_gather_ref(c, i, mk))
+    assert torch.equal(xor_decode_gather(r, c, s, i, mk),
+                       ref.xor_decode_gather_ref(r, c, s, i, mk))
+    after = launch_counts()
+    assert after["xor_encode_gather"] == before["xor_encode_gather"] + 1
+    assert after["xor_decode_gather"] == before["xor_decode_gather"] + 1
+
+
+@pytest.mark.parametrize("n,d,S,one", [(4, 1000, 4, True), (6, 1001, 4, True),
+                                       (33, 4096, 11, False)])
+def test_cuda_aggregate_matches_plain(cuda_device, n, d, S, one):
+    rng = np.random.default_rng(d)
+    vals = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    if one:
+        ids = np.full(n, -1, np.int32)
+        ids[rng.permutation(n)[:S]] = np.arange(S)
+    else:
+        ids = rng.integers(-1, S, size=n).astype(np.int32)
+    v, i = vals.to(cuda_device), torch.from_numpy(ids).to(cuda_device)
+    got, want = aggregate(v, i, S), ref.aggregate_ref(v, i, S)
+    if one:
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("router", ["all_to_all", "ppermute"])
+@pytest.mark.parametrize("q,k", [(2, 3), (3, 3), (2, 4)])
+def test_cuda_shuffle_bitwise_equals_cpu(cuda_device, q, k, router):
+    d = (k - 1) * 1001
+    plan = make_plan(q, k, d)
+    rng = np.random.default_rng(q * k)
+    bg = rng.standard_normal((plan.J, k, plan.K, d)).astype(np.float32)
+    c = torch.from_numpy(scatter_contributions(plan, bg))
+    got = camr_shuffle(plan, c.to(cuda_device), router=router).cpu()
+    want = camr_shuffle(plan, c, router=router)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_cuda_trainer_step_matches_cpu(cuda_device):
+    cfg = reduced(get_config("granite_3_2b")).replace(vocab=64, loss_chunk=8)
+    pipe = ShardedTokenPipeline(vocab=64, seq_len=8, global_batch=2)
+    cpu = MultiModelCAMRTrainer(cfg, q=2, k=3, device="cpu", seed=3)
+    params = [{k: v for k, v in p.items()} for p in cpu.params]
+    card = MultiModelCAMRTrainer(cfg, q=2, k=3, device=cuda_device,
+                                 params=params)
+    assert torch.equal(card.flat.cpu(), cpu.flat)
+    before = launch_counts()
+    rc, rg = cpu.train_steps(pipe, 1), card.train_steps(pipe, 1)
+    after = launch_counts()
+    np.testing.assert_allclose(rg.losses, rc.losses, rtol=1e-4)
+    assert after["aggregate"] - before["aggregate"] == card.K
+    assert after["xor_encode_gather"] - before["xor_encode_gather"] == 2
+    assert after["xor_decode_gather"] - before["xor_decode_gather"] == 2
