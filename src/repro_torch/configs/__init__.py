@@ -63,7 +63,7 @@ class ModelConfig:
     # numerics
     dtype: str = "bfloat16"
     loss_chunk: int = 1024              # vocab-logit seq chunking
-    grad_sync_dtype: str = "float32"    # float32 (bfloat16: not ported)
+    grad_sync_dtype: str = "float32"    # float32 | bfloat16 (packed lane)
 
     @property
     def hd(self) -> int:

@@ -23,8 +23,10 @@ launch for all K workers.
 Semantics (as in the JAX package): ``contribs [K, J_own, k-1, K, d]``
 -> ``out [K, J, d]``, device ``s`` receiving the fully aggregated shard
 ``s`` of every job, BITWISE equal to the numpy engine's reduce results.
-This slice ports the flat topology, ``mode="batched"``, the fused codec
-and the 4-byte wire lane (f32/u32 payloads).
+The port runs the flat topology, ``mode="batched"`` and the fused codec,
+on both wire lanes: 4-byte payloads (f32/u32) one value per u32 wire
+word, and 16-bit payloads (bf16/f16) packed two per word by the 16-bit
+codec kernels, with stage 3 and assembly at native width.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.xor_code import xor_decode_gather, xor_encode_gather
+from ..kernels.xor_code import (xor_decode_gather, xor_decode_gather16,
+                                xor_encode_gather, xor_encode_gather16)
 from .schedule import (SCHEDULE_CACHE, ShuffleProgram, StageTables,
                        payload_words)
 
@@ -43,9 +46,6 @@ __all__ = ["CAMRPlan", "make_plan", "camr_shuffle", "scatter_contributions",
            "camr_shuffle_reference", "camr_collective_bytes",
            "ShuffleStream", "CODEC_DTYPES", "PACKED_DTYPES",
            "check_codec_dtype"]
-
-_LATER = "not ported yet (ROADMAP.md, Queue 1)"
-
 
 # --------------------------------------------------------------------- #
 # plan — a thin handle on the compiled program
@@ -94,8 +94,9 @@ def make_plan(q: int, k: int, d: int) -> CAMRPlan:
 # --------------------------------------------------------------------- #
 # wire words
 # --------------------------------------------------------------------- #
-#: payload dtypes the XOR codec can move (the JAX package's list); this
-#: slice runs the 4-byte lane, the packed 16-bit lane is still to port
+#: payload dtypes the XOR codec can move (the JAX package's list):
+#: 4-byte dtypes one value per u32 wire word, :data:`PACKED_DTYPES` two
+#: 16-bit values per word at half the bytes on the wire
 CODEC_DTYPES = ("float32", "uint32", "bfloat16", "float16")
 PACKED_DTYPES = ("bfloat16", "float16")
 
@@ -110,30 +111,46 @@ def _dtype_name(dtype) -> str:
 
 def check_codec_dtype(dtype, where: str) -> None:
     """Entry guard: fail fast, with a fix, on a payload the codec cannot
-    move (and on the packed 16-bit lane, not ported yet)."""
+    move."""
     name = _dtype_name(dtype)
     if name not in CODEC_DTYPES:
         raise TypeError(
             f"{where}: the CAMR XOR codec moves 32-bit wire words; "
-            f"supported payload dtypes are {', '.join(CODEC_DTYPES)}, got "
-            f"{name}. Cast the contributions to a supported dtype first "
-            "(e.g. contribs.float()).")
-    if name in PACKED_DTYPES:
-        raise NotImplementedError(
-            f"{where}: the packed 16-bit wire lane ({name}) is {_LATER}")
+            f"supported payload dtypes are {', '.join(CODEC_DTYPES)} "
+            "(bf16/f16 ride the packed 16-bit lane, two values per "
+            f"word), got {name}. Cast the contributions to a supported "
+            "dtype first (e.g. contribs.float()).")
 
 
-def _to_words(x: torch.Tensor) -> torch.Tensor:
-    """f32/u32 payload -> its int32 wire-word view (a bitcast)."""
-    if x.dtype in (torch.float32, torch.uint32):
+def _wire_buffer(x: torch.Tensor, wp: int) -> torch.Tensor:
+    """Contributions -> the codec's chunk buffer: f32/u32 payloads as
+    their int32 wire words (a bitcast); 16-bit payloads as int16 lanes,
+    zero-padded per shard from ``d`` to ``2*wp`` lanes (the JAX package's
+    trailing-lane pad rule) and handed to the 16-bit kernels as they are,
+    so no value widens to 4 bytes."""
+    if x.element_size() == 4:
         return x.view(torch.int32)
-    raise TypeError(f"XOR word lane expects f32/u32, got {x.dtype}")
+    lanes = x.view(torch.int16)
+    pad = 2 * wp - x.shape[-1]
+    return torch.nn.functional.pad(lanes, (0, pad)) if pad else lanes
+
+
+def _from_wire(dec: torch.Tensor, dtype: torch.dtype,
+               d: int) -> torch.Tensor:
+    """Decoded chunk slots ``[K, n, wp]`` words or ``[K, n, 2*wp]`` lanes
+    -> payload values ``[K, n, d]`` in the dtype assembly adds in (the
+    inverse of :func:`_wire_buffer`; a strided view, no copy)."""
+    if dec.dtype == torch.int16:
+        return dec[..., :d].view(dtype)
+    return dec.view(_arith_dtype(dtype))
 
 
 def _arith_dtype(dtype: torch.dtype) -> torch.dtype:
-    """Where assembly adds: f32 payloads in f32; u32 payloads on their
-    int32 view (two's-complement adds wrap like u32 adds, same bits)."""
-    return torch.float32 if dtype == torch.float32 else torch.int32
+    """Where assembly adds: f32, bf16 and f16 payloads in their own dtype
+    (16-bit adds round at every step, as the JAX executor's do); u32
+    payloads on their int32 view (two's-complement adds wrap like u32
+    adds, same bits)."""
+    return torch.int32 if dtype == torch.uint32 else dtype
 
 
 # --------------------------------------------------------------------- #
@@ -244,8 +261,13 @@ def _device_tables(plan: CAMRPlan, device: torch.device, router: str) -> dict:
 # --------------------------------------------------------------------- #
 def _encode_stage(wire, st, *, K, pk):
     """Sender side: Δ = XOR_p pkt(G[p], pos(me, G[p])) for every device.
-    Returns ``(flat, delta)``: the flat packet view ``[K, P, pk]`` of the
-    chunk buffers (the decode context) and Δ ``[K, n, pk]``."""
+    Returns ``(flat, delta)``: the flat packet view of the chunk buffers
+    (the decode context; ``[K, P, pk]`` words, or ``[K, P, 2pk]`` lanes
+    on the packed lane) and Δ ``[K, n, pk]`` in int32 wire words."""
+    if wire.dtype == torch.int16:       # packed lane: lane pairs
+        flat = wire.reshape(K, -1, 2 * pk)
+        delta = xor_encode_gather16(flat, st["enc_src"], st["src_ok"])
+        return flat, delta.view(torch.int32)
     flat = wire.reshape(K, -1, pk)      # free view: packets are contiguous
     return flat, xor_encode_gather(flat, st["enc_src"], st["src_ok"])
 
@@ -261,10 +283,14 @@ def _exchange(delta, st, *, K, k, pk):
 
 def _decode_stage(recv, flat, st, *, K, k, pk):
     """Receiver side: pkt(me, pos(m_r, me)) = recv[r] XOR the cancellation
-    packets, decoded words landing in chunk-slot order -> ``[K, n, wp]``."""
-    dec = xor_decode_gather(recv, flat, st["dec_recv"], st["dec_src"],
-                            st["dec_mask"])
-    return dec.view(K, st["n"], (k - 1) * pk)
+    packets, decoded words landing in chunk-slot order -> ``[K, n, wp]``
+    words (``[K, n, 2*wp]`` lanes on the packed lane)."""
+    tabs = (st["dec_recv"], st["dec_src"], st["dec_mask"])
+    if flat.dtype == torch.int16:
+        dec = xor_decode_gather16(recv.view(torch.int16), flat, *tabs)
+    else:
+        dec = xor_decode_gather(recv, flat, *tabs)
+    return dec.view(K, st["n"], -1)
 
 
 def _stage_coded_batched(wire, st, *, K, k, pk):
@@ -296,10 +322,13 @@ def camr_shuffle(plan: CAMRPlan, contribs: torch.Tensor, *,
     Runs on the device of ``contribs``: the CUDA codec kernels on a card,
     their plain versions on the CPU. Outputs are BITWISE equal to the
     numpy engine's reduce results: XOR delivery is lossless and assembly
-    folds the stored batches in the engine's canonical order. This is
-    the JAX executor's ``mode="batched"``, ``codec="fused"``; the looped
-    router, the multipass codec and ``debug`` are not ported yet
-    (ROADMAP.md, Queue 1).
+    folds the stored batches in the engine's canonical order. bf16/f16
+    contributions take the packed lane: two values per u32 wire word
+    through stages 1 and 2 (half the bytes of an f32 shuffle of the same
+    ``d``), stage 3 and assembly in the payload dtype. This is the JAX
+    executor's ``mode="batched"``, ``codec="fused"``; the looped router,
+    the multipass codec and ``debug`` are not ported yet (ROADMAP.md,
+    Queue 1).
     """
     prog = plan.program
     q, k, K, J, J_own, d = (plan.q, plan.k, plan.K, plan.J, plan.J_own,
@@ -313,9 +342,11 @@ def camr_shuffle(plan: CAMRPlan, contribs: torch.Tensor, *,
     dtype = contribs.dtype
     contribs = contribs.contiguous()
     tabs = _device_tables(plan, contribs.device, router)
-    wp = payload_words(d, 4, k)
+    # wp u32 words per shard: d for 4-byte dtypes, ceil(d/2) padded to a
+    # packet multiple for packed 16-bit ones
+    wp = payload_words(d, contribs.element_size(), k)
     pk = wp // (k - 1)
-    wire = _to_words(contribs)                  # [K, J_own, k-1, K, wp]
+    wire = _wire_buffer(contribs, wp)   # [K, J_own, k-1, K, wp | 2*wp]
 
     # ========== stages 1 + 2: one shared coded-exchange machine ======== #
     arith = _arith_dtype(dtype)
@@ -323,7 +354,8 @@ def camr_shuffle(plan: CAMRPlan, contribs: torch.Tensor, *,
     for stage in (1, 2):
         dec = _stage_coded_batched(wire, tabs["stages"][stage], K=K, k=k,
                                    pk=pk)
-        stage_vals[stage] = dec.view(arith)     # [K, n, d]
+        stage_vals[stage] = _from_wire(dec, dtype, d)   # [K, n, d]
+    del wire
     vals = contribs.view(arith)
 
     # ========== stage 3: intra-class unicasts (q-1 permutations) ======= #

@@ -6,16 +6,22 @@ use; :mod:`.ref` holds the plain-PyTorch version of each kernel.
 
 from __future__ import annotations
 
-from .aggregate import aggregate
-from .xor_code import xor_decode_gather, xor_encode_gather
+from .aggregate import aggregate, aggregate_bf16
+from .xor_code import (xor_decode_gather, xor_decode_gather16,
+                       xor_encode_gather, xor_encode_gather16)
 
-__all__ = ["KERNELS", "aggregate", "xor_encode_gather", "xor_decode_gather",
+__all__ = ["KERNELS", "aggregate", "aggregate_bf16", "xor_encode_gather",
+           "xor_decode_gather", "xor_encode_gather16", "xor_decode_gather16",
            "launch_counts", "reset_launch_counts"]
 
-#: every kernel wrapper of the port, by kernel name
+#: every kernel wrapper of the port, by kernel name (``aggregate`` counts
+#: the f32 combiner, ``aggregate_bf16`` the bf16 one)
 KERNELS = {"xor_encode_gather": xor_encode_gather,
            "xor_decode_gather": xor_decode_gather,
-           "aggregate": aggregate}
+           "aggregate": aggregate,
+           "xor_encode_gather16": xor_encode_gather16,
+           "xor_decode_gather16": xor_decode_gather16,
+           "aggregate_bf16": aggregate_bf16}
 
 
 def launch_counts() -> dict[str, int]:

@@ -28,9 +28,12 @@ SOURCES = {
     "xor_gather": {
         "xor_encode_gather": [_VP] * 4 + [_LL] * 5 + [_INT, _VP],
         "xor_decode_gather": [_VP] * 6 + [_LL] * 6 + [_INT, _VP],
+        "xor_encode_gather16": [_VP] * 4 + [_LL] * 5 + [_INT, _VP],
+        "xor_decode_gather16": [_VP] * 6 + [_LL] * 6 + [_INT, _VP],
     },
     "aggregate": {
         "aggregate_f32": [_VP] * 3 + [_LL] * 3 + [_INT, _VP],
+        "aggregate_bf16": [_VP] * 3 + [_LL] * 3 + [_INT, _VP],
     },
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

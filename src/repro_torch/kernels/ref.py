@@ -8,7 +8,8 @@ CPU; the tests hold them against the JAX package's Pallas kernels, and
 
 Wire words are 32-bit patterns. ``torch.int32`` is the working view
 (bitwise identical to ``uint32``; XOR, gathers and ``where`` never look
-at the sign), and ``uint32`` inputs are viewed as ``int32`` here.
+at the sign), and ``uint32`` inputs are viewed as ``int32`` here. The
+packed 16-bit lane works on ``torch.int16`` lanes the same way.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["xor_encode_gather_ref", "xor_decode_gather_ref",
-           "aggregate_ref", "as_words"]
+           "xor_encode_gather16_ref", "xor_decode_gather16_ref",
+           "aggregate_ref", "as_words", "as_lanes"]
 
 
 def as_words(x: torch.Tensor) -> torch.Tensor:
@@ -26,6 +28,23 @@ def as_words(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.uint32:
         return x.view(torch.int32)
     raise TypeError(f"XOR word lane expects uint32/int32, got {x.dtype}")
+
+
+def as_lanes(x: torch.Tensor) -> torch.Tensor:
+    """u16/i16 packed-lane values -> their ``int16`` view (no copy)."""
+    if x.dtype == torch.int16:
+        return x
+    if x.dtype == torch.uint16:
+        return x.view(torch.int16)
+    raise TypeError(f"XOR 16-bit lane expects uint16/int16, got {x.dtype}")
+
+
+def check_even_lanes(name: str, lanes: int) -> None:
+    """Two 16-bit lanes make one u32 wire word: a packet row holds an
+    even lane count (``repro.kernels.xor_code.xor_encode_gather16``)."""
+    if lanes % 2:
+        raise ValueError(f"{name}: packed packet lane count must be even, "
+                         f"got {lanes}")
 
 
 def _masked_fold(chunks, idx, mask, acc):
@@ -61,6 +80,31 @@ def xor_decode_gather_ref(recv: torch.Tensor, chunks: torch.Tensor,
     dev = torch.arange(recv.shape[0], device=recv.device)[:, None]
     acc = as_words(recv)[dev, rsel.long()]                  # [K, rows, pk]
     return _masked_fold(words, idx, mask, acc).view(chunks.dtype)
+
+
+def xor_encode_gather16_ref(chunks: torch.Tensor, idx: torch.Tensor,
+                            mask: torch.Tensor) -> torch.Tensor:
+    """:func:`xor_encode_gather_ref` over 16-bit lanes: chunks
+    ``[K, P, 2pk]`` u16/i16, idx/mask ``[K, n, m]`` -> ``[K, n, 2pk]`` in
+    the dtype of ``chunks``."""
+    lanes = as_lanes(chunks)
+    check_even_lanes("xor_encode_gather16", lanes.shape[2])
+    K, n = idx.shape[:2]
+    acc = torch.zeros((K, n, lanes.shape[2]), dtype=torch.int16,
+                      device=lanes.device)
+    return _masked_fold(lanes, idx, mask, acc).view(chunks.dtype)
+
+
+def xor_decode_gather16_ref(recv: torch.Tensor, chunks: torch.Tensor,
+                            rsel: torch.Tensor, idx: torch.Tensor,
+                            mask: torch.Tensor) -> torch.Tensor:
+    """:func:`xor_decode_gather_ref` over 16-bit lanes (recv
+    ``[K, Rr, 2pk]``, chunks ``[K, P, 2pk]``)."""
+    lanes = as_lanes(chunks)
+    check_even_lanes("xor_decode_gather16", lanes.shape[2])
+    dev = torch.arange(recv.shape[0], device=recv.device)[:, None]
+    acc = as_lanes(recv)[dev, rsel.long()]                  # [K, rows, 2pk]
+    return _masked_fold(lanes, idx, mask, acc).view(chunks.dtype)
 
 
 def aggregate_ref(values: torch.Tensor, segment_ids: torch.Tensor,

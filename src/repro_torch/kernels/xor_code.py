@@ -1,9 +1,11 @@
 """Fused gather-XOR codec of the coded shuffle (CUDA, ``csrc/xor_gather.cu``).
 
 Counterparts of the JAX package's Pallas kernels
-``repro.kernels.xor_code.xor_encode_gather`` / ``xor_decode_gather``,
-with a leading virtual-device axis: one launch covers all ``K`` workers
-of the stacked executor (:mod:`repro_torch.core.collective`).
+``repro.kernels.xor_code.xor_encode_gather`` / ``xor_decode_gather``
+(u32 wire words) and ``xor_encode_gather16`` / ``xor_decode_gather16``
+(the packed 16-bit lane: bf16/f16 payloads as u16 lanes, two per wire
+word), with a leading virtual-device axis: one launch covers all ``K``
+workers of the stacked executor (:mod:`repro_torch.core.collective`).
 
 A tensor on the CPU goes to the plain version in :mod:`.ref`; a CUDA
 tensor launches the kernel or raises. Each wrapper's ``launches``
@@ -15,18 +17,24 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .ref import as_words, xor_decode_gather_ref, xor_encode_gather_ref
+from .ref import (as_lanes, as_words, check_even_lanes,
+                  xor_decode_gather16_ref, xor_decode_gather_ref,
+                  xor_encode_gather16_ref, xor_encode_gather_ref)
 
-__all__ = ["xor_encode_gather", "xor_decode_gather"]
+__all__ = ["xor_encode_gather", "xor_decode_gather", "xor_encode_gather16",
+           "xor_decode_gather16"]
 
 _MAX_SRC = 64          # kMaxSrc of csrc/xor_gather.cu
 _MAX_GRID_YZ = 65535
 
 
-def _vec(pk: int, *tensors: torch.Tensor) -> int:
-    """Widest vector access (u32 words) every row start allows."""
-    for v in (4, 2):
-        if pk % v == 0 and all(t.data_ptr() % (4 * v) == 0 for t in tensors):
+def _vec(row: int, widths, *tensors: torch.Tensor) -> int:
+    """Widest access (in elements of ``tensors``, from ``widths``) that
+    divides the row length and to which every base pointer is aligned."""
+    size = tensors[0].element_size()
+    for v in widths:
+        if row % v == 0 and all(t.data_ptr() % (size * v) == 0
+                                for t in tensors):
             return v
     return 1
 
@@ -54,6 +62,81 @@ def _cuda_ready(name, *tensors):
     return dev
 
 
+def _check_grid(name, K, rows, m):
+    if m > _MAX_SRC or rows > _MAX_GRID_YZ or K > _MAX_GRID_YZ:
+        raise ValueError(f"{name}: m={m} (max {_MAX_SRC}), rows={rows} and "
+                         f"K={K} (max {_MAX_GRID_YZ}) out of range")
+
+
+#: per lane: the working view and the access widths (elements) it offers
+_WORD_LANE = (as_words, (4, 2))
+_HALF_LANE = (as_lanes, (8, 4, 2))
+
+
+def _encode(fn, lane, ref_fn, chunks, idx, mask):
+    name = fn.__name__
+    view, widths = lane
+    words = view(chunks)
+    if words.dim() != 3:
+        raise ValueError(f"{name}: chunks must be [K, P, row], got "
+                         f"{tuple(chunks.shape)}")
+    K, P, row = words.shape
+    if view is as_lanes:
+        check_even_lanes(name, row)
+    _check_tables(name, K, None, idx, mask)
+    if words.device.type == "cpu":
+        return ref_fn(chunks, idx, mask)
+    _cuda_ready(name, words, idx, mask)
+    n, m = idx.shape[1:]
+    _check_grid(name, K, n, m)
+    out = torch.empty((K, n, row), dtype=words.dtype, device=words.device)
+    if out.numel():
+        lib = _build.load("xor_gather")
+        code = getattr(lib, name)(
+            words.data_ptr(), idx.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), K, P, n, m, row, _vec(row, widths, words, out),
+            torch.cuda.current_stream(words.device).cuda_stream)
+        _build.check(lib, name, code)
+        fn.launches += 1
+    return out.view(chunks.dtype)
+
+
+def _decode(fn, lane, ref_fn, recv, chunks, rsel, idx, mask):
+    name = fn.__name__
+    view, widths = lane
+    words, rwords = view(chunks), view(recv)
+    if words.dim() != 3 or rwords.dim() != 3:
+        raise ValueError(f"{name}: recv and chunks must be [K, rows, row]")
+    K, P, row = words.shape
+    if rwords.shape[0] != K or rwords.shape[2] != row:
+        raise ValueError(f"{name}: recv {tuple(recv.shape)} does not match "
+                         f"chunks {tuple(chunks.shape)}")
+    if view is as_lanes:
+        check_even_lanes(name, row)
+    rows = rsel.shape[1] if rsel.dim() == 2 else -1
+    if rsel.dtype != torch.int32 or rsel.shape != (K, rows):
+        raise ValueError(f"{name}: rsel must be int32 [K, rows], got "
+                         f"{rsel.dtype} {tuple(rsel.shape)}")
+    _check_tables(name, K, rows, idx, mask)
+    if words.device.type == "cpu":
+        return ref_fn(recv, chunks, rsel, idx, mask)
+    _cuda_ready(name, words, rwords, rsel, idx, mask)
+    m = idx.shape[2]
+    _check_grid(name, K, rows, m)
+    out = torch.empty((K, rows, row), dtype=words.dtype, device=words.device)
+    if out.numel():
+        lib = _build.load("xor_gather")
+        code = getattr(lib, name)(
+            rwords.data_ptr(), words.data_ptr(), rsel.data_ptr(),
+            idx.data_ptr(), mask.data_ptr(), out.data_ptr(), K, P,
+            rwords.shape[1], rows, m, row,
+            _vec(row, widths, words, rwords, out),
+            torch.cuda.current_stream(words.device).cuda_stream)
+        _build.check(lib, name, code)
+        fn.launches += 1
+    return out.view(chunks.dtype)
+
+
 def xor_encode_gather(chunks: torch.Tensor, idx: torch.Tensor,
                       mask: torch.Tensor) -> torch.Tensor:
     """Fused encode: ``out[v, i] = XOR_j {chunks[v, idx[v, i, j]] :
@@ -64,30 +147,8 @@ def xor_encode_gather(chunks: torch.Tensor, idx: torch.Tensor,
     entries carry an in-range index), mask ``bool[K, n, m]`` ->
     ``[K, n, pk]`` in the dtype of ``chunks``.
     """
-    words = as_words(chunks)
-    if words.dim() != 3:
-        raise ValueError(f"xor_encode_gather: chunks must be [K, P, pk], got "
-                         f"{tuple(chunks.shape)}")
-    K, P, pk = words.shape
-    _check_tables("xor_encode_gather", K, None, idx, mask)
-    if words.device.type == "cpu":
-        return xor_encode_gather_ref(chunks, idx, mask)
-    _cuda_ready("xor_encode_gather", words, idx, mask)
-    n, m = idx.shape[1:]
-    if m > _MAX_SRC or n > _MAX_GRID_YZ or K > _MAX_GRID_YZ:
-        raise ValueError(f"xor_encode_gather: m={m} (max {_MAX_SRC}), n={n} "
-                         f"and K={K} (max {_MAX_GRID_YZ}) out of range")
-    out = torch.empty((K, n, pk), dtype=torch.int32, device=words.device)
-    if out.numel():
-        lib = _build.load("xor_gather")
-        vec = _vec(pk, words, out)
-        code = lib.xor_encode_gather(
-            words.data_ptr(), idx.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), K, P, n, m, pk, vec,
-            torch.cuda.current_stream(words.device).cuda_stream)
-        _build.check(lib, "xor_encode_gather", code)
-        xor_encode_gather.launches += 1
-    return out.view(chunks.dtype)
+    return _encode(xor_encode_gather, _WORD_LANE, xor_encode_gather_ref,
+                   chunks, idx, mask)
 
 
 def xor_decode_gather(recv: torch.Tensor, chunks: torch.Tensor,
@@ -100,40 +161,32 @@ def xor_decode_gather(recv: torch.Tensor, chunks: torch.Tensor,
     rsel ``i32[K, rows]`` (``dec_recv`` of the lowering), idx/mask
     ``[K, rows, m]`` -> ``[K, rows, pk]`` in the dtype of ``chunks``.
     """
-    words, rwords = as_words(chunks), as_words(recv)
-    if words.dim() != 3 or rwords.dim() != 3:
-        raise ValueError("xor_decode_gather: recv and chunks must be "
-                         "[K, rows, pk]")
-    K, P, pk = words.shape
-    if rwords.shape[0] != K or rwords.shape[2] != pk:
-        raise ValueError(f"xor_decode_gather: recv {tuple(recv.shape)} does "
-                         f"not match chunks {tuple(chunks.shape)}")
-    rows = rsel.shape[1] if rsel.dim() == 2 else -1
-    if rsel.dtype != torch.int32 or rsel.shape != (K, rows):
-        raise ValueError(f"xor_decode_gather: rsel must be int32 [K, rows], "
-                         f"got {rsel.dtype} {tuple(rsel.shape)}")
-    _check_tables("xor_decode_gather", K, rows, idx, mask)
-    if words.device.type == "cpu":
-        return xor_decode_gather_ref(recv, chunks, rsel, idx, mask)
-    _cuda_ready("xor_decode_gather", words, rwords, rsel, idx, mask)
-    m = idx.shape[2]
-    if m > _MAX_SRC or rows > _MAX_GRID_YZ or K > _MAX_GRID_YZ:
-        raise ValueError(f"xor_decode_gather: m={m} (max {_MAX_SRC}), "
-                         f"rows={rows} and K={K} (max {_MAX_GRID_YZ}) out "
-                         "of range")
-    out = torch.empty((K, rows, pk), dtype=torch.int32, device=words.device)
-    if out.numel():
-        lib = _build.load("xor_gather")
-        vec = _vec(pk, words, rwords, out)
-        code = lib.xor_decode_gather(
-            rwords.data_ptr(), words.data_ptr(), rsel.data_ptr(),
-            idx.data_ptr(), mask.data_ptr(), out.data_ptr(), K, P,
-            rwords.shape[1], rows, m, pk, vec,
-            torch.cuda.current_stream(words.device).cuda_stream)
-        _build.check(lib, "xor_decode_gather", code)
-        xor_decode_gather.launches += 1
-    return out.view(chunks.dtype)
+    return _decode(xor_decode_gather, _WORD_LANE, xor_decode_gather_ref,
+                   recv, chunks, rsel, idx, mask)
+
+
+def xor_encode_gather16(chunks: torch.Tensor, idx: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """Packed-lane fused encode: :func:`xor_encode_gather` over 16-bit
+    lanes. chunks ``u16|i16[K, P, 2pk]`` (the lane view of the padded
+    bf16/f16 chunk buffers; the lane count must be even) -> ``[K, n,
+    2pk]`` in the dtype of ``chunks``, whose ``int32`` view is the wire
+    Δ ``[K, n, pk]``."""
+    return _encode(xor_encode_gather16, _HALF_LANE, xor_encode_gather16_ref,
+                   chunks, idx, mask)
+
+
+def xor_decode_gather16(recv: torch.Tensor, chunks: torch.Tensor,
+                        rsel: torch.Tensor, idx: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """Packed-lane fused decode: :func:`xor_decode_gather` over 16-bit
+    lanes (recv ``[K, Rr, 2pk]``: the received wire words viewed as lane
+    pairs) -> ``[K, rows, 2pk]`` chunk-slot rows in 16-bit lanes."""
+    return _decode(xor_decode_gather16, _HALF_LANE, xor_decode_gather16_ref,
+                   recv, chunks, rsel, idx, mask)
 
 
 xor_encode_gather.launches = 0
 xor_decode_gather.launches = 0
+xor_encode_gather16.launches = 0
+xor_decode_gather16.launches = 0

@@ -3,8 +3,9 @@
 ``granite_3_2b`` (hf:ibm-granite/granite-3.0-2b-base) at full width,
 depth cut from 40 to 2 layers, q=2, k=3 (K=6 virtual workers, J=4
 models), trained on ``ShardedTokenPipeline(seq_len=512,
-global_batch=1)`` from seed 0. ``chip_smoke.py`` and
-:mod:`repro_torch.launch.profile` both build it here.
+global_batch=1)`` from seed 0, on the f32 or the bf16 grad-sync lane.
+``chip_smoke.py`` and :mod:`repro_torch.launch.profile` both build it
+here.
 """
 
 from __future__ import annotations
@@ -20,11 +21,13 @@ SEQ_LEN = 512
 GLOBAL_BATCH = 1
 
 
-def make_cell(device=None):
+def make_cell(device=None, grad_sync_dtype="float32"):
     """The cell's ``(trainer, pipeline)``; ``device=None`` is the current
-    CUDA device."""
+    CUDA device, ``grad_sync_dtype`` the lane (``"float32"`` or
+    ``"bfloat16"``)."""
     cfg = get_config(ARCH).replace(n_layers=N_LAYERS)
-    tr = MultiModelCAMRTrainer(cfg, q=Q, k=K, seed=0, device=device)
+    tr = MultiModelCAMRTrainer(cfg, q=Q, k=K, seed=0, device=device,
+                               grad_sync_dtype=grad_sync_dtype)
     pipe = ShardedTokenPipeline(vocab=cfg.vocab, seq_len=SEQ_LEN,
                                 global_batch=GLOBAL_BATCH)
     return tr, pipe

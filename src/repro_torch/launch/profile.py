@@ -3,16 +3,18 @@
     PYTHONPATH=src python -m repro_torch.launch.profile
 
 Builds the measured cell (:mod:`repro_torch.launch.cell`) on the current
-CUDA device, runs ``WARM`` steps, then one step under
-``torch.profiler`` and prints: the step's wall time, the summed device
-time of its kernels and their share of the wall time (one stream, so
-kernels do not overlap), and the kernels with the most device time.
+CUDA device, once per grad-sync lane (f32, then bf16, the first trainer
+freed before the second is built), runs ``WARM`` steps, then one step
+under ``torch.profiler`` and prints: the step's wall time, the summed
+device time of its kernels and their share of the wall time (one stream,
+so kernels do not overlap), and the kernels with the most device time.
 Prints "device time: not measured" when the profiler records no device
 activity.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import time
 
@@ -23,6 +25,7 @@ from repro_torch.launch.cell import make_cell
 
 WARM = 2     # steps before the traced one: cuBLAS and allocator warm-up
 TOP = 25     # kernels listed
+LANES = ("float32", "bfloat16")
 
 
 def _device_us(evt) -> float:
@@ -33,7 +36,15 @@ def _device_us(evt) -> float:
 
 
 def main():
-    tr, pipe = make_cell()
+    for lane in LANES:
+        print(f"== grad_sync_dtype={lane}")
+        profile_lane(lane)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def profile_lane(lane: str) -> None:
+    tr, pipe = make_cell(grad_sync_dtype=lane)
     tr.train_steps(pipe, WARM)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,

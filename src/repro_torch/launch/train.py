@@ -2,11 +2,12 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite_3_2b \\
         --multi-model --grad-sync camr_spmd --q 2 --k 3 --steps 2 \\
-        --n-layers 2 --seq-len 512 --batch 1
+        --n-layers 2 --seq-len 512 --batch 1 [--grad-sync-dtype bfloat16]
 
 runs ``MultiModelCAMRTrainer.train_steps(mode="camr_spmd")`` on the
 current CUDA device (``--device cpu`` runs the plain versions on the
-CPU, best with ``--reduced``). Only ``--multi-model --grad-sync
+CPU, best with ``--reduced``); ``--grad-sync-dtype bfloat16`` syncs the
+gradients on the packed 16-bit wire lane. Only ``--multi-model --grad-sync
 camr_spmd`` is ported; the other choices exit with a pointer to
 ROADMAP.md.
 """
@@ -44,6 +45,11 @@ def main(argv=None):
     ap.add_argument("--k", type=int, default=3)
     ap.add_argument("--router", choices=["all_to_all", "ppermute"],
                     default="all_to_all")
+    ap.add_argument("--grad-sync-dtype", choices=["float32", "bfloat16"],
+                    default=None,
+                    help="shuffle payload dtype (default: the config's); "
+                         "bfloat16 = mixed-precision grad sync at half "
+                         "the wire bytes")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device)")
     args = ap.parse_args(argv)
@@ -63,7 +69,8 @@ def main(argv=None):
                                 global_batch=args.batch)
     tr = MultiModelCAMRTrainer(cfg, q=args.q, k=args.k, lr=args.lr,
                                seed=args.seed, router=args.router,
-                               device=args.device)
+                               device=args.device,
+                               grad_sync_dtype=args.grad_sync_dtype)
     t0 = time.time()
     rep = tr.train_steps(pipe, args.steps, mode="camr_spmd")
     dt = time.time() - t0

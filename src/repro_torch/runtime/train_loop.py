@@ -2,29 +2,33 @@
 per-batch gradients are aggregated through the CAMR coded shuffle.
 
 Counterpart of ``repro.runtime.train_loop.MultiModelCAMRTrainer`` with
-``mode="camr_spmd"`` and f32 grad sync. Per step:
+``mode="camr_spmd"``, on the f32 or the bf16 grad-sync lane. Per step:
 
 1. **map** — every (job, subfile) batch is mapped once to the gradient of
    its model's loss w.r.t. the flat f32 parameter row (computation
-   redundancy k-1 is served from a per-step memo);
+   redundancy k-1 is served from a per-step memo); on the bf16 lane each
+   memo row is rounded to bf16 once, to nearest even;
 2. **aggregate** — each worker compresses the gradients of its stored
    (job, batch) pairs with the alpha-combiner kernel
-   (:func:`repro_torch.kernels.aggregate`, one launch per worker) into
-   its rows of the stacked contribution tensor ``[K, J_own, k-1, K, d]``;
-   the memo is dropped once the contributions are built;
+   (:func:`repro_torch.kernels.aggregate`, one launch per worker, f32 or
+   bf16) into its rows of the stacked contribution tensor
+   ``[K, J_own, k-1, K, d]`` in the sync dtype; the memo is dropped once
+   the contributions are built;
 3. **shuffle** — the 3-stage coded shuffle of all K virtual workers
    (:class:`repro_torch.core.collective.ShuffleStream`; one encode and
-   one decode kernel launch per coded stage);
-4. **update** — the worker-sharded AdamW update of the flat ``[J, Dpad]``
-   master, moments updated in place.
+   one decode kernel launch per coded stage, the 16-bit codec kernels on
+   the bf16 lane at half the wire bytes);
+4. **update** — the synced gradient upcast to f32 (exact), then the
+   worker-sharded AdamW update of the flat f32 ``[J, Dpad]`` master,
+   moments updated in place.
 
 Everything stays on the card: the JAX trainer's host round trip of each
 gradient is not carried over. Float32 products run in full f32: while
 ``train_steps`` runs on a card, TF32 and reduced-precision bf16
 reductions are switched off, and the caller's settings are restored when
 it returns. The synced gradient of the same per-subfile gradients is
-bitwise the JAX trainer's; parameters match it within tolerance (the
-clip norm sums in another order).
+bitwise the JAX trainer's, on both lanes; parameters match it within
+tolerance (the clip norm sums in another order).
 """
 
 from __future__ import annotations
@@ -126,6 +130,13 @@ class MultiModelCAMRTrainer:
     ``(seed, job)`` on the trainer's device. ``device=None`` is the
     current CUDA device and raises when there is none.
 
+    ``grad_sync_dtype`` is the shuffle payload dtype: ``"float32"`` or
+    ``"bfloat16"`` (mixed-precision grad sync: gradients rounded to bf16
+    once at the map memo, synced on the packed 16-bit wire lane at half
+    the bytes, upcast to f32 for the master update); ``None`` reads
+    ``cfg.grad_sync_dtype``. ``float16`` is refused: raw gradients
+    overflow and flush its 5-bit exponent, and there is no loss scaling.
+
     State layout (the JAX trainer's): parameters, moments and synced
     gradients are flat padded f32 rows of ``Dpad = K * d_shard`` elements
     per job, ``(k-1) | d_shard``; worker s owns shard s of every job.
@@ -133,13 +144,24 @@ class MultiModelCAMRTrainer:
 
     def __init__(self, cfg: ModelConfig, *, q: int, k: int,
                  lr: float = 1e-3, seed: int = 0, params=None,
-                 router: str = "all_to_all", device=None):
+                 router: str = "all_to_all", device=None,
+                 grad_sync_dtype: str | None = None):
+        gsd = (cfg.grad_sync_dtype if grad_sync_dtype is None
+               else grad_sync_dtype)
+        name = str(gsd).removeprefix("torch.")
+        if name == "float16":
+            raise ValueError(
+                "grad_sync_dtype=float16 is unsafe for raw gradients: "
+                "the 5-bit exponent overflows above 65504 and flushes "
+                "below ~6e-5, and this trainer implements no loss "
+                "scaling. Use grad_sync_dtype='bfloat16' (same exponent "
+                "range as float32, same 2x wire savings) or 'float32'.")
+        if name not in ("float32", "bfloat16"):
+            raise ValueError(f"grad_sync_dtype must be float32 or "
+                             f"bfloat16, got {name}")
         self.device = resolve_device(device)
-        if cfg.grad_sync_dtype != "float32":
-            raise NotImplementedError(
-                f"grad_sync_dtype={cfg.grad_sync_dtype!r}: the bf16 "
-                "grad-sync lane is not ported yet (ROADMAP.md, Queue 1)")
-        self.grad_sync_dtype = "float32"
+        self.grad_sync_dtype = name
+        self._sync_dtype = getattr(torch, name)
         self.cfg, self.q, self.k = cfg, q, k
         self.K, self.J, self.N = q * k, q ** (k - 1), k   # gamma = 1
         J, K = self.J, self.K
@@ -184,12 +206,16 @@ class MultiModelCAMRTrainer:
         return [unravel(self.flat[j], self._spec) for j in range(self.J)]
 
     def _grad_vec(self, j: int, n: int, batch) -> torch.Tensor:
-        """Loss gradient of job j on one subfile as a flat f32 row
-        ``[Dpad]`` (zero past ``D``): autograd to each cast leaf, then one
-        concatenation in flat order. The gradient of ``ravel_pytree``'s
-        f32 -> leaf-dtype cast is the leaf gradient cast back to f32; a
-        flat row with ``requires_grad`` and sliced views would cost one
-        zero-filled ``[Dpad]`` buffer per leaf in the backward pass."""
+        """Loss gradient of job j on one subfile as a flat row ``[Dpad]``
+        in the sync dtype (zero past ``D``): autograd to each cast leaf,
+        then one concatenation in flat order. The gradient of
+        ``ravel_pytree``'s f32 -> leaf-dtype cast is the leaf gradient
+        cast back to f32; a flat row with ``requires_grad`` and sliced
+        views would cost one zero-filled ``[Dpad]`` buffer per leaf in
+        the backward pass. On the bf16 lane the concatenation rounds each
+        leaf gradient to nearest even straight into the bf16 row (exact
+        for bf16 leaves, one rounding for f32 ones): the JAX trainer's
+        rounding of its f32 flat gradient, with no f32 row in between."""
         ps = [t.detach().requires_grad_(True)
               for t in split(self.flat[j], self._spec)]
         b = {key: torch.as_tensor(v, device=self.device)
@@ -198,7 +224,8 @@ class MultiModelCAMRTrainer:
         grads = torch.autograd.grad(loss, ps)
         self._last_loss[j][n] = loss.detach()
         self.map_calls += 1
-        row = torch.empty(self.Dpad, dtype=torch.float32, device=self.device)
+        row = torch.empty(self.Dpad, dtype=self._sync_dtype,
+                          device=self.device)
         torch.cat([g.reshape(-1) for g in grads], out=row[:self.D])
         row[self.D:] = 0
         return row
@@ -207,14 +234,14 @@ class MultiModelCAMRTrainer:
         """The map lane of the SPMD path: per worker, the alpha-combiner
         kernel compresses the gradients of the stored (job, batch)
         subfiles into the stacked contribution tensor
-        ``[K, J_own, k-1, K, d]`` (gamma == 1: one subfile per segment,
-        bit-exact)."""
+        ``[K, J_own, k-1, K, d]`` in the sync dtype (gamma == 1: one
+        subfile per segment, bit-exact)."""
         prog = self.plan.program
         K, k = self.K, self.k
         J_own = self.q ** (self.k - 2)
         S = J_own * (k - 1)
         out = torch.empty((K, J_own, k - 1, K, self.d_shard),
-                          dtype=torch.float32, device=self.device)
+                          dtype=self._sync_dtype, device=self.device)
         for s in range(K):
             vals, ids = [], []
             for a in range(J_own):
@@ -242,16 +269,19 @@ class MultiModelCAMRTrainer:
         report.loads = {"L_total_bus": Lo.camr_load(self.q, self.k),
                         "L_total_p2p": Lo.camr_load_p2p(self.q, self.k)}
         report.bytes_total += camr_collective_bytes(
-            self.plan, dtype=torch.float32)["camr_total"]
+            self.plan, dtype=self._sync_dtype)["camr_total"]
         report.sync = stream.stats()
         return out
 
     def _apply(self, gsync: torch.Tensor) -> None:
         """The worker-sharded AdamW update from ``gsync [K, J, d]`` (worker
         s holds shard s of every job's summed gradient; consumed). The
-        transpose is pure data movement; /N and AdamW are elementwise
-        plus the per-job clip norm."""
-        grads = gsync.transpose(0, 1).reshape(self.J, self.Dpad)
+        transpose is pure data movement, fused with the exact upcast of a
+        bf16 sync to f32; /N and AdamW are elementwise plus the per-job
+        clip norm."""
+        grads = torch.empty((self.J, self.Dpad), dtype=torch.float32,
+                            device=self.device)
+        grads.view(self.J, self.K, self.d_shard).copy_(gsync.transpose(0, 1))
         grads.div_(self.N)
         adamw_update(self.flat, grads, self.opt, lr=self.lr)
 

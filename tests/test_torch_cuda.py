@@ -7,12 +7,13 @@ that has only PyTorch:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances: XOR gathers, ``aggregate`` with one row per segment and the
-shuffle are bitwise (bit movers, exact sums); ``aggregate`` with several
-rows per segment is rtol 1e-6 as stated for the kernel (it is in fact
-the same ascending f32 sum); the tiny trainer's loss on the card is
-within rtol 1e-4 of the CPU's (cuBLAS and the CPU's BLAS sum products
-in other orders, TF32 off).
+Tolerances: XOR gathers (u32 words and u16 lanes), ``aggregate`` with
+one row per segment and the shuffle (f32 and packed bf16/f16) are
+bitwise (bit movers, exact sums); ``aggregate`` with several rows per
+segment is rtol 1e-6 in f32 and one bf16 ulp in bf16, as stated for the
+kernel (it is in fact the same ascending f32 sum); the tiny trainer's
+loss on the card is within rtol 1e-4 of the CPU's (cuBLAS and the CPU's
+BLAS sum products in other orders, TF32 off), on both grad-sync lanes.
 """
 
 import numpy as np
@@ -23,8 +24,9 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core.collective import (camr_shuffle, make_plan,
                                          scatter_contributions)
 from repro_torch.data.pipeline import ShardedTokenPipeline
-from repro_torch.kernels import (aggregate, launch_counts, ref,
-                                 xor_decode_gather, xor_encode_gather)
+from repro_torch.kernels import (aggregate, aggregate_bf16, launch_counts,
+                                 ref, xor_decode_gather, xor_decode_gather16,
+                                 xor_encode_gather, xor_encode_gather16)
 from repro_torch.runtime import MultiModelCAMRTrainer
 
 pytestmark = pytest.mark.cuda
@@ -82,6 +84,82 @@ def test_cuda_aggregate_matches_plain(cuda_device, n, d, S, one):
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("lanes,offset", [(2, 0), (6, 0), (1002, 0),
+                                          (4096, 0), (4096, 1)])
+def test_cuda_gathers16_match_plain(cuda_device, lanes, offset):
+    """16-bit lanes: the 16-, 8-, 4- and 2-byte access paths (an offset
+    of one lane leaves only 2-byte alignment)."""
+    rng = np.random.default_rng(lanes + offset)
+    K, P, n, m = 3, 6, 5, 4
+
+    def lanes_(shape):
+        flat = torch.from_numpy(rng.integers(
+            0, 2**16, size=int(np.prod(shape)) + offset,
+            dtype=np.uint16).view(np.int16)).to(cuda_device)
+        return flat[offset:].view(shape)
+
+    c = lanes_((K, P, lanes))
+    mask = torch.from_numpy(rng.integers(0, 2, size=(K, n, m)).astype(bool))
+    idx = torch.from_numpy(rng.integers(0, P, size=(K, n, m)).astype(np.int32))
+    idx[~mask] = 0
+    i, mk = idx.to(cuda_device), mask.to(cuda_device)
+    r = lanes_((K, n, lanes))
+    s = torch.from_numpy(np.stack([rng.permutation(n) for _ in range(K)])
+                         .astype(np.int32)).to(cuda_device)
+    before = launch_counts()
+    assert torch.equal(xor_encode_gather16(c, i, mk),
+                       ref.xor_encode_gather16_ref(c, i, mk))
+    assert torch.equal(xor_decode_gather16(r, c, s, i, mk),
+                       ref.xor_decode_gather16_ref(r, c, s, i, mk))
+    after = launch_counts()
+    assert after["xor_encode_gather16"] == before["xor_encode_gather16"] + 1
+    assert after["xor_decode_gather16"] == before["xor_decode_gather16"] + 1
+    assert after["xor_encode_gather"] == before["xor_encode_gather"]
+
+
+@pytest.mark.parametrize("n,d,S,one", [(4, 1000, 4, True), (6, 1001, 4, True),
+                                       (33, 4096, 11, False)])
+def test_cuda_aggregate_bf16_matches_plain(cuda_device, n, d, S, one):
+    rng = np.random.default_rng(d + 1)
+    vals = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    if one:
+        ids = np.full(n, -1, np.int32)
+        ids[rng.permutation(n)[:S]] = np.arange(S)
+    else:
+        ids = rng.integers(-1, S, size=n).astype(np.int32)
+    v = vals.bfloat16().to(cuda_device)
+    i = torch.from_numpy(ids).to(cuda_device)
+    before = launch_counts()
+    got, want = aggregate(v, i, S), ref.aggregate_ref(v, i, S)
+    assert got.dtype == torch.bfloat16
+    after = launch_counts()
+    assert after["aggregate_bf16"] == before["aggregate_bf16"] + 1
+    assert after["aggregate"] == before["aggregate"]
+    gb, wb = got.view(torch.int16).long(), want.view(torch.int16).long()
+    if one:
+        assert torch.equal(gb, wb)
+    else:   # neighbouring bf16 values of one sign differ by 1 in bits
+        assert (gb - wb).abs().max() <= 1
+    assert torch.equal(aggregate_bf16(v, i, S), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("router", ["all_to_all", "ppermute"])
+@pytest.mark.parametrize("q,k", [(2, 3), (3, 3), (2, 4)])
+def test_cuda_packed_shuffle_bitwise_equals_cpu(cuda_device, q, k, router,
+                                                dtype):
+    d = (k - 1) * 1001                      # odd lane counts for k = 4
+    plan = make_plan(q, k, d)
+    rng = np.random.default_rng(q * k + 7)
+    bg = rng.standard_normal((plan.J, k, plan.K, d)).astype(np.float32)
+    c = torch.from_numpy(scatter_contributions(plan, bg)).to(dtype)
+    got = camr_shuffle(plan, c.to(cuda_device), router=router).cpu()
+    want = camr_shuffle(plan, c, router=router)
+    words = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(words), want.view(words))
+
+
 @pytest.mark.parametrize("router", ["all_to_all", "ppermute"])
 @pytest.mark.parametrize("q,k", [(2, 3), (3, 3), (2, 4)])
 def test_cuda_shuffle_bitwise_equals_cpu(cuda_device, q, k, router):
@@ -95,18 +173,33 @@ def test_cuda_shuffle_bitwise_equals_cpu(cuda_device, q, k, router):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
-def test_cuda_trainer_step_matches_cpu(cuda_device):
+def _trainer_step_on_card_and_cpu(cuda_device, grad_sync_dtype):
     cfg = reduced(get_config("granite_3_2b")).replace(vocab=64, loss_chunk=8)
     pipe = ShardedTokenPipeline(vocab=64, seq_len=8, global_batch=2)
-    cpu = MultiModelCAMRTrainer(cfg, q=2, k=3, device="cpu", seed=3)
+    cpu = MultiModelCAMRTrainer(cfg, q=2, k=3, device="cpu", seed=3,
+                                grad_sync_dtype=grad_sync_dtype)
     params = [{k: v for k, v in p.items()} for p in cpu.params]
     card = MultiModelCAMRTrainer(cfg, q=2, k=3, device=cuda_device,
-                                 params=params)
+                                 params=params,
+                                 grad_sync_dtype=grad_sync_dtype)
     assert torch.equal(card.flat.cpu(), cpu.flat)
     before = launch_counts()
     rc, rg = cpu.train_steps(pipe, 1), card.train_steps(pipe, 1)
     after = launch_counts()
     np.testing.assert_allclose(rg.losses, rc.losses, rtol=1e-4)
-    assert after["aggregate"] - before["aggregate"] == card.K
-    assert after["xor_encode_gather"] - before["xor_encode_gather"] == 2
-    assert after["xor_decode_gather"] - before["xor_decode_gather"] == 2
+    assert rg.bytes_total == rc.bytes_total
+    return card, {name: after[name] - before[name] for name in after}
+
+
+def test_cuda_trainer_step_matches_cpu(cuda_device):
+    card, runs = _trainer_step_on_card_and_cpu(cuda_device, "float32")
+    assert runs == {"xor_encode_gather": 2, "xor_decode_gather": 2,
+                    "aggregate": card.K, "xor_encode_gather16": 0,
+                    "xor_decode_gather16": 0, "aggregate_bf16": 0}
+
+
+def test_cuda_bf16_trainer_step_matches_cpu(cuda_device):
+    card, runs = _trainer_step_on_card_and_cpu(cuda_device, "bfloat16")
+    assert runs == {"xor_encode_gather": 0, "xor_decode_gather": 0,
+                    "aggregate": 0, "xor_encode_gather16": 2,
+                    "xor_decode_gather16": 2, "aggregate_bf16": card.K}

@@ -4,16 +4,21 @@ virtual-device slice at a time. The CUDA kernels against their plain
 versions on a card: tests/test_torch_cuda.py.
 
 Tolerances: the XOR gathers are bit movers, so everything is compared
-BITWISE (on u32 words, NaN / -0.0 / denormal patterns included).
+BITWISE (on u32 words or u16 lanes, NaN / -0.0 / denormal patterns
+included).
 ``aggregate`` is bitwise when every segment holds one row (an exact
 gather in both implementations); with several rows per segment the
 Pallas one-hot product and the port's ascending f32 adds round in
 different orders, hence rtol 1e-6. XLA on the CPU flushes f32 denormals
 to zero inside these sums; the port's adds keep them, as the numpy
 engine's do, so the cross-package aggregate cases use normal values and
-a separate case pins the port's denormal behaviour.
+a separate case pins the port's denormal behaviour. On bf16 values the
+combiner sums in f32 and rounds once: bitwise with one row per segment,
+within one bf16 ulp with several (f32 sums in another order may round to
+the neighbouring bf16 value).
 """
 
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -23,9 +28,12 @@ import jax.numpy as jnp
 from repro.kernels.aggregate import aggregate as jax_aggregate
 from repro.kernels.xor_code import xor_decode_gather as jax_decode_gather
 from repro.kernels.xor_code import xor_encode_gather as jax_encode_gather
-from repro_torch.kernels import (aggregate, launch_counts, ref,
-                                 reset_launch_counts, xor_decode_gather,
-                                 xor_encode_gather)
+from repro.kernels.xor_code import xor_decode_gather16 as jax_decode_gather16
+from repro.kernels.xor_code import xor_encode_gather16 as jax_encode_gather16
+from repro_torch.kernels import (KERNELS, aggregate, aggregate_bf16,
+                                 launch_counts, ref, reset_launch_counts,
+                                 xor_decode_gather, xor_decode_gather16,
+                                 xor_encode_gather, xor_encode_gather16)
 
 # f32 bit patterns the codec must carry untouched
 SPECIAL = np.array([0x7FC00000, 0xFFC00001, 0x80000000, 0x00000001,
@@ -47,10 +55,30 @@ def _codec_inputs(K, P, pk, n, m, seed):
     return chunks, idx, mask, recv, rsel
 
 
+# bf16 lane patterns: quiet/signalling NaNs with payloads, +/-inf, +/-0,
+# subnormals (min and max), min/max normals
+SPECIAL16 = np.array([0x7FC0, 0xFFC0, 0x7F81, 0x7F80, 0xFF80, 0x0000, 0x8000,
+                      0x0001, 0x8001, 0x007F, 0x0080, 0x7F7F, 0xFF7F],
+                     dtype=np.uint16)
+
+
+def _codec16_inputs(K, P, lanes, n, m, seed):
+    """The 16-bit lane's inputs: u16 chunks / recv with the specials
+    sprinkled in, and the same table rules as :func:`_codec_inputs`."""
+    chunks, idx, mask, recv, rsel = _codec_inputs(K, P, 1, n, m, seed)
+    rng = np.random.default_rng(seed + 1)
+    chunks = rng.integers(0, 2**16, size=(K, P, lanes), dtype=np.uint16)
+    chunks.reshape(-1)[:len(SPECIAL16)] = SPECIAL16[:chunks.size]
+    recv = rng.integers(0, 2**16, size=(K, n, lanes), dtype=np.uint16)
+    recv.reshape(-1)[-len(SPECIAL16):] = SPECIAL16[-recv.size:]
+    return chunks, idx, mask, recv, rsel
+
+
 def _t(a):
-    """numpy -> torch (u32 as its int32 view)."""
+    """numpy -> torch (u32 / u16 as their int32 / int16 views)."""
     a = np.ascontiguousarray(a)
-    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+    view = {np.dtype(np.uint32): np.int32, np.dtype(np.uint16): np.int16}
+    return torch.from_numpy(a.view(view.get(a.dtype, a.dtype)))
 
 
 CODEC_SHAPES = [(2, 5, 7, 3, 3), (3, 9, 130, 4, 2), (1, 4, 1, 2, 4)]
@@ -80,6 +108,54 @@ def test_decode_gather_plain_matches_pallas(K, P, pk, n, m):
                                  jnp.asarray(mask[v]), interpret=True)
         np.testing.assert_array_equal(got[v], np.asarray(want))
     np.testing.assert_array_equal(got[:, 0], recv[np.arange(K), rsel[:, 0]])
+
+
+CODEC16_SHAPES = [(2, 5, 2, 3, 3), (3, 9, 6, 4, 2), (1, 4, 2002, 2, 4)]
+
+
+@pytest.mark.parametrize("K,P,lanes,n,m", CODEC16_SHAPES)
+def test_encode_gather16_plain_matches_pallas(K, P, lanes, n, m):
+    chunks, idx, mask, _, _ = _codec16_inputs(K, P, lanes, n, m, K + lanes)
+    got = ref.xor_encode_gather16_ref(_t(chunks), _t(idx), _t(mask))
+    assert got.shape == (K, n, lanes) and got.dtype == torch.int16
+    got = got.numpy().view(np.uint16)
+    for v in range(K):
+        want = jax_encode_gather16(jnp.asarray(chunks[v]),
+                                   jnp.asarray(idx[v]), jnp.asarray(mask[v]),
+                                   interpret=True)
+        np.testing.assert_array_equal(got[v], np.asarray(want))
+    assert (got[:, 0] == 0).all()            # masked row: XOR identity
+
+
+@pytest.mark.parametrize("K,P,lanes,n,m", CODEC16_SHAPES)
+def test_decode_gather16_plain_matches_pallas(K, P, lanes, n, m):
+    chunks, idx, mask, recv, rsel = _codec16_inputs(K, P, lanes, n, m,
+                                                    5 * K + lanes)
+    got = ref.xor_decode_gather16_ref(_t(recv), _t(chunks), _t(rsel),
+                                      _t(idx), _t(mask)).numpy()
+    got = got.view(np.uint16)
+    for v in range(K):
+        want = jax_decode_gather16(jnp.asarray(recv[v]),
+                                   jnp.asarray(chunks[v]),
+                                   jnp.asarray(rsel[v]), jnp.asarray(idx[v]),
+                                   jnp.asarray(mask[v]), interpret=True)
+        np.testing.assert_array_equal(got[v], np.asarray(want))
+    np.testing.assert_array_equal(got[:, 0], recv[np.arange(K), rsel[:, 0]])
+
+
+def test_gather16_is_the_word_gather_on_lane_pairs():
+    """XOR commutes with the split of a word into two lanes: the 16-bit
+    gathers give the bits of the word gathers on the same buffers."""
+    chunks, idx, mask, recv, rsel = _codec16_inputs(2, 6, 8, 4, 3, 17)
+    c, r = _t(chunks), _t(recv)
+    i, mk, s = _t(idx), _t(mask), _t(rsel)
+    assert torch.equal(
+        ref.xor_encode_gather16_ref(c, i, mk).view(torch.int32),
+        ref.xor_encode_gather_ref(c.view(torch.int32), i, mk))
+    assert torch.equal(
+        ref.xor_decode_gather16_ref(r, c, s, i, mk).view(torch.int32),
+        ref.xor_decode_gather_ref(r.view(torch.int32), c.view(torch.int32),
+                                  s, i, mk))
 
 
 def _agg_inputs(n, d, S, seed, one_per_segment):
@@ -112,6 +188,65 @@ def test_aggregate_plain_matches_pallas_several_rows(n, d, S):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
+def _bf16(a):
+    return np.asarray(a, np.float32).astype(ml_dtypes.bfloat16)
+
+
+def _ordered16(bits):
+    """u16 bf16 patterns -> integers in value order (+0 and -0 both 0),
+    so neighbouring bf16 values differ by one."""
+    b = bits.astype(np.int32)
+    return np.where(b & 0x8000, -(b & 0x7FFF), b & 0x7FFF)
+
+
+@pytest.mark.parametrize("n,d,S", [(6, 64, 4), (4, 37, 4)])
+def test_aggregate_bf16_plain_matches_pallas_one_row_per_segment(n, d, S):
+    vals, ids = _agg_inputs(n, d, S, 3 * n + d, one_per_segment=True)
+    vals = _bf16(vals)
+    got = ref.aggregate_ref(_t(vals.view(np.uint16)).view(torch.bfloat16),
+                            _t(ids), S)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(jax_aggregate(jnp.asarray(vals), jnp.asarray(ids), S,
+                                    interpret=True))
+    assert want.dtype == ml_dtypes.bfloat16
+    np.testing.assert_array_equal(got.view(torch.int16).numpy()
+                                  .view(np.uint16), want.view(np.uint16))
+
+
+@pytest.mark.parametrize("n,d,S", [(16, 8, 4), (33, 64, 5)])
+def test_aggregate_bf16_plain_within_one_ulp_of_pallas(n, d, S):
+    """Several rows per segment: both sum in f32 and round once, in other
+    orders, so a result may land on the neighbouring bf16 value."""
+    vals, ids = _agg_inputs(n, d, S, 11 * n + d, one_per_segment=False)
+    vals = _bf16(vals)
+    got = ref.aggregate_ref(_t(vals.view(np.uint16)).view(torch.bfloat16),
+                            _t(ids), S).view(torch.int16).numpy()
+    want = np.asarray(jax_aggregate(jnp.asarray(vals), jnp.asarray(ids), S,
+                                    interpret=True))
+    diff = np.abs(_ordered16(got.view(np.uint16))
+                  - _ordered16(want.view(np.uint16)))
+    assert diff.max() <= 1, diff.max()
+
+
+def test_nan_rounding_to_bf16_differs_from_ml_dtypes():
+    """Pinned difference (ROADMAP.md, Queue 3): an f32 NaN rounds to the
+    bf16 NaN 0xFFFF in torch and to 0x7FC0 / 0xFFC0 in ml_dtypes (the JAX
+    trainer's memo cast); finite values round to the same bits. So the
+    bf16 memo differs from JAX only for NaN gradients."""
+    f = np.array([0x7FC00000, 0x7FC00001, 0x7F800001, 0xFFC00000],
+                 np.uint32).view(np.float32)
+    got = torch.from_numpy(f).bfloat16().view(torch.int16).numpy()
+    assert (got.view(np.uint16) == 0xFFFF).all()
+    with np.errstate(invalid="ignore"):
+        jax_bits = f.astype(ml_dtypes.bfloat16).view(np.uint16)
+    assert list(jax_bits) == [0x7FC0, 0x7FC0, 0x7FC0, 0xFFC0]
+    x = np.random.default_rng(4).standard_normal(4096).astype(np.float32)
+    x[:4] = [0.0, -0.0, 1e-40, 3.4e38]
+    np.testing.assert_array_equal(
+        torch.from_numpy(x).bfloat16().view(torch.int16).numpy()
+        .view(np.uint16), x.astype(ml_dtypes.bfloat16).view(np.uint16))
+
+
 def test_aggregate_keeps_denormals_like_the_engine():
     vals = np.array([[1e-40, -3e-39, 2.0], [5e-41, 0.0, -1.0]], np.float32)
     ids = np.array([1, 0], np.int32)
@@ -139,8 +274,22 @@ def test_wrappers_take_plain_version_on_cpu():
     got = aggregate(_t(vals), _t(ids), 3, out=out)
     assert got is out and torch.equal(out, ref.aggregate_ref(_t(vals),
                                                             _t(ids), 3))
-    assert launch_counts() == {"xor_encode_gather": 0,
-                               "xor_decode_gather": 0, "aggregate": 0}
+    chunks, idx, mask, recv, rsel = _codec16_inputs(2, 5, 6, 3, 3, 12)
+    c, i, m_, r, s = (_t(a) for a in (chunks, idx, mask, recv, rsel))
+    assert torch.equal(xor_encode_gather16(c, i, m_),
+                       ref.xor_encode_gather16_ref(c, i, m_))
+    enc_u = xor_encode_gather16(c.view(torch.uint16), i, m_)
+    assert enc_u.dtype == torch.uint16
+    assert torch.equal(xor_decode_gather16(r, c, s, i, m_),
+                       ref.xor_decode_gather16_ref(r, c, s, i, m_))
+    vb = _t(vals).bfloat16()
+    outb = torch.empty((3, 12), dtype=torch.bfloat16)
+    assert aggregate_bf16(vb, _t(ids), 3, out=outb) is outb
+    assert torch.equal(outb, ref.aggregate_ref(vb, _t(ids), 3))
+    assert launch_counts() == dict.fromkeys(KERNELS, 0)
+    assert list(KERNELS) == ["xor_encode_gather", "xor_decode_gather",
+                             "aggregate", "xor_encode_gather16",
+                             "xor_decode_gather16", "aggregate_bf16"]
 
 
 def test_wrappers_reject_bad_inputs():
@@ -164,3 +313,18 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         aggregate(torch.zeros((3, 4)), torch.zeros(3, dtype=torch.int32), 2,
                   out=torch.zeros((3, 4)))
+    c16 = torch.zeros((2, 4, 8), dtype=torch.int16)
+    with pytest.raises(TypeError):
+        xor_encode_gather16(c, i, m)                 # 32-bit words
+    with pytest.raises(ValueError, match="even"):
+        xor_encode_gather16(c16[..., :7], i, m)
+    with pytest.raises(ValueError, match="even"):
+        ref.xor_decode_gather16_ref(c16[..., :7], c16[..., :7],
+                                    torch.zeros((2, 3), dtype=torch.int32),
+                                    i, m)
+    with pytest.raises(ValueError):
+        xor_decode_gather16(c16[..., :6], c16,
+                            torch.zeros((2, 3), dtype=torch.int32), i, m)
+    with pytest.raises(TypeError):
+        aggregate_bf16(torch.zeros((3, 4)), torch.zeros(3, dtype=torch.int32),
+                       2)

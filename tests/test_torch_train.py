@@ -16,9 +16,15 @@ Tolerances, and why:
   see above), parameters atol 2e-5 (AdamW normalises each gradient
   element, so a relative gradient difference moves a parameter by at
   most about lr * 1e-4 per step, and the clip norm sums in another
-  order).
+  order);
+* the bf16 grad-sync lane: the memo row is the round-to-nearest-even of
+  the f32 row, bitwise; the synced gradient is bitwise the JAX bf16
+  trainer's given the same per-subfile bf16 gradients; 3 steps match the
+  JAX bf16 trainer's losses at rtol 1e-4 and parameters at atol
+  BF16_PARAM_ATOL (see there).
 """
 
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -34,7 +40,8 @@ from repro.data.pipeline import ShardedTokenPipeline
 from repro.models import lm as jlm
 from repro.runtime.train_loop import MultiModelCAMRTrainer as JaxTrainer
 from repro_torch.configs import get_config, reduced
-from repro_torch.core.collective import ShuffleStream
+from repro_torch.core.collective import (ShuffleStream, camr_collective_bytes,
+                                         make_plan)
 from repro_torch.launch import train as launch_train
 from repro_torch.models import lm
 from repro_torch.runtime import MultiModelCAMRTrainer
@@ -116,13 +123,12 @@ def test_loss_and_flat_gradient_match_jax(kw):
                                rtol=1e-4, atol=1e-6)
 
 
-@pytest.fixture(scope="module")
-def jax_run():
+def _record_jax_run(**kw):
     """3 steps of the JAX trainer (mode="camr", the numpy engine wire —
     in-process, no mesh), recording its per-subfile gradients and its
     synced gradient of every step."""
     jcfg, _ = _cfgs(**TINY)
-    jtr = JaxTrainer(jcfg, q=2, k=3, seed=0)
+    jtr = JaxTrainer(jcfg, q=2, k=3, seed=0, **kw)
     init = [_np_tree(p) for p in jtr.params]
     grads, gsync = {}, {}
     grad_vec, sync = jtr._grad_vec, jtr._sync_interpreter
@@ -144,6 +150,18 @@ def jax_run():
                 losses=np.asarray(rep.losses), flat=np.asarray(jtr.flat))
 
 
+@pytest.fixture(scope="module")
+def jax_run():
+    return _record_jax_run()
+
+
+@pytest.fixture(scope="module")
+def jax_run_bf16():
+    """The bf16 twin: grad_sync_dtype="bfloat16" (memo rounded to bf16,
+    the engine sums bf16)."""
+    return _record_jax_run(grad_sync_dtype="bfloat16")
+
+
 def _port_trainer(jax_run, **kw):
     _, cfg = _cfgs(**TINY)
     return MultiModelCAMRTrainer(
@@ -151,9 +169,27 @@ def _port_trainer(jax_run, **kw):
         params=[params_from_jax(p, "cpu") for p in jax_run["init"]], **kw)
 
 
+def _from_np(a):
+    """numpy f32 / ml_dtypes bf16 -> torch (bf16 through its bits)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def test_synced_gradient_bitwise_equals_jax(jax_run):
+    _check_synced_gradient(jax_run)
+
+
+def test_bf16_synced_gradient_bitwise_equals_jax(jax_run_bf16):
+    """The bf16 lane: given the JAX bf16 trainer's per-subfile gradients,
+    the bf16 combiner and the packed shuffle give its synced gradient."""
+    _check_synced_gradient(jax_run_bf16, grad_sync_dtype="bfloat16")
+
+
+def _check_synced_gradient(jax_run, **kw):
     jtr = jax_run["trainer"]
-    tr = _port_trainer(jax_run)
+    tr = _port_trainer(jax_run, **kw)
     assert (tr.D, tr.d_shard, tr.Dpad) == (jtr.D, jtr.d_shard, jtr.Dpad)
     init = np.stack([np.asarray(ravel_pytree(p)[0]) for p in jax_run["init"]])
     np.testing.assert_array_equal(_torch_bits(tr.flat[:, :tr.D]), _bits(init))
@@ -164,8 +200,8 @@ def test_synced_gradient_bitwise_equals_jax(jax_run):
         g = {(j, n): jax_run["grads"][(step, j, n)]
              for j in range(tr.J) for n in range(tr.N)}
         contribs = tr._build_contribs(
-            lambda j, sf: torch.from_numpy(g[(j, sf[0])].reshape(-1)),
-            datasets)
+            lambda j, sf: _from_np(g[(j, sf[0])].reshape(-1)), datasets)
+        assert contribs.dtype == getattr(torch, tr.grad_sync_dtype)
         if step == 0:   # the JAX map lane, Pallas alpha-combiner included
             want = jtr._build_contribs(lambda j, sf: g[(j, sf[0])], datasets)
             np.testing.assert_array_equal(_torch_bits(contribs), _bits(want))
@@ -192,6 +228,61 @@ def test_trainer_three_steps_match_jax(jax_run):
         jcoll.make_plan(2, 3, tr.d_shard), dtype=np.float32)["camr_total"]
 
 
+def test_bf16_memo_row_is_the_rounded_f32_row(jax_run):
+    """The bf16 lane's memo row equals the ml_dtypes (JAX) rounding of the
+    f32 lane's row for the same parameters and batch, bitwise."""
+    f32, bf16 = (_port_trainer(jax_run, grad_sync_dtype=g)
+                 for g in ("float32", "bfloat16"))
+    batch = ShardedTokenPipeline(vocab=64, seq_len=8, global_batch=2).batch(1)
+    for tr in (f32, bf16):
+        tr._last_loss = [dict() for _ in range(tr.J)]
+    for j in range(f32.J):
+        row32 = f32._grad_vec(j, 0, batch)
+        row16 = bf16._grad_vec(j, 0, batch)
+        assert row32.dtype == torch.float32 and row16.dtype == torch.bfloat16
+        assert row16.shape == (bf16.Dpad,) and not row16[bf16.D:].any()
+        want = row32.numpy()
+        assert np.isfinite(want).all()
+        np.testing.assert_array_equal(
+            _torch_bits(row16), want.astype(ml_dtypes.bfloat16)
+            .view(np.uint16))
+        assert f32._last_loss[j][0] == bf16._last_loss[j][0]
+
+
+#: parameters after 3 bf16-lane steps, against the JAX bf16 trainer. The
+#: per-subfile gradients differ at about 1e-4 relative (see the module
+#: docstring); rounding to bf16 turns a few of those into one-ulp
+#: differences (2**-8 relative) of the memo rows, summed in bf16. AdamW's
+#: m / sqrt(v) passes a relative gradient difference through, amplified
+#: where an element's gradients of successive steps cancel in m; each
+#: step moves a parameter by about lr = 1e-3 at most. The worst element
+#: here differs by 6.4e-5 after 3 steps; the bound is three times that.
+BF16_PARAM_ATOL = 2e-4
+
+
+def test_bf16_trainer_three_steps_match_jax(jax_run_bf16):
+    tr = _port_trainer(jax_run_bf16, grad_sync_dtype="bfloat16")
+    pipe = ShardedTokenPipeline(vocab=64, seq_len=8, global_batch=2)
+    rep = tr.train_steps(pipe, 3, mode="camr_spmd")
+    assert rep.grad_sync_dtype == "bfloat16" and tr.flat.dtype == torch.float32
+    np.testing.assert_allclose(np.asarray(rep.losses),
+                               jax_run_bf16["losses"], rtol=1e-4)
+    np.testing.assert_allclose(tr.flat.numpy(), jax_run_bf16["flat"],
+                               rtol=0, atol=BF16_PARAM_ATOL)
+    assert rep.sync["dispatches"] == 3 and rep.sync["compiles"] == 1
+    jplan = jcoll.make_plan(2, 3, tr.d_shard)
+    assert rep.bytes_total == 3 * jcoll.camr_collective_bytes(
+        jplan, dtype="bfloat16")["camr_total"]
+    # exactly half the f32 lane's where d_shard fills whole wire words
+    # with no pad (the smoke cell's d_shard); here pad words make it more
+    f32_bytes = jcoll.camr_collective_bytes(jplan, dtype=np.float32)
+    assert 2 * rep.bytes_total > 3 * f32_bytes["camr_total"]
+    cell = make_plan(2, 3, 37_095_084)    # the smoke cell's d_shard
+    assert (2 * camr_collective_bytes(cell, dtype=torch.bfloat16)["camr_total"]
+            == camr_collective_bytes(cell, dtype=torch.float32)["camr_total"]
+            == 5_341_692_096)
+
+
 def test_trainer_needs_a_card_or_an_explicit_cpu(monkeypatch, jax_run):
     _, cfg = _cfgs(**TINY)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -204,9 +295,15 @@ def test_trainer_needs_a_card_or_an_explicit_cpu(monkeypatch, jax_run):
             tr.train_steps(pipe, 1, mode=mode)
     with pytest.raises(ValueError, match="mode"):
         tr.train_steps(pipe, 1, mode="nope")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiModelCAMRTrainer(cfg.replace(grad_sync_dtype="bfloat16"),
+    with pytest.raises(ValueError, match="loss scaling"):
+        MultiModelCAMRTrainer(cfg.replace(grad_sync_dtype="float16"),
                               q=2, k=3, device="cpu")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        MultiModelCAMRTrainer(cfg, q=2, k=3, device="cpu",
+                              grad_sync_dtype="float64")
+    tr16 = MultiModelCAMRTrainer(cfg.replace(grad_sync_dtype="bfloat16"),
+                                 q=2, k=3, device="cpu")
+    assert tr16.grad_sync_dtype == "bfloat16"
 
 
 def test_full_f32_scope_restores_the_process_flags():
@@ -244,3 +341,16 @@ def test_trainer_own_init_runs_and_launcher_points_at_roadmap(capsys):
     for argv in (["--grad-sync", "camr", "--multi-model"], []):
         with pytest.raises(SystemExit, match="ROADMAP"):
             launch_train.main(["--arch", "granite_3_2b", *argv])
+
+
+def test_launcher_runs_the_bf16_lane(capsys):
+    launch_train.main(["--arch", "granite_3_2b", "--reduced", "--multi-model",
+                       "--grad-sync", "camr_spmd", "--steps", "1",
+                       "--seq-len", "8", "--batch", "2", "--device", "cpu",
+                       "--grad-sync-dtype", "bfloat16"])
+    out = capsys.readouterr().out
+    assert '"grad_sync_dtype": "bfloat16"' in out
+    with pytest.raises(SystemExit):
+        launch_train.main(["--arch", "granite_3_2b", "--multi-model",
+                           "--grad-sync", "camr_spmd",
+                           "--grad-sync-dtype", "float16"])
