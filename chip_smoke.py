@@ -9,27 +9,34 @@ result line) on any mismatch:
 
 1. **kernels** — each kernel against its plain PyTorch version on the
    card, at ragged shapes and at the shapes the training step gives it
-   (XOR gathers, u32 words and u16 lanes, bitwise; ``aggregate`` and
-   ``aggregate_bf16`` bitwise with one row per segment, rtol 1e-6 / one
-   bf16 ulp with several), timed with CUDA events beside its byte bound,
-   its plain version and, where one PyTorch call computes the same
-   function, that call;
+   (XOR gathers, u32 words and u16 lanes, and the dense XOR folds of the
+   multipass codec, bitwise; ``aggregate`` and ``aggregate_bf16``
+   bitwise with one row per segment, rtol 1e-6 / one bf16 ulp with
+   several), timed with CUDA events beside its byte bound, its plain
+   version and, where one PyTorch call computes the same function, that
+   call;
 2. **shuffle** — the coded shuffle of (q, k) in {(2,3), (3,3), (2,4)},
    both routers, bitwise equal to the same shuffle through the plain
    versions on the card: f32 (and close to the numpy reference), and the
-   packed 16-bit lane in bf16 and f16;
-3. **train** — the main path, on each grad-sync lane in turn:
-   ``MultiModelCAMRTrainer`` on the cell of ``repro_torch.launch.cell``
-   (``granite_3_2b`` at full width, cut to 2 layers, q=2, k=3: K=6
-   virtual workers, J=4 models), 2 steps of ``camr_spmd`` on
-   ``ShardedTokenPipeline(seq_len=512, global_batch=1)``, first with f32
-   grad sync, then with bf16 (the f32 trainer freed first). Each run has
-   its kernel launch counts (counters set to 0 just before it), step 1's
-   synced gradient held bitwise against the plain-version shuffle of the
-   same contributions on a column slice, the step-time split and its own
-   peak memory. The bf16 run also holds step 1's losses to the f32 run's
-   (same parameters and data, the map runs before any sync), its wire
-   bytes to exactly half and its peak memory below the f32 run's.
+   packed 16-bit lane in bf16 and f16; the multipass codec and the looped
+   exchange bitwise equal to the fused batched shuffle (and each to its
+   own plain-version run), the ``debug`` dict's output to the plain one,
+   and in f32 the uncoded baseline close to the reference;
+3. **train** — the main path, in three runs: ``MultiModelCAMRTrainer``
+   on the cell of ``repro_torch.launch.cell`` (``granite_3_2b`` at full
+   width, cut to 2 layers, q=2, k=3: K=6 virtual workers, J=4 models),
+   2 steps of ``camr_spmd`` on ``ShardedTokenPipeline(seq_len=512,
+   global_batch=1)``, with f32 grad sync, then with bf16, then with f32
+   through the multipass codec (each trainer freed before the next).
+   Each run has its kernel launch counts (counters set to 0 just before
+   it), step 1's synced gradient held bitwise on a column slice against
+   the shuffle of the same contributions (the fused runs against the
+   plain versions, the multipass run against the fused kernels), the
+   step-time split and its own peak memory. The bf16 run also holds step
+   1's losses to the f32 run's (same parameters and data, the map runs
+   before any sync), its wire bytes to exactly half and its peak memory
+   below the f32 run's; the multipass run holds its step-1 losses to the
+   f32 run's.
 
 The last lines are the card's name and power limit, the ``kernels`` JSON
 line and ``{"ok": true, "device": {...}}``. Needs one CUDA card, the
@@ -53,6 +60,7 @@ SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 DEVICE = "cuda"
 _GATHER = "src/repro_torch/kernels/csrc/xor_gather.cu"
+_FOLD = "src/repro_torch/kernels/csrc/xor_fold.cu"
 _AGG = "src/repro_torch/kernels/csrc/aggregate.cu"
 SOURCES = {"xor_encode_gather": (_GATHER, "src/repro/kernels/xor_code.py:240"),
            "xor_decode_gather": (_GATHER, "src/repro/kernels/xor_code.py:309"),
@@ -61,7 +69,10 @@ SOURCES = {"xor_encode_gather": (_GATHER, "src/repro/kernels/xor_code.py:240"),
                                    "src/repro/kernels/xor_code.py:371"),
            "xor_decode_gather16": (_GATHER,
                                    "src/repro/kernels/xor_code.py:415"),
-           "aggregate_bf16": (_AGG, "src/repro/kernels/aggregate.py:71")}
+           "aggregate_bf16": (_AGG, "src/repro/kernels/aggregate.py:71"),
+           "xor_fold": (_FOLD, "src/repro/kernels/xor_code.py:138"),
+           "xor_decode": (_FOLD, "src/repro/kernels/xor_code.py:180"),
+           "xor_encode": (_FOLD, "src/repro/kernels/xor_code.py:106")}
 
 
 def log(*a):
@@ -119,24 +130,30 @@ def bf16_ulps(a, b) -> int:
     return int((ordered(a) - ordered(b)).abs().max())
 
 
-_CODEC = ("xor_encode_gather", "xor_decode_gather", "xor_encode_gather16",
-          "xor_decode_gather16")
+#: the codec kernels the shuffle calls, by the module that calls them
+_CODEC = {"repro_torch.core.collective": (
+              "xor_encode_gather", "xor_decode_gather", "xor_encode_gather16",
+              "xor_decode_gather16", "xor_fold", "xor_decode"),
+          "repro_torch.kernels.ops": ("xor_encode",)}
 
 
 @contextlib.contextmanager
 def plain_codec():
-    """Route the shuffle's codec through the plain versions (the
-    comparison runs; no kernel launches)."""
-    from repro_torch.core import collective
+    """Route the codec through the plain versions (the comparison runs;
+    no kernel launches)."""
+    import importlib
     from repro_torch.kernels import ref
-    saved = {name: getattr(collective, name) for name in _CODEC}
-    for name in _CODEC:
-        setattr(collective, name, getattr(ref, name + "_ref"))
+    saved = []
+    for mod_name, names in _CODEC.items():
+        mod = importlib.import_module(mod_name)
+        for name in names:
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, getattr(ref, name + "_ref"))
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(collective, name, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 # --------------------------------------------------------------------- #
@@ -247,6 +264,68 @@ def step_gathers(gen, st, K, P, row, half):
     return out
 
 
+def check_folds(gen, R, m, n, offset=0):
+    """Random packets and recv words, masks with a row wholly off and one
+    wholly on; the multipass codec's dense folds bitwise against the
+    plain versions."""
+    import torch
+    from repro_torch.kernels import ops, ref, xor_decode, xor_fold
+    packets = _rand_bits((R, m, n), gen, torch.int32, offset)
+    recv = _rand_bits((R, n), gen, torch.int32, offset)
+    mask = torch.rand((R, m), device=DEVICE, generator=gen) < 0.5
+    mask[0], mask[1] = False, True
+    where = f"R={R} m={m} n={n} offset={offset}"
+    for name, got, want in (
+            ("xor_fold", xor_fold(packets), ref.xor_fold_ref(packets)),
+            ("xor_decode", xor_decode(recv, packets, mask),
+             ref.xor_decode_ref(recv, packets, mask)),
+            ("xor_encode", ops.xor_fold(packets[2]),
+             ref.xor_encode_ref(packets[2]))):
+        if not bitwise_equal(got, want):
+            fail(f"{name} != plain at {where}")
+
+
+def step_folds(gen, st, K, k, pk):
+    """The dense folds at the multipass step's shapes (stage 1's tables):
+    ``xor_fold`` over the ``[K*n, k, pk]`` packets of Δ, ``xor_decode``
+    over ``[K*n*(k-1), k, pk]`` cancellation packets with the step's
+    ``cancel_mask``, and one server's Δ ``[k-1, pk]`` through
+    ``ops.xor_fold``; bitwise against the plain versions, then timed."""
+    import torch
+    from repro_torch.kernels import ops, ref, xor_decode, xor_fold
+    n = st["n"]
+    R = K * n * (k - 1)
+    mask = st["cancel_mask"]                          # [R, k]
+    packets = _rand_bits((R, k, pk), gen, torch.int32)
+    recv = _rand_bits((R, pk), gen, torch.int32)
+    fold_in = packets[:K * n]                         # [K*n, k, pk]
+    enc_in = packets[0, :k - 1]                       # [k-1, pk]
+    valid = int(mask.sum())
+    cases = (
+        ("xor_fold", xor_fold, ref.xor_fold_ref, (fold_in,),
+         4 * pk * (K * n * k + K * n), f"packets [{K * n},{k},{pk}] u32"),
+        ("xor_decode", xor_decode, ref.xor_decode_ref, (recv, packets, mask),
+         4 * pk * (2 * R + valid) + mask.numel(),
+         f"recv [{R},{pk}], packets [{R},{k},{pk}] u32, {valid} of "
+         f"{mask.numel()} selected"),
+        ("xor_encode", ops.xor_fold, ref.xor_encode_ref, (enc_in,),
+         4 * pk * k, f"packets [{k - 1},{pk}] u32 (ops.xor_fold)"))
+    out = {}
+    for name, fn, plain, args, nbytes, shape in cases:
+        got, want = fn(*args), plain(*args)
+        if not bitwise_equal(got, want):
+            fail(f"{name} != plain at the step's shape")
+        err = max_abs_err(got, want)
+        del got, want
+        out[name] = dict(
+            ms=time_ms(lambda: fn(*args)),
+            plain_ms=time_ms(lambda: plain(*args), warmup=1, reps=3),
+            bytes=nbytes, library_ms=None, max_abs_err=err, shape=shape)
+    log(f"kernels: xor_fold / xor_decode / xor_encode bitwise at the "
+        f"multipass step's shapes (pk={pk})")
+    return out
+
+
 def check_aggregate(gen, S, Dpad, dtype):
     """``aggregate`` on ``dtype`` values: several rows per segment with
     padding ids (rtol 1e-6 in f32, one ulp in bf16), then the step's
@@ -300,6 +379,7 @@ def phase_kernels(gen, tr):
     import torch
     from repro_torch.core.collective import make_plan, _device_tables
     from repro_torch.core.schedule import payload_words
+    from repro_torch.kernels import launch_counts
     results = {}
     # ragged shapes: u32, u64 and u128 access paths, odd pk, dead rows
     for pk in (1001, 1002, 4096):
@@ -318,7 +398,9 @@ def phase_kernels(gen, tr):
     q, k, d_shard = tr.q, tr.k, tr.d_shard
     plan = make_plan(q, k, d_shard)
     K = plan.K
-    st = _device_tables(plan, torch.device(DEVICE), "all_to_all")["stages"][1]
+    for codec in ("fused", "multipass"):    # both codecs' stage tables
+        tabs = _device_tables(plan, torch.device(DEVICE), "all_to_all", codec)
+    st = tabs["stages"][1]
     P = plan.J_own * (k - 1) * K * (k - 1)
     results.update(step_gathers(gen, st, K, P, d_shard // (k - 1),
                                 half=False))
@@ -330,6 +412,22 @@ def phase_kernels(gen, tr):
     S = plan.J_own * (k - 1)
     for dtype in (torch.float32, torch.bfloat16):
         results.update(check_aggregate(gen, S, K * d_shard, dtype))
+
+    # the multipass codec's dense folds: n of 1, 2, 3 and 0 mod 4 words,
+    # m from 1 to 4, and inputs one word off alignment
+    for n in (1001, 1002, 1003, 4096):
+        for m in (1, 2, 3, 4):
+            check_folds(gen, R=5, m=m, n=n)
+    for n in (1002, 4096):
+        check_folds(gen, R=5, m=3, n=n, offset=1)
+    log("kernels: xor_fold / xor_decode / xor_encode bitwise at ragged "
+        "shapes (n 1001/1002/1003/4096 words, m 1-4, masks with whole "
+        "rows off, one word off alignment)")
+    results.update(step_folds(gen, st, K, k, d_shard // (k - 1)))
+    torch.cuda.empty_cache()
+    log(f"kernels: the checks and timings above launched xor_encode "
+        f"{launch_counts()['xor_encode']} times (no training path calls "
+        "ops.xor_fold: its main-path count is 0)")
     for name, r in results.items():
         r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
         log(f"kernels: {name} {r['shape']}: {r['ms']:.3f} ms (plain "
@@ -341,13 +439,19 @@ def phase_kernels(gen, tr):
 # --------------------------------------------------------------------- #
 # phase 2: the coded shuffle on the card
 # --------------------------------------------------------------------- #
+#: the other lanes of the shuffle, each held to the fused batched one
+_LANES = (("batched", "multipass"), ("looped", "fused"),
+          ("looped", "multipass"))
+
+
 def phase_shuffle():
     import numpy as np
     import torch
     from repro_torch.core.collective import (camr_shuffle,
                                              camr_shuffle_reference,
                                              make_plan,
-                                             scatter_contributions)
+                                             scatter_contributions,
+                                             uncoded_reduce_scatter)
     for q, k in ((2, 3), (3, 3), (2, 4)):
         d = (k - 1) * 30_011                        # odd packets
         plan = make_plan(q, k, d)
@@ -358,46 +462,71 @@ def phase_shuffle():
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             c = contribs.to(dtype)                  # normal values
             for router in ("all_to_all", "ppermute"):
+                where = f"shuffle ({q},{k}) {dtype} {router}"
                 out = camr_shuffle(plan, c, router=router)
                 with plain_codec():
                     plain = camr_shuffle(plan, c, router=router)
                 if out.dtype != dtype or not bitwise_equal(out, plain):
-                    fail(f"shuffle ({q},{k}) {dtype} {router}: kernels != "
-                         "plain")
+                    fail(f"{where}: kernels != plain")
                 if not torch.isfinite(out).all():
-                    fail(f"shuffle ({q},{k}) {dtype} {router}: not finite")
+                    fail(f"{where}: not finite")
                 if dtype == torch.float32 and not np.allclose(
                         out.cpu().numpy(), ref, rtol=2e-5, atol=2e-6):
-                    fail(f"shuffle ({q},{k}) {router}: not close to "
-                         "reference")
+                    fail(f"{where}: not close to reference")
+                for mode, codec in _LANES:
+                    kw = dict(router=router, mode=mode, codec=codec)
+                    got = camr_shuffle(plan, c, **kw)
+                    with plain_codec():
+                        got_plain = camr_shuffle(plan, c, **kw)
+                    if not bitwise_equal(got, out):
+                        fail(f"{where} {mode} {codec}: != fused batched")
+                    if not bitwise_equal(got, got_plain):
+                        fail(f"{where} {mode} {codec}: kernels != plain")
+                dbg = camr_shuffle(plan, c, router=router, debug=True)
+                if not bitwise_equal(dbg["out"], plain):
+                    fail(f"{where}: debug out != plain")
+                del out, plain, got, got_plain, dbg
+        unc = uncoded_reduce_scatter(contribs, plan=plan)
+        if not np.allclose(unc.cpu().numpy(), ref, rtol=2e-5, atol=2e-6):
+            fail(f"uncoded reduce-scatter ({q},{k}): not close to reference")
         log(f"shuffle: (q,k)=({q},{k}) d={d} both routers bitwise == plain "
-            "in f32 (allclose to the reference), bf16 and f16")
+            "in f32 (allclose to the reference), bf16 and f16; multipass "
+            "and looped lanes bitwise == fused batched (and == their plain "
+            "runs); debug out == plain; uncoded allclose to the reference")
 
 
 # --------------------------------------------------------------------- #
 # phase 3: the slice's main path
 # --------------------------------------------------------------------- #
-def build_cell(grad_sync_dtype):
+def _tag(tr) -> str:
+    codec = "" if tr.codec == "fused" else f"/{tr.codec}"
+    return f"train[{tr.grad_sync_dtype}{codec}]"
+
+
+def build_cell(grad_sync_dtype, codec="fused"):
     """The slice's trainer and pipeline (``repro_torch.launch.cell``) on
-    one grad-sync lane."""
+    one grad-sync lane and codec."""
     import torch
     from repro_torch.launch.cell import make_cell
     t0 = time.perf_counter()
-    tr, pipe = make_cell(DEVICE, grad_sync_dtype)
+    tr, pipe = make_cell(DEVICE, grad_sync_dtype, codec)
     torch.cuda.synchronize()
-    log(f"train[{grad_sync_dtype}]: {tr.cfg.name} {tr.cfg.n_layers} layers, "
+    log(f"{_tag(tr)}: {tr.cfg.name} {tr.cfg.n_layers} layers, "
         f"D={tr.D} Dpad={tr.Dpad} d_shard={tr.d_shard}, K={tr.K} J={tr.J}, "
         f"seq_len {pipe.seq_len}, init {time.perf_counter() - t0:.1f} s")
     return tr, pipe
 
 
-def lane_kernels(lane: str, K: int) -> dict:
-    """Kernel launches per step on a grad-sync lane: one encode and one
-    decode per coded stage, one combiner launch per worker."""
-    names = {"float32": ("xor_encode_gather", "xor_decode_gather",
-                         "aggregate"),
-             "bfloat16": ("xor_encode_gather16", "xor_decode_gather16",
-                          "aggregate_bf16")}[lane]
+def lane_kernels(lane: str, K: int, codec: str = "fused") -> dict:
+    """Kernel launches per step on a grad-sync lane and codec: one encode
+    (a fused gather or the multipass fold) and one decode per coded
+    stage, one combiner launch per worker."""
+    names = {("float32", "fused"): ("xor_encode_gather", "xor_decode_gather",
+                                    "aggregate"),
+             ("bfloat16", "fused"): ("xor_encode_gather16",
+                                     "xor_decode_gather16", "aggregate_bf16"),
+             ("float32", "multipass"): ("xor_fold", "xor_decode",
+                                        "aggregate")}[lane, codec]
     return dict(zip(names, (2, 2, K)))
 
 
@@ -410,7 +539,7 @@ def phase_train(tr, pipe, steps=2):
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     q, k, lane = tr.q, tr.k, tr.grad_sync_dtype
-    tag = f"train[{lane}]"
+    tag = _tag(tr)
 
     # step 1's synced gradient on a column slice (the codec is per value
     # column): one slice at the head, one across the packet boundary
@@ -442,7 +571,8 @@ def phase_train(tr, pipe, steps=2):
     finally:
         del tr._sync_spmd               # no reference cycle keeps tr alive
     want = dict.fromkeys(counts, 0)
-    want.update({n: c * steps for n, c in lane_kernels(lane, tr.K).items()})
+    want.update({n: c * steps
+                 for n, c in lane_kernels(lane, tr.K, tr.codec).items()})
     if counts != want:
         fail(f"{tag}: launch counts {counts} != expected {want}")
     losses = np.asarray(rep.losses)
@@ -461,14 +591,18 @@ def phase_train(tr, pipe, steps=2):
         f"GB, wire bytes {rep.bytes_total} ({rep.bytes_total // steps} per "
         "step)")
 
+    # the fused runs against the plain versions; the multipass run, whose
+    # codec is the fused codec's oracle, against the fused kernels
     plan = make_plan(q, k, captured["contribs"].shape[-1])
-    with plain_codec():
-        plain = camr_shuffle(plan, captured["contribs"])
+    fused = tr.codec == "fused"
+    with plain_codec() if fused else contextlib.nullcontext():
+        want_out = camr_shuffle(plan, captured["contribs"])
+    what = "plain" if fused else "fused-kernel"
     if (captured["out"].dtype != getattr(torch, lane)
-            or not bitwise_equal(captured["out"], plain)):
-        fail(f"{tag}: step 1 synced gradient != plain-version shuffle of "
-             "the same contributions")
-    log(f"{tag}: step 1 synced gradient ({lane}) bitwise == plain shuffle "
+            or not bitwise_equal(captured["out"], want_out)):
+        fail(f"{tag}: step 1 synced gradient != {what} shuffle of the same "
+             "contributions")
+    log(f"{tag}: step 1 synced gradient ({lane}) bitwise == {what} shuffle "
         f"on {cols.numel()} of {tr.d_shard} columns per shard")
     return counts, rep, peak
 
@@ -490,6 +624,23 @@ def compare_lanes(rep32, peak32, rep16, peak16):
     log(f"train: bf16/f32 wire bytes {rep16.bytes_total}/"
         f"{rep32.bytes_total} = 0.5 exactly; peak memory "
         f"{peak16 / 1e9:.2f} GB < {peak32 / 1e9:.2f} GB")
+
+
+def compare_codecs(rep32, peak32, rep_mp, peak_mp):
+    """The multipass run against the fused f32 run of the same cell."""
+    import numpy as np
+    l32, lmp = np.asarray(rep32.losses[0]), np.asarray(rep_mp.losses[0])
+    if not np.allclose(lmp, l32, rtol=1e-6, atol=0):
+        fail(f"train: multipass step 1 losses {lmp} != f32 step 1 {l32} "
+             "(rtol 1e-6)")
+    if rep_mp.bytes_total != rep32.bytes_total:
+        fail(f"train: multipass wire bytes {rep_mp.bytes_total} != fused "
+             f"{rep32.bytes_total}")
+    log(f"train: multipass step 1 losses == f32 step 1 within rtol 1e-6 "
+        f"(bitwise: {bool((lmp == l32).all())}; all steps bitwise: "
+        f"{rep_mp.losses == rep32.losses}); peak memory "
+        f"{peak_mp / 1e9:.2f} GB against the fused run's "
+        f"{peak32 / 1e9:.2f} GB")
 
 
 def main() -> int:
@@ -530,6 +681,15 @@ def main() -> int:
     compare_lanes(rep32, peak32, rep16, peak16)
     for name in lane_kernels("bfloat16", tr.K):
         counts[name] = counts16[name]
+    del tr, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr, pipe = build_cell("float32", "multipass")
+    counts_mp, rep_mp, peak_mp = phase_train(tr, pipe)
+    compare_codecs(rep32, peak32, rep_mp, peak_mp)
+    for name in lane_kernels("float32", tr.K, "multipass"):
+        counts[name] = counts_mp[name]
+    # xor_encode is on no training path: every run held its count to 0
 
     kernels = []
     for name, r in results.items():

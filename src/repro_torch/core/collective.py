@@ -12,21 +12,31 @@ device axis:
 * a ``ppermute`` moves ``out[dst] = buf[src]`` over its pairs, and every
   device no pair names as a destination receives zeros.
 
-Both routers are applied to packet ROW IDS once per plan (host numpy,
+Execution modes (the JAX executor's): ``mode="batched"`` applies both
+routers to packet ROW IDS once per plan (host numpy,
 :func:`_route_rows`), which yields for every received round packet the
-row of the stacked Δ buffer it came from; the exchange on the card is
-then one row gather. The fused codec kernels of
-:mod:`repro_torch.kernels.xor_code` take the device axis as a grid
-dimension, so each coded stage is one encode launch and one decode
-launch for all K workers.
+row of the stacked Δ buffer it came from, so a stage's exchange on the
+card is one row gather; ``mode="looped"`` is the legacy per-group
+schedule, one permutation per (group, round), counted on the plan
+(:attr:`CAMRPlan.permutations`).
+
+Codecs: ``codec="fused"`` runs the gather-XOR kernels of
+:mod:`repro_torch.kernels.xor_code`, which take the device axis as a grid
+dimension (one encode and one decode launch per coded stage for all K
+workers); ``codec="multipass"`` is the original gather -> take-along ->
+fold pipeline, kept as the independent oracle of the fused codec: it
+materializes the chunk table ``[K, n, k, wp]`` and the cancellation
+packets ``[K, n, k-1, k, pk]`` and folds them with the dense kernels
+``xor_fold`` and ``xor_decode`` (one launch each per coded stage).
 
 Semantics (as in the JAX package): ``contribs [K, J_own, k-1, K, d]``
 -> ``out [K, J, d]``, device ``s`` receiving the fully aggregated shard
-``s`` of every job, BITWISE equal to the numpy engine's reduce results.
-The port runs the flat topology, ``mode="batched"`` and the fused codec,
-on both wire lanes: 4-byte payloads (f32/u32) one value per u32 wire
-word, and 16-bit payloads (bf16/f16) packed two per word by the 16-bit
-codec kernels, with stage 3 and assembly at native width.
+``s`` of every job, BITWISE equal to the numpy engine's reduce results
+in every mode and codec. The port runs the flat topology on both wire
+lanes: 4-byte payloads (f32/u32) one value per u32 wire word, and 16-bit
+payloads (bf16/f16) packed two per word (by the 16-bit gather kernels on
+the fused codec, as u32 words on the multipass codec), with stage 3 and
+assembly at native width.
 """
 
 from __future__ import annotations
@@ -37,15 +47,20 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.xor_code import (xor_decode_gather, xor_decode_gather16,
-                                xor_encode_gather, xor_encode_gather16)
+from ..kernels.xor_code import (xor_decode, xor_decode_gather,
+                                xor_decode_gather16, xor_encode_gather,
+                                xor_encode_gather16, xor_fold)
 from .schedule import (SCHEDULE_CACHE, ShuffleProgram, StageTables,
                        payload_words)
 
 __all__ = ["CAMRPlan", "make_plan", "camr_shuffle", "scatter_contributions",
-           "camr_shuffle_reference", "camr_collective_bytes",
+           "camr_shuffle_reference", "uncoded_reduce_scatter",
+           "camr_collective_bytes", "expected_collective_calls",
            "ShuffleStream", "CODEC_DTYPES", "PACKED_DTYPES",
            "check_codec_dtype"]
+
+MODES = ("batched", "looped")
+CODECS = ("fused", "multipass")
 
 # --------------------------------------------------------------------- #
 # plan — a thin handle on the compiled program
@@ -58,6 +73,12 @@ class CAMRPlan:
     program: ShuffleProgram = field(repr=False)
     #: per-(device, router) index tables on the device (built lazily)
     _tables: dict = field(default_factory=dict, repr=False, compare=False)
+    #: device-axis permutations the executor has run with this plan, by
+    #: stage: one per (group, round) of the looped exchange and one per
+    #: stage-3 offset (the batched exchange is one routed row gather)
+    permutations: dict = field(
+        default_factory=lambda: {"stage12": 0, "stage3": 0}, repr=False,
+        compare=False)
 
     @property
     def owned_jobs(self) -> np.ndarray:
@@ -122,17 +143,21 @@ def check_codec_dtype(dtype, where: str) -> None:
             "dtype first (e.g. contribs.float()).")
 
 
-def _wire_buffer(x: torch.Tensor, wp: int) -> torch.Tensor:
+def _wire_buffer(x: torch.Tensor, wp: int, codec: str) -> torch.Tensor:
     """Contributions -> the codec's chunk buffer: f32/u32 payloads as
     their int32 wire words (a bitcast); 16-bit payloads as int16 lanes,
     zero-padded per shard from ``d`` to ``2*wp`` lanes (the JAX package's
-    trailing-lane pad rule) and handed to the 16-bit kernels as they are,
-    so no value widens to 4 bytes."""
+    trailing-lane pad rule). The fused codec's 16-bit kernels take the
+    lanes as they are; the multipass codec takes them as int32 wire words,
+    a view in which lane ``2i`` is the low half of word ``i`` (JAX
+    ``_u16_pairs_to_u32``). No value widens to 4 bytes either way."""
     if x.element_size() == 4:
         return x.view(torch.int32)
     lanes = x.view(torch.int16)
     pad = 2 * wp - x.shape[-1]
-    return torch.nn.functional.pad(lanes, (0, pad)) if pad else lanes
+    if pad:
+        lanes = torch.nn.functional.pad(lanes, (0, pad))
+    return lanes if codec == "fused" else lanes.view(torch.int32)
 
 
 def _from_wire(dec: torch.Tensor, dtype: torch.dtype,
@@ -140,8 +165,8 @@ def _from_wire(dec: torch.Tensor, dtype: torch.dtype,
     """Decoded chunk slots ``[K, n, wp]`` words or ``[K, n, 2*wp]`` lanes
     -> payload values ``[K, n, d]`` in the dtype assembly adds in (the
     inverse of :func:`_wire_buffer`; a strided view, no copy)."""
-    if dec.dtype == torch.int16:
-        return dec[..., :d].view(dtype)
+    if dtype.itemsize == 2:
+        return dec.view(torch.int16)[..., :d].view(dtype)
     return dec.view(_arith_dtype(dtype))
 
 
@@ -196,33 +221,91 @@ def _route_rows(T: StageTables, router: str, q: int, k: int,
     return src
 
 
-def _device_tables(plan: CAMRPlan, device: torch.device, router: str) -> dict:
-    key = (str(device), router)
-    tabs = plan._tables.get(key)
-    if tabs is not None:
-        return tabs
-    prog = plan.program
-    q, k, K, J, J_own = plan.q, plan.k, plan.K, plan.J, plan.J_own
+def _fused_tables(plan: CAMRPlan, stage: int, router: str, t) -> dict:
+    """Fused codec: the flat packet-row tables of the gathers."""
+    T, K, k = plan.program.stage_tables(stage), plan.K, plan.k
+    rows = T.n * (k - 1)
+    return dict(enc_src=t(T.enc_src, torch.int32),
+                dec_recv=t(T.dec_recv.reshape(K, rows), torch.int32),
+                dec_src=t(T.dec_src.reshape(K, rows, k), torch.int32),
+                dec_mask=t(T.dec_mask.reshape(K, rows, k), torch.bool))
 
+
+def _multipass_tables(plan: CAMRPlan, stage: int, router: str, t) -> dict:
+    """Multipass codec: chunk-table coordinates and packet positions."""
+    T, K, k = plan.program.stage_tables(stage), plan.K, plan.k
+    return dict(src_jslot=t(T.src_jslot, torch.int64),
+                src_bslot=t(T.src_bslot, torch.int64),
+                shard=t(T.shard[None], torch.int64),
+                delta_pos=t(T.delta_pos, torch.int64),
+                cancel_pos=t(T.cancel_pos, torch.int64),
+                cancel_mask=t(T.cancel_mask.reshape(K * T.n * (k - 1), k),
+                              torch.bool),
+                dec_order=t(np.argsort(T.dec_gather, axis=2, kind="stable"),
+                            torch.int64))
+
+
+def _batched_tables(plan: CAMRPlan, stage: int, router: str, t) -> dict:
+    """Batched exchange: the routed row of every received round packet."""
+    T = plan.program.stage_tables(stage)
+    rows = _route_rows(T, router, plan.q, plan.k, plan.K).reshape(-1)
+    ok = rows >= 0
+    return dict(recv_rows=t(np.clip(rows, 0, None), torch.int64),
+                recv_zero=None if ok.all() else t(~ok, torch.bool))
+
+
+def _looped_tables(plan: CAMRPlan, stage: int, router: str, t) -> dict:
+    """Looped exchange: per (group, round), the source of every
+    destination of the round's permutation (-1: not a destination)."""
+    prog, K, k = plan.program, plan.K, plan.k
+    T = prog.stage_tables(stage)
+    loop_src = np.full((T.n, k - 1, K), -1)
+    for gi, rounds in enumerate(prog.round_perms(stage)):
+        for r, pairs in enumerate(rounds):
+            for a, b in pairs:
+                loop_src[gi, r, b] = a
+    return dict(valid=t(T.valid, torch.bool),
+                loop_src=t(np.clip(loop_src, 0, None), torch.int64),
+                loop_zero=t(loop_src < 0, torch.bool))
+
+
+#: the stage tables each codec and each exchange mode reads
+_STAGE_PARTS = {"fused": _fused_tables, "multipass": _multipass_tables,
+                "batched": _batched_tables, "looped": _looped_tables}
+
+
+def _device_tables(plan: CAMRPlan, device: torch.device, router: str,
+                   codec: str = "fused", mode: str = "batched") -> dict:
+    """The executor's index tables on ``device``, cached on the plan per
+    (device, router): the shared ones on first use, each coded stage's
+    tables of a codec or an exchange mode the first time a shuffle runs
+    that codec or mode."""
     def t(a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=device)
 
+    key = (str(device), router)
+    tabs = plan._tables.get(key)
+    if tabs is None:
+        tabs = plan._tables[key] = _shared_tables(plan, t)
+    for stage, st in tabs["stages"].items():
+        for part in (codec, mode):
+            if part not in st["parts"]:
+                st.update(_STAGE_PARTS[part](plan, stage, router, t))
+                st["parts"].add(part)
+    return tabs
+
+
+def _shared_tables(plan: CAMRPlan, t) -> dict:
+    """Tables of every codec and mode: each coded stage's group count and
+    chunk mask, stage 3 and assembly."""
+    prog = plan.program
+    q, K, J, J_own = plan.q, plan.K, plan.J, plan.J_own
     stages = {}
     for stage in (1, 2):
         T = prog.stage_tables(stage)
-        n = T.n
-        rows = _route_rows(T, router, q, k, K).reshape(-1)
-        ok = rows >= 0
-        stages[stage] = dict(
-            n=n,
-            enc_src=t(T.enc_src, torch.int32),
-            src_ok=t(T.src_ok, torch.bool),
-            dec_recv=t(T.dec_recv.reshape(K, n * (k - 1)), torch.int32),
-            dec_src=t(T.dec_src.reshape(K, n * (k - 1), k), torch.int32),
-            dec_mask=t(T.dec_mask.reshape(K, n * (k - 1), k), torch.bool),
-            recv_rows=t(np.clip(rows, 0, None), torch.int64),
-            recv_zero=None if ok.all() else t(~ok, torch.bool))
+        stages[stage] = dict(n=T.n, src_ok=t(T.src_ok, torch.bool),
+                             parts=set())
     # stage 3: device s sends the fold of its stored batches of shard
     # dst = classmate at offset o; ppermute pairs move it to dst
     ar = np.arange(K)
@@ -241,6 +324,10 @@ def _device_tables(plan: CAMRPlan, device: torch.device, router: str) -> dict:
     tabs = dict(
         stages=stages,
         ar=t(ar, torch.int64),
+        is_own=t(prog.is_own, torch.bool),
+        own_slot=t(slot, torch.int64),
+        s2_ord=t(prog.s2_ord, torch.int64),
+        s3_off=t(prog.s3_off, torch.int64),
         s3_dst=[t(x, torch.int64) for x in s3_dst],
         s3_src=[t(np.clip(x, 0, None), torch.int64) for x in s3_src],
         s3_zero=[None if (x >= 0).all() else t(x < 0, torch.bool)
@@ -252,52 +339,112 @@ def _device_tables(plan: CAMRPlan, device: torch.device, router: str) -> dict:
         non_s3_rows=t((sn * (q - 1) + prog.s3_off[sn, jn]) * J_own
                       + slot[sn, jn], torch.int64),
     )
-    plan._tables[key] = tabs
     return tabs
 
 
 # --------------------------------------------------------------------- #
 # the coded exchange of stages 1 and 2
 # --------------------------------------------------------------------- #
-def _encode_stage(wire, st, *, K, pk):
+def _encode_stage(wire, st, *, K, k, pk, codec):
     """Sender side: Δ = XOR_p pkt(G[p], pos(me, G[p])) for every device.
-    Returns ``(flat, delta)``: the flat packet view of the chunk buffers
-    (the decode context; ``[K, P, pk]`` words, or ``[K, P, 2pk]`` lanes
-    on the packed lane) and Δ ``[K, n, pk]`` in int32 wire words."""
-    if wire.dtype == torch.int16:       # packed lane: lane pairs
-        flat = wire.reshape(K, -1, 2 * pk)
-        delta = xor_encode_gather16(flat, st["enc_src"], st["src_ok"])
-        return flat, delta.view(torch.int32)
-    flat = wire.reshape(K, -1, pk)      # free view: packets are contiguous
-    return flat, xor_encode_gather(flat, st["enc_src"], st["src_ok"])
+    Returns ``(ctx, delta)``: what the matching :func:`_decode_stage`
+    cancels packets from, and Δ ``[K, n, pk]`` in int32 wire words. On the
+    fused codec ``ctx`` is the flat packet view of the chunk buffers
+    (``[K, P, pk]`` words, or ``[K, P, 2pk]`` lanes on the packed lane); on
+    the multipass codec it is the materialized packet table ``[K, n, k,
+    k-1, pk]``, each group's k chunks (zero where the device stores no
+    chunk), from which Δ folds the device's own packet of each."""
+    if codec == "fused":
+        if wire.dtype == torch.int16:       # packed lane: lane pairs
+            flat = wire.reshape(K, -1, 2 * pk)
+            delta = xor_encode_gather16(flat, st["enc_src"], st["src_ok"])
+            return flat, delta.view(torch.int32)
+        flat = wire.reshape(K, -1, pk)      # free view: packets contiguous
+        return flat, xor_encode_gather(flat, st["enc_src"], st["src_ok"])
+    n = st["n"]
+    dev = torch.arange(K, device=wire.device).view(K, 1, 1)
+    chunks = wire[dev, st["src_jslot"], st["src_bslot"], st["shard"]]
+    chunks.masked_fill_(~st["src_ok"][..., None], 0)     # [K, n, k, wp]
+    packets = chunks.view(K, n, k, k - 1, pk)
+    pos = torch.arange(k, device=wire.device).view(1, 1, k)
+    row = torch.arange(n, device=wire.device).view(1, n, 1)
+    mine = packets[dev, row, pos, st["delta_pos"]]       # [K, n, k, pk]
+    return packets, xor_fold(mine.view(K * n, k, pk)).view(K, n, pk)
+
+
+def _cancellations(packets, st, *, K, k):
+    """Multipass receiver context: the cancellation packets ``[K, n, k-1,
+    k, pk]``, ``canc[v, i, r, p] = packets[v, i, p, cancel_pos[v, i, r,
+    p]]`` (the JAX executor's take-along of the broadcast packet table)."""
+    n = st["n"]
+    dev = torch.arange(K, device=packets.device).view(K, 1, 1, 1)
+    row = torch.arange(n, device=packets.device).view(1, n, 1, 1)
+    pos = torch.arange(k, device=packets.device).view(1, 1, 1, k)
+    return packets[dev, row, pos, st["cancel_pos"]]
 
 
 def _exchange(delta, st, *, K, k, pk):
-    """The round exchange: ``recv [K, n*(k-1), pk]``, round packets in
-    the ``[n, k-1]`` order the decode's ``dec_recv`` indexes."""
+    """The batched round exchange: ``recv [K, n*(k-1), pk]``, round
+    packets in the ``[n, k-1]`` order the decode indexes."""
     recv = delta.reshape(-1, pk).index_select(0, st["recv_rows"])
     if st["recv_zero"] is not None:
         recv.masked_fill_(st["recv_zero"][:, None], 0)
     return recv.view(K, st["n"] * (k - 1), pk)
 
 
-def _decode_stage(recv, flat, st, *, K, k, pk):
+def _exchange_looped(delta, st, calls, *, K, k, pk):
+    """The legacy exchange: one permutation per (group, round), each
+    moving ``out[dst] = payload[src]`` (zeros to devices it does not
+    name), kept where the RECEIVER is a group member. Same ``recv``
+    layout as :func:`_exchange`."""
+    n = st["n"]
+    recv = torch.zeros((K, n, k - 1, pk), dtype=delta.dtype,
+                       device=delta.device)
+    for gi in range(n):
+        valid = st["valid"][:, gi, None]
+        payload = torch.where(valid, delta[:, gi], 0)
+        for r in range(k - 1):
+            got = payload.index_select(0, st["loop_src"][gi, r])
+            got.masked_fill_(st["loop_zero"][gi, r][:, None], 0)
+            calls["stage12"] += 1
+            recv[:, gi, r] = torch.where(valid, got, recv[:, gi, r])
+    return recv.view(K, n * (k - 1), pk)
+
+
+def _decode_stage(recv, ctx, st, *, K, k, pk, codec):
     """Receiver side: pkt(me, pos(m_r, me)) = recv[r] XOR the cancellation
     packets, decoded words landing in chunk-slot order -> ``[K, n, wp]``
-    words (``[K, n, 2*wp]`` lanes on the packed lane)."""
-    tabs = (st["dec_recv"], st["dec_src"], st["dec_mask"])
-    if flat.dtype == torch.int16:
-        dec = xor_decode_gather16(recv.view(torch.int16), flat, *tabs)
+    words (``[K, n, 2*wp]`` lanes on the fused packed lane). ``ctx`` is
+    the flat chunk view (fused) or the cancellation packets (multipass,
+    :func:`_cancellations`)."""
+    n = st["n"]
+    if codec == "fused":
+        tabs = (st["dec_recv"], st["dec_src"], st["dec_mask"])
+        if ctx.dtype == torch.int16:
+            dec = xor_decode_gather16(recv.view(torch.int16), ctx, *tabs)
+        else:
+            dec = xor_decode_gather(recv, ctx, *tabs)
+        return dec.view(K, n, -1)
+    rows = K * n * (k - 1)
+    dec = xor_decode(recv.reshape(rows, pk), ctx.view(rows, k, pk),
+                     st["cancel_mask"]).view(K, n, k - 1, pk)
+    dev = torch.arange(K, device=dec.device).view(K, 1, 1)
+    row = torch.arange(n, device=dec.device).view(1, n, 1)
+    return dec[dev, row, st["dec_order"]].view(K, n, -1)
+
+
+def _stage_coded(wire, st, calls, *, K, k, pk, mode, codec):
+    """One coded stage of every device: encode, exchange (batched or
+    looped), decode."""
+    ctx, delta = _encode_stage(wire, st, K=K, k=k, pk=pk, codec=codec)
+    if mode == "batched":
+        recv = _exchange(delta, st, K=K, k=k, pk=pk)
     else:
-        dec = xor_decode_gather(recv, flat, *tabs)
-    return dec.view(K, st["n"], -1)
-
-
-def _stage_coded_batched(wire, st, *, K, k, pk):
-    flat, delta = _encode_stage(wire, st, K=K, pk=pk)
-    recv = _exchange(delta, st, K=K, k=k, pk=pk)
+        recv = _exchange_looped(delta, st, calls, K=K, k=k, pk=pk)
     del delta
-    return _decode_stage(recv, flat, st, K=K, k=k, pk=pk)
+    if codec == "multipass":    # rebinding frees the chunk table
+        ctx = _cancellations(ctx, st, K=K, k=k)
+    return _decode_stage(recv, ctx, st, K=K, k=k, pk=pk, codec=codec)
 
 
 def _fold_stored(vals, ar, shard):
@@ -315,20 +462,27 @@ def _fold_stored(vals, ar, shard):
 # the shuffle
 # --------------------------------------------------------------------- #
 def camr_shuffle(plan: CAMRPlan, contribs: torch.Tensor, *,
-                 router: str = "all_to_all") -> torch.Tensor:
+                 mode: str = "batched", router: str = "all_to_all",
+                 codec: str = "fused", debug: bool = False):
     """3-stage CAMR coded shuffle of all K virtual devices at once:
     ``contribs [K, J_own, k-1, K, d] -> [K, J, d]``.
 
     Runs on the device of ``contribs``: the CUDA codec kernels on a card,
     their plain versions on the CPU. Outputs are BITWISE equal to the
-    numpy engine's reduce results: XOR delivery is lossless and assembly
-    folds the stored batches in the engine's canonical order. bf16/f16
-    contributions take the packed lane: two values per u32 wire word
-    through stages 1 and 2 (half the bytes of an f32 shuffle of the same
-    ``d``), stage 3 and assembly in the payload dtype. This is the JAX
-    executor's ``mode="batched"``, ``codec="fused"``; the looped router,
-    the multipass codec and ``debug`` are not ported yet (ROADMAP.md,
-    Queue 1).
+    numpy engine's reduce results in every ``mode`` (``"batched"``, or the
+    legacy ``"looped"`` per-group exchange, which ignores ``router``) and
+    every ``codec`` (``"fused"`` gathers, or the ``"multipass"`` oracle):
+    XOR delivery is lossless and assembly folds the stored batches in the
+    engine's canonical order. bf16/f16 contributions take the packed
+    lane: two values per u32 wire word through stages 1 and 2 (half the
+    bytes of an f32 shuffle of the same ``d``), stage 3 and assembly in
+    the payload dtype.
+
+    ``debug=True`` returns the JAX executor's debug dict, stacked over the
+    device axis: ``out``, ``stage1``, ``stage2``, ``stage3`` and
+    ``own_sum`` ``[K, J, d]`` (each device's selections of every job row,
+    garbage where the row is not its own to decode) and ``is_own``
+    ``bool[K, J]``.
     """
     prog = plan.program
     q, k, K, J, J_own, d = (plan.q, plan.k, plan.K, plan.J, plan.J_own,
@@ -337,23 +491,27 @@ def camr_shuffle(plan: CAMRPlan, contribs: torch.Tensor, *,
     if tuple(contribs.shape) != (K, J_own, k - 1, K, d):
         raise ValueError(f"contribs shape {tuple(contribs.shape)} != "
                          f"{(K, J_own, k - 1, K, d)}")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    if codec not in CODECS:
+        raise ValueError(f"unknown codec {codec!r}")
     if router not in ("all_to_all", "ppermute"):
         raise ValueError(f"unknown router {router!r}")
     dtype = contribs.dtype
     contribs = contribs.contiguous()
-    tabs = _device_tables(plan, contribs.device, router)
+    tabs = _device_tables(plan, contribs.device, router, codec, mode)
     # wp u32 words per shard: d for 4-byte dtypes, ceil(d/2) padded to a
     # packet multiple for packed 16-bit ones
     wp = payload_words(d, contribs.element_size(), k)
     pk = wp // (k - 1)
-    wire = _wire_buffer(contribs, wp)   # [K, J_own, k-1, K, wp | 2*wp]
+    wire = _wire_buffer(contribs, wp, codec)   # [K, J_own, k-1, K, ...]
 
     # ========== stages 1 + 2: one shared coded-exchange machine ======== #
     arith = _arith_dtype(dtype)
     stage_vals = {}
     for stage in (1, 2):
-        dec = _stage_coded_batched(wire, tabs["stages"][stage], K=K, k=k,
-                                   pk=pk)
+        dec = _stage_coded(wire, tabs["stages"][stage], plan.permutations,
+                           K=K, k=k, pk=pk, mode=mode, codec=codec)
         stage_vals[stage] = _from_wire(dec, dtype, d)   # [K, n, d]
     del wire
     vals = contribs.view(arith)
@@ -366,22 +524,50 @@ def camr_shuffle(plan: CAMRPlan, contribs: torch.Tensor, *,
         got = pay.index_select(0, tabs["s3_src"][o])
         if tabs["s3_zero"][o] is not None:
             got.masked_fill_(tabs["s3_zero"][o][:, None, None], 0)
+        plan.permutations["stage3"] += 1
         s3_out[:, o] = got
         del pay, got        # free before the next offset's payload
 
     # ========== assemble (reduce-side tables of the program) ========== #
     own_sum = _fold_stored(vals, tabs["ar"], tabs["ar"])   # [K, J_own, d]
+    s1 = stage_vals.pop(1)                                  # [K, J, d]
+    s2 = stage_vals.pop(2)                                  # [K, n_s2, d]
+    if debug:
+        ar = tabs["ar"][:, None]
+        slot = tabs["own_slot"]
+        info = dict(stage1=s1, stage2=s2[ar, tabs["s2_ord"]],
+                    stage3=s3_out[ar, tabs["s3_off"], slot],
+                    own_sum=own_sum[ar, slot])
+        info = {key: v.contiguous().view(dtype) for key, v in info.items()}
     out = torch.empty((K * J, d), dtype=arith, device=contribs.device)
-    s1 = stage_vals.pop(1).reshape(K * J, d)
+    s1 = s1.reshape(K * J, d)
     out[tabs["own_rows"]] = (s1.index_select(0, tabs["own_rows"])
                              + own_sum.reshape(-1, d).index_select(
                                  0, tabs["own_sum_rows"]))
     del s1, own_sum         # free before the non-owner gathers
-    s2 = stage_vals.pop(2).reshape(K * prog.n_s2, d)
+    s2 = s2.reshape(K * prog.n_s2, d)
     out[tabs["non_rows"]] = (s2.index_select(0, tabs["non_s2_rows"])
                              + s3_out.reshape(-1, d).index_select(
                                  0, tabs["non_s3_rows"]))
-    return out.view(K, J, d).view(dtype)
+    out = out.view(K, J, d).view(dtype)
+    if debug:
+        return dict(out=out, **info, is_own=tabs["is_own"])
+    return out
+
+
+def expected_collective_calls(plan: CAMRPlan, mode: str = "batched",
+                              router: str = "all_to_all") -> dict[str, int]:
+    """Collectives per shuffle of the JAX executor, flat topology: the
+    batched rounds (one ``all_to_all``, or ``q`` ppermutes, per round of
+    each coded stage) or the looped per-group permutations, plus the
+    ``q-1`` stage-3 unicasts. The port's looped lane and stage 3 run
+    exactly these permutations (:attr:`CAMRPlan.permutations`)."""
+    q, k = plan.q, plan.k
+    if mode == "batched":
+        s12 = 2 * (k - 1) if router == "all_to_all" else 2 * (k - 1) * q
+    else:
+        s12 = (plan.J + plan.program.n_s2) * (k - 1)
+    return dict(stage12=s12, stage3=q - 1, total=s12 + q - 1)
 
 
 # --------------------------------------------------------------------- #
@@ -405,6 +591,34 @@ def camr_shuffle_reference(plan: CAMRPlan,
     """Oracle: out[s, j] = sum over batches of shard s of job j."""
     total = batch_grads.sum(axis=1)               # [J, K, d]
     return np.transpose(total, (1, 0, 2))         # [K, J, d]
+
+
+def uncoded_reduce_scatter(contribs: torch.Tensor, *,
+                           plan: CAMRPlan) -> torch.Tensor:
+    """The paper's uncoded baseline, stacked over the device axis:
+    ``contribs [K, J_own, k-1, K, d] -> [K, J, d]``. Every duplicate batch
+    copy but the first is masked off, each device sums its stored batches
+    of its owned jobs, adding those sums into the job rows of one dense
+    ``[J, K, d]`` stands in for ``psum``, and device ``s`` keeps shard
+    ``s`` of every job."""
+    K, J, J_own, k = plan.K, plan.J, plan.J_own, plan.k
+    first = np.zeros((K, J_own, k - 1), dtype=bool)
+    seen = set()
+    for s in range(K):
+        for a, j in enumerate(plan.owned_jobs[s]):
+            for b, t in enumerate(plan.stored_batches[s, a]):
+                if (j, t) not in seen:
+                    seen.add((j, t))
+                    first[s, a, b] = True
+    dev = contribs.device
+    mask = torch.as_tensor(first, device=dev)
+    part = torch.where(mask[..., None, None], contribs, 0).sum(dim=2)
+    total = torch.zeros((J, K, plan.d), dtype=contribs.dtype, device=dev)
+    jobs = torch.as_tensor(plan.owned_jobs.reshape(-1).astype(np.int64),
+                           device=dev)
+    total.index_put_((jobs,), part.reshape(K * J_own, K, plan.d),
+                     accumulate=True)
+    return total.transpose(0, 1).contiguous()
 
 
 def camr_collective_bytes(plan: CAMRPlan, itemsize: int = 4,
@@ -438,26 +652,31 @@ class ShuffleStream:
     """Reusable runner of :func:`camr_shuffle` for the training path.
 
     One lowered plan and one set of device index tables, reused by
-    every :meth:`sync`; ``compiles`` counts executor builds (plan
-    lowering + tables), ``dispatches`` the shuffles run. This slice
-    ports the flat, healthy stream with ``sync``; wave submission,
-    degrade/restore and the two-level topology are still to port
-    (ROADMAP.md, Queue 1).
+    every :meth:`sync` in the stream's ``mode``, ``router`` and
+    ``codec``; ``compiles`` counts executor builds (plan lowering +
+    tables), ``dispatches`` the shuffles run. This is the flat, healthy
+    stream with ``sync``; wave submission, degrade/restore and the
+    two-level topology are still to port (ROADMAP.md, Queue 1).
     """
 
     def __init__(self, q: int, k: int, d: int, *, device=None,
-                 router: str = "all_to_all"):
+                 mode: str = "batched", router: str = "all_to_all",
+                 codec: str = "fused"):
         if k < 3:
             raise ValueError("the coded collective path requires k >= 3")
         if d % (k - 1):
             raise ValueError(f"shard width d={d} must be divisible by "
                              f"k-1={k - 1}")
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}")
         if router not in ("all_to_all", "ppermute"):
             raise ValueError(f"unknown router {router!r}")
+        if codec not in CODECS:
+            raise ValueError(f"unknown codec {codec!r}")
         self.q, self.k, self.d = q, k, d
         self.K = q * k
         self.device = resolve_device(device)
-        self.router = router
+        self.mode, self.router, self.codec = mode, router, codec
         self._plan: CAMRPlan | None = None
         self.dispatches = 0
         self.compiles = 0
@@ -465,7 +684,8 @@ class ShuffleStream:
     def _executor(self) -> CAMRPlan:
         if self._plan is None:
             plan = make_plan(self.q, self.k, self.d)
-            _device_tables(plan, self.device, self.router)
+            _device_tables(plan, self.device, self.router, self.codec,
+                           self.mode)
             self._plan = plan
             self.compiles += 1
         return self._plan
@@ -487,10 +707,12 @@ class ShuffleStream:
         (no host copy)."""
         self._check_wave(contribs)
         self.dispatches += 1
-        return camr_shuffle(self._executor(), contribs, router=self.router)
+        return camr_shuffle(self._executor(), contribs, mode=self.mode,
+                            router=self.router, codec=self.codec)
 
     def stats(self) -> dict:
         """Executor-reuse counters (``compiles`` stays flat while
         ``dispatches`` grows on a steady-state stream)."""
         return dict(dispatches=self.dispatches, compiles=self.compiles,
-                    router=self.router, device=str(self.device))
+                    mode=self.mode, router=self.router, codec=self.codec,
+                    device=str(self.device))

@@ -1,18 +1,21 @@
 """Hand-written Hopper kernels of the port and their plain versions.
 
 ``csrc/`` holds the CUDA C++ sources, built by :mod:`._build` on first
-use; :mod:`.ref` holds the plain-PyTorch version of each kernel.
+use; :mod:`.ref` holds the plain-PyTorch version of each kernel;
+:mod:`.ops` is the dispatch layer the JAX package's models call.
 """
 
 from __future__ import annotations
 
 from .aggregate import aggregate, aggregate_bf16
-from .xor_code import (xor_decode_gather, xor_decode_gather16,
-                       xor_encode_gather, xor_encode_gather16)
+from .xor_code import (xor_decode, xor_decode_gather, xor_decode_gather16,
+                       xor_encode, xor_encode_gather, xor_encode_gather16,
+                       xor_fold)
 
 __all__ = ["KERNELS", "aggregate", "aggregate_bf16", "xor_encode_gather",
            "xor_decode_gather", "xor_encode_gather16", "xor_decode_gather16",
-           "launch_counts", "reset_launch_counts"]
+           "xor_fold", "xor_decode", "xor_encode", "launch_counts",
+           "reset_launch_counts"]
 
 #: every kernel wrapper of the port, by kernel name (``aggregate`` counts
 #: the f32 combiner, ``aggregate_bf16`` the bf16 one)
@@ -21,7 +24,10 @@ KERNELS = {"xor_encode_gather": xor_encode_gather,
            "aggregate": aggregate,
            "xor_encode_gather16": xor_encode_gather16,
            "xor_decode_gather16": xor_decode_gather16,
-           "aggregate_bf16": aggregate_bf16}
+           "aggregate_bf16": aggregate_bf16,
+           "xor_fold": xor_fold,
+           "xor_decode": xor_decode,
+           "xor_encode": xor_encode}
 
 
 def launch_counts() -> dict[str, int]:

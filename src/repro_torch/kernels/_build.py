@@ -31,6 +31,10 @@ SOURCES = {
         "xor_encode_gather16": [_VP] * 4 + [_LL] * 5 + [_INT, _VP],
         "xor_decode_gather16": [_VP] * 6 + [_LL] * 6 + [_INT, _VP],
     },
+    "xor_fold": {
+        "xor_fold": [_VP] * 2 + [_LL] * 3 + [_INT, _VP],
+        "xor_decode": [_VP] * 4 + [_LL] * 3 + [_INT, _VP],
+    },
     "aggregate": {
         "aggregate_f32": [_VP] * 3 + [_LL] * 3 + [_INT, _VP],
         "aggregate_bf16": [_VP] * 3 + [_LL] * 3 + [_INT, _VP],

@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["xor_encode_gather_ref", "xor_decode_gather_ref",
+__all__ = ["xor_encode_ref", "xor_fold_ref", "xor_decode_ref",
+           "xor_encode_gather_ref", "xor_decode_gather_ref",
            "xor_encode_gather16_ref", "xor_decode_gather16_ref",
            "aggregate_ref", "as_words", "as_lanes"]
 
@@ -45,6 +46,35 @@ def check_even_lanes(name: str, lanes: int) -> None:
     if lanes % 2:
         raise ValueError(f"{name}: packed packet lane count must be even, "
                          f"got {lanes}")
+
+
+def xor_encode_ref(packets: torch.Tensor) -> torch.Tensor:
+    """The Algorithm-2 Δ: XOR-fold ``packets [m, n]`` words over axis 0
+    -> ``[n]`` in the dtype of ``packets``."""
+    return xor_fold_ref(packets[None])[0]
+
+
+def xor_fold_ref(packets: torch.Tensor) -> torch.Tensor:
+    """Batched encode: ``[R, m, n]`` words -> ``[R, n]``, XOR over axis 1
+    (one ``[R, n]`` temporary at a time, never a copy of the input)."""
+    words = as_words(packets)
+    acc = torch.zeros((words.shape[0], words.shape[2]), dtype=torch.int32,
+                      device=words.device)
+    for i in range(words.shape[1]):
+        acc ^= words[:, i]
+    return acc.view(packets.dtype)
+
+
+def xor_decode_ref(recv: torch.Tensor, packets: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """Batched decode: ``recv [R, n] ^ XOR_i packets[:, i] where
+    mask[:, i]`` (packets ``[R, m, n]``, mask ``bool[R, m]``) -> ``[R, n]``
+    in the dtype of ``packets``."""
+    acc = as_words(recv).clone()
+    words = as_words(packets)
+    for i in range(words.shape[1]):
+        acc ^= torch.where(mask[:, i, None], words[:, i], 0)
+    return acc.view(packets.dtype)
 
 
 def _masked_fold(chunks, idx, mask, acc):

@@ -1,11 +1,19 @@
-"""Fused gather-XOR codec of the coded shuffle (CUDA, ``csrc/xor_gather.cu``).
+"""XOR packet codec of the coded shuffle (CUDA, ``csrc/xor_gather.cu`` and
+``csrc/xor_fold.cu``).
 
-Counterparts of the JAX package's Pallas kernels
-``repro.kernels.xor_code.xor_encode_gather`` / ``xor_decode_gather``
-(u32 wire words) and ``xor_encode_gather16`` / ``xor_decode_gather16``
-(the packed 16-bit lane: bf16/f16 payloads as u16 lanes, two per wire
-word), with a leading virtual-device axis: one launch covers all ``K``
-workers of the stacked executor (:mod:`repro_torch.core.collective`).
+Counterparts of the JAX package's Pallas kernels in
+``repro.kernels.xor_code``, in two families:
+
+* the fused gathers ``xor_encode_gather`` / ``xor_decode_gather`` (u32
+  wire words) and ``xor_encode_gather16`` / ``xor_decode_gather16`` (the
+  packed 16-bit lane: bf16/f16 payloads as u16 lanes, two per wire word),
+  with a leading virtual-device axis: one launch covers all ``K`` workers
+  of the stacked executor (:mod:`repro_torch.core.collective`);
+* the dense folds ``xor_fold`` / ``xor_decode`` of the multipass codec,
+  over packet tables the caller has already gathered (rows of all ``K``
+  workers stacked along their row axis), and ``xor_encode``, one row's
+  fold (the Algorithm-2 Δ of :func:`repro_torch.kernels.ops.xor_fold`,
+  launching the fold kernel with one row).
 
 A tensor on the CPU goes to the plain version in :mod:`.ref`; a CUDA
 tensor launches the kernel or raises. Each wrapper's ``launches``
@@ -17,14 +25,15 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .ref import (as_lanes, as_words, check_even_lanes,
+from .ref import (as_lanes, as_words, check_even_lanes, xor_decode_ref,
                   xor_decode_gather16_ref, xor_decode_gather_ref,
-                  xor_encode_gather16_ref, xor_encode_gather_ref)
+                  xor_encode_gather16_ref, xor_encode_gather_ref,
+                  xor_encode_ref, xor_fold_ref)
 
 __all__ = ["xor_encode_gather", "xor_decode_gather", "xor_encode_gather16",
-           "xor_decode_gather16"]
+           "xor_decode_gather16", "xor_fold", "xor_decode", "xor_encode"]
 
-_MAX_SRC = 64          # kMaxSrc of csrc/xor_gather.cu
+_MAX_SRC = 64          # kMaxSrc of csrc/xor_gather.cu and csrc/xor_fold.cu
 _MAX_GRID_YZ = 65535
 
 
@@ -186,7 +195,94 @@ def xor_decode_gather16(recv: torch.Tensor, chunks: torch.Tensor,
                    recv, chunks, rsel, idx, mask)
 
 
+def _fold(fn, packets, recv=None, mask=None):
+    """Launch ``csrc/xor_fold.cu`` over the word view ``packets [R, m,
+    n]``: its ``xor_decode`` entry given ``recv [R, n]`` and ``mask [R,
+    m]``, else its ``xor_fold`` entry -> int32 words ``[R, n]``; the
+    launch counts on ``fn``."""
+    name = fn.__name__
+    inputs = [t for t in (packets, recv, mask) if t is not None]
+    _cuda_ready(name, *inputs)
+    R, m, n = packets.shape
+    _check_grid(name, 1, R, m)
+    out = torch.empty((R, n), dtype=torch.int32, device=packets.device)
+    if out.numel():
+        lib = _build.load("xor_fold")
+        vec = _vec(n, (4, 2), *inputs[:2], out)
+        stream = torch.cuda.current_stream(packets.device).cuda_stream
+        if recv is None:
+            code = lib.xor_fold(packets.data_ptr(), out.data_ptr(), R, m, n,
+                                vec, stream)
+        else:
+            code = lib.xor_decode(recv.data_ptr(), packets.data_ptr(),
+                                  mask.data_ptr(), out.data_ptr(), R, m, n,
+                                  vec, stream)
+        _build.check(lib, name, code)
+        fn.launches += 1
+    return out
+
+
+def _check_sources(name, m):
+    if m < 1:
+        raise ValueError(f"{name}: needs at least one packet per row, "
+                         f"got m={m}")
+
+
+def xor_fold(packets: torch.Tensor) -> torch.Tensor:
+    """Batched encode: ``u32|i32[R, m, n] -> [R, n]``, XOR over axis 1 (row
+    ``r`` is one coded group's packet set), in the dtype of ``packets``."""
+    words = as_words(packets)
+    if words.dim() != 3:
+        raise ValueError(f"xor_fold: packets must be [R, m, n], got "
+                         f"{tuple(packets.shape)}")
+    _check_sources("xor_fold", words.shape[1])
+    if words.device.type == "cpu":
+        return xor_fold_ref(packets)
+    return _fold(xor_fold, words).view(packets.dtype)
+
+
+def xor_decode(recv: torch.Tensor, packets: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """Batched decode (Lemma 2): ``recv ^ XOR_i packets[:, i] where
+    mask[:, i]``. recv ``u32|i32[R, n]`` round broadcasts, packets
+    ``[R, m, n]`` the locally recomputed cancellation packets, mask
+    ``bool[R, m]`` -> ``[R, n]`` in the dtype of ``packets``; a masked-off
+    packet is never read on the card."""
+    words, rwords = as_words(packets), as_words(recv)
+    if words.dim() != 3:
+        raise ValueError(f"xor_decode: packets must be [R, m, n], got "
+                         f"{tuple(packets.shape)}")
+    R, m, n = words.shape
+    if tuple(rwords.shape) != (R, n):
+        raise ValueError(f"xor_decode: recv shape {tuple(recv.shape)} != "
+                         f"{(R, n)}")
+    if mask.dtype != torch.bool or tuple(mask.shape) != (R, m):
+        raise ValueError(f"xor_decode: mask must be bool {(R, m)}, got "
+                         f"{mask.dtype} {tuple(mask.shape)}")
+    _check_sources("xor_decode", m)
+    if words.device.type == "cpu":
+        return xor_decode_ref(recv, packets, mask)
+    return _fold(xor_decode, words, rwords, mask).view(packets.dtype)
+
+
+def xor_encode(packets: torch.Tensor) -> torch.Tensor:
+    """The Algorithm-2 Δ of one server: ``u32|i32[m, n] -> [n]``, XOR over
+    axis 0, in the dtype of ``packets`` (on the card the ``xor_fold``
+    kernel over one row, counted here)."""
+    words = as_words(packets)
+    if words.dim() != 2:
+        raise ValueError(f"xor_encode: packets must be [m, n], got "
+                         f"{tuple(packets.shape)}")
+    _check_sources("xor_encode", words.shape[0])
+    if words.device.type == "cpu":
+        return xor_encode_ref(packets)
+    return _fold(xor_encode, words[None])[0].view(packets.dtype)
+
+
 xor_encode_gather.launches = 0
 xor_decode_gather.launches = 0
 xor_encode_gather16.launches = 0
 xor_decode_gather16.launches = 0
+xor_fold.launches = 0
+xor_decode.launches = 0
+xor_encode.launches = 0

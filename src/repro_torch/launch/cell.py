@@ -3,7 +3,8 @@
 ``granite_3_2b`` (hf:ibm-granite/granite-3.0-2b-base) at full width,
 depth cut from 40 to 2 layers, q=2, k=3 (K=6 virtual workers, J=4
 models), trained on ``ShardedTokenPipeline(seq_len=512,
-global_batch=1)`` from seed 0, on the f32 or the bf16 grad-sync lane.
+global_batch=1)`` from seed 0, on the f32 or the bf16 grad-sync lane,
+with the fused codec or the multipass oracle.
 ``chip_smoke.py`` and :mod:`repro_torch.launch.profile` both build it
 here.
 """
@@ -21,13 +22,14 @@ SEQ_LEN = 512
 GLOBAL_BATCH = 1
 
 
-def make_cell(device=None, grad_sync_dtype="float32"):
+def make_cell(device=None, grad_sync_dtype="float32", codec="fused"):
     """The cell's ``(trainer, pipeline)``; ``device=None`` is the current
     CUDA device, ``grad_sync_dtype`` the lane (``"float32"`` or
-    ``"bfloat16"``)."""
+    ``"bfloat16"``), ``codec`` the shuffle's XOR codec (``"fused"`` or
+    ``"multipass"``)."""
     cfg = get_config(ARCH).replace(n_layers=N_LAYERS)
     tr = MultiModelCAMRTrainer(cfg, q=Q, k=K, seed=0, device=device,
-                               grad_sync_dtype=grad_sync_dtype)
+                               grad_sync_dtype=grad_sync_dtype, codec=codec)
     pipe = ShardedTokenPipeline(vocab=cfg.vocab, seq_len=SEQ_LEN,
                                 global_batch=GLOBAL_BATCH)
     return tr, pipe

@@ -3,8 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.profile
 
 Builds the measured cell (:mod:`repro_torch.launch.cell`) on the current
-CUDA device, once per grad-sync lane (f32, then bf16, the first trainer
-freed before the second is built), runs ``WARM`` steps, then one step
+CUDA device, once per run of ``RUNS`` (the f32 lane, the bf16 lane, then
+the f32 lane through the multipass codec, each trainer freed before the
+next is built), runs ``WARM`` steps, then one step
 under ``torch.profiler`` and prints: the step's wall time, the summed
 device time of its kernels and their share of the wall time (one stream,
 so kernels do not overlap), and the kernels with the most device time.
@@ -25,7 +26,8 @@ from repro_torch.launch.cell import make_cell
 
 WARM = 2     # steps before the traced one: cuBLAS and allocator warm-up
 TOP = 25     # kernels listed
-LANES = ("float32", "bfloat16")
+#: (grad_sync_dtype, codec) of each profiled run
+RUNS = (("float32", "fused"), ("bfloat16", "fused"), ("float32", "multipass"))
 
 
 def _device_us(evt) -> float:
@@ -36,15 +38,15 @@ def _device_us(evt) -> float:
 
 
 def main():
-    for lane in LANES:
-        print(f"== grad_sync_dtype={lane}")
-        profile_lane(lane)
+    for lane, codec in RUNS:
+        print(f"== grad_sync_dtype={lane} codec={codec}")
+        profile_lane(lane, codec)
         gc.collect()
         torch.cuda.empty_cache()
 
 
-def profile_lane(lane: str) -> None:
-    tr, pipe = make_cell(grad_sync_dtype=lane)
+def profile_lane(lane: str, codec: str) -> None:
+    tr, pipe = make_cell(grad_sync_dtype=lane, codec=codec)
     tr.train_steps(pipe, WARM)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,

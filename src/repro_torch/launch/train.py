@@ -2,14 +2,16 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite_3_2b \\
         --multi-model --grad-sync camr_spmd --q 2 --k 3 --steps 2 \\
-        --n-layers 2 --seq-len 512 --batch 1 [--grad-sync-dtype bfloat16]
+        --n-layers 2 --seq-len 512 --batch 1 [--grad-sync-dtype bfloat16] \\
+        [--codec multipass]
 
 runs ``MultiModelCAMRTrainer.train_steps(mode="camr_spmd")`` on the
 current CUDA device (``--device cpu`` runs the plain versions on the
 CPU, best with ``--reduced``); ``--grad-sync-dtype bfloat16`` syncs the
-gradients on the packed 16-bit wire lane. Only ``--multi-model --grad-sync
-camr_spmd`` is ported; the other choices exit with a pointer to
-ROADMAP.md.
+gradients on the packed 16-bit wire lane, ``--codec multipass`` through
+the multipass XOR codec (the fused codec's oracle). Only ``--multi-model
+--grad-sync camr_spmd`` is ported; the single-model trainer and the
+camr/uncoded modes exit with a pointer to ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.data.pipeline import ShardedTokenPipeline
 from repro_torch.runtime import MultiModelCAMRTrainer
 
-_LATER = "is not ported yet (ROADMAP.md, Queue 1)"
+_LATER = "is not ported yet (ROADMAP.md, Queue 1 item 4)"
 
 
 def main(argv=None):
@@ -50,6 +52,10 @@ def main(argv=None):
                     help="shuffle payload dtype (default: the config's); "
                          "bfloat16 = mixed-precision grad sync at half "
                          "the wire bytes")
+    ap.add_argument("--codec", choices=["fused", "multipass"],
+                    default="fused",
+                    help="the shuffle's XOR codec (multipass = the fused "
+                         "codec's oracle)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device)")
     args = ap.parse_args(argv)
@@ -70,7 +76,8 @@ def main(argv=None):
     tr = MultiModelCAMRTrainer(cfg, q=args.q, k=args.k, lr=args.lr,
                                seed=args.seed, router=args.router,
                                device=args.device,
-                               grad_sync_dtype=args.grad_sync_dtype)
+                               grad_sync_dtype=args.grad_sync_dtype,
+                               codec=args.codec)
     t0 = time.time()
     rep = tr.train_steps(pipe, args.steps, mode="camr_spmd")
     dt = time.time() - t0

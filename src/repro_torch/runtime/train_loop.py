@@ -15,9 +15,11 @@ Counterpart of ``repro.runtime.train_loop.MultiModelCAMRTrainer`` with
    ``[K, J_own, k-1, K, d]`` in the sync dtype; the memo is dropped once
    the contributions are built;
 3. **shuffle** — the 3-stage coded shuffle of all K virtual workers
-   (:class:`repro_torch.core.collective.ShuffleStream`; one encode and
-   one decode kernel launch per coded stage, the 16-bit codec kernels on
-   the bf16 lane at half the wire bytes);
+   (:class:`repro_torch.core.collective.ShuffleStream`; on the default
+   fused codec one encode and one decode kernel launch per coded stage,
+   the 16-bit codec kernels on the bf16 lane at half the wire bytes; on
+   the ``codec="multipass"`` oracle one ``xor_fold`` and one
+   ``xor_decode`` launch per coded stage, bitwise the same result);
 4. **update** — the synced gradient upcast to f32 (exact), then the
    worker-sharded AdamW update of the flat f32 ``[J, Dpad]`` master,
    moments updated in place.
@@ -42,7 +44,8 @@ import torch
 
 from ..configs import ModelConfig
 from ..core import loads as Lo
-from ..core.collective import ShuffleStream, camr_collective_bytes, make_plan
+from ..core.collective import (CODECS, ShuffleStream, camr_collective_bytes,
+                               make_plan)
 from ..data.pipeline import ShardedTokenPipeline, make_camr_job_datasets
 from ..device import resolve_device
 from ..kernels.aggregate import aggregate
@@ -130,6 +133,10 @@ class MultiModelCAMRTrainer:
     ``(seed, job)`` on the trainer's device. ``device=None`` is the
     current CUDA device and raises when there is none.
 
+    ``codec`` is the shuffle's XOR codec: ``"fused"`` (the gather
+    kernels) or ``"multipass"`` (the oracle that materializes the chunk
+    and cancellation tables; the same synced gradient, bitwise).
+
     ``grad_sync_dtype`` is the shuffle payload dtype: ``"float32"`` or
     ``"bfloat16"`` (mixed-precision grad sync: gradients rounded to bf16
     once at the map memo, synced on the packed 16-bit wire lane at half
@@ -144,8 +151,8 @@ class MultiModelCAMRTrainer:
 
     def __init__(self, cfg: ModelConfig, *, q: int, k: int,
                  lr: float = 1e-3, seed: int = 0, params=None,
-                 router: str = "all_to_all", device=None,
-                 grad_sync_dtype: str | None = None):
+                 codec: str = "fused", router: str = "all_to_all",
+                 device=None, grad_sync_dtype: str | None = None):
         gsd = (cfg.grad_sync_dtype if grad_sync_dtype is None
                else grad_sync_dtype)
         name = str(gsd).removeprefix("torch.")
@@ -159,6 +166,8 @@ class MultiModelCAMRTrainer:
         if name not in ("float32", "bfloat16"):
             raise ValueError(f"grad_sync_dtype must be float32 or "
                              f"bfloat16, got {name}")
+        if codec not in CODECS:
+            raise ValueError(f"unknown codec {codec!r}")
         self.device = resolve_device(device)
         self.grad_sync_dtype = name
         self._sync_dtype = getattr(torch, name)
@@ -194,7 +203,7 @@ class MultiModelCAMRTrainer:
             mu=torch.zeros_like(self.flat), nu=torch.zeros_like(self.flat))
         self.lr = lr
         self.step = 0
-        self.router = router
+        self.codec, self.router = codec, router
         self._stream = None                    # lazy ShuffleStream
         self.map_calls = 0                     # gradient computations paid
         self.plan = make_plan(q, k, d)
@@ -260,7 +269,8 @@ class MultiModelCAMRTrainer:
         if self._stream is None:
             self._stream = ShuffleStream(self.q, self.k, self.d_shard,
                                          device=self.device,
-                                         router=self.router)
+                                         router=self.router,
+                                         codec=self.codec)
         return self._stream
 
     def _sync_spmd(self, contribs, report) -> torch.Tensor:
@@ -292,8 +302,9 @@ class MultiModelCAMRTrainer:
         consecutive calls continue the same data stream."""
         if mode in ("camr", "uncoded"):
             raise NotImplementedError(
-                f"mode={mode!r} is not ported yet (ROADMAP.md, Queue 1: "
-                "the camr/uncoded grad-sync modes); use mode='camr_spmd'")
+                f"mode={mode!r} is not ported yet (ROADMAP.md, Queue 1 "
+                "item 4: the camr/uncoded grad-sync modes and the engine "
+                "twins); use mode='camr_spmd'")
         if mode != "camr_spmd":
             raise ValueError(f"unknown mode {mode!r}; choose from "
                              "['camr', 'camr_spmd', 'uncoded']")

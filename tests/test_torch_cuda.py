@@ -7,10 +7,11 @@ that has only PyTorch:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances: XOR gathers (u32 words and u16 lanes), ``aggregate`` with
-one row per segment and the shuffle (f32 and packed bf16/f16) are
-bitwise (bit movers, exact sums); ``aggregate`` with several rows per
-segment is rtol 1e-6 in f32 and one bf16 ulp in bf16, as stated for the
+Tolerances: XOR gathers (u32 words and u16 lanes), the dense folds of
+the multipass codec, ``aggregate`` with one row per segment and the
+shuffle (f32 and packed bf16/f16, every mode and codec) are bitwise
+(bit movers, exact sums); ``aggregate`` with several rows per segment
+is rtol 1e-6 in f32 and one bf16 ulp in bf16, as stated for the
 kernel (it is in fact the same ascending f32 sum); the tiny trainer's
 loss on the card is within rtol 1e-4 of the CPU's (cuBLAS and the CPU's
 BLAS sum products in other orders, TF32 off), on both grad-sync lanes.
@@ -25,8 +26,10 @@ from repro_torch.core.collective import (camr_shuffle, make_plan,
                                          scatter_contributions)
 from repro_torch.data.pipeline import ShardedTokenPipeline
 from repro_torch.kernels import (aggregate, aggregate_bf16, launch_counts,
-                                 ref, xor_decode_gather, xor_decode_gather16,
-                                 xor_encode_gather, xor_encode_gather16)
+                                 ops, ref, xor_decode, xor_decode_gather,
+                                 xor_decode_gather16, xor_encode,
+                                 xor_encode_gather, xor_encode_gather16,
+                                 xor_fold)
 from repro_torch.runtime import MultiModelCAMRTrainer
 
 pytestmark = pytest.mark.cuda
@@ -173,15 +176,68 @@ def test_cuda_shuffle_bitwise_equals_cpu(cuda_device, q, k, router):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
-def _trainer_step_on_card_and_cpu(cuda_device, grad_sync_dtype):
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("n,offset", [(1, 0), (2, 0), (7, 0), (1001, 0),
+                                      (4096, 0), (4096, 1)])
+def test_cuda_folds_match_plain(cuda_device, n, offset, m):
+    """The dense folds: n of 1, 2 and 3 mod 4 words and whole 16-byte
+    rows (the 4-, 8- and 16-byte paths), one word off alignment, masks
+    with a row wholly off and one wholly on."""
+    rng = np.random.default_rng(10 * n + m + offset)
+    R = 5
+
+    def words(shape):
+        flat = _words(rng, (int(np.prod(shape)) + offset,)).to(cuda_device)
+        return flat[offset:].view(shape)
+
+    p, r = words((R, m, n)), words((R, n))
+    mask = torch.from_numpy(rng.integers(0, 2, size=(R, m)).astype(bool))
+    mask[0], mask[1] = False, True
+    mk = mask.to(cuda_device)
+    before = launch_counts()
+    assert torch.equal(xor_fold(p), ref.xor_fold_ref(p))
+    assert torch.equal(xor_decode(r, p, mk), ref.xor_decode_ref(r, p, mk))
+    assert torch.equal(xor_encode(p[2]), ref.xor_encode_ref(p[2]))
+    assert torch.equal(ops.xor_fold(p[3]), ref.xor_encode_ref(p[3]))
+    after = launch_counts()
+    assert after["xor_fold"] == before["xor_fold"] + 1
+    assert after["xor_decode"] == before["xor_decode"] + 1
+    assert after["xor_encode"] == before["xor_encode"] + 2
+
+
+@pytest.mark.parametrize("mode,codec", [("batched", "multipass"),
+                                        ("looped", "fused"),
+                                        ("looped", "multipass")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("q,k", [(2, 3), (3, 3), (2, 4)])
+def test_cuda_modes_and_codecs_equal_fused(cuda_device, q, k, dtype, mode,
+                                           codec):
+    d = (k - 1) * 1001
+    plan = make_plan(q, k, d)
+    rng = np.random.default_rng(q * k + 11)
+    bg = rng.standard_normal((plan.J, k, plan.K, d)).astype(np.float32)
+    c = torch.from_numpy(scatter_contributions(plan, bg)).to(dtype)
+    cc = c.to(cuda_device)
+    want = camr_shuffle(plan, cc)
+    words = torch.int32 if dtype == torch.float32 else torch.int16
+    for router in ("all_to_all", "ppermute"):
+        got = camr_shuffle(plan, cc, mode=mode, codec=codec, router=router)
+        assert torch.equal(got.view(words), want.view(words))
+        cpu = camr_shuffle(plan, c, mode=mode, codec=codec, router=router)
+        assert torch.equal(got.cpu().view(words), cpu.view(words))
+
+
+def _trainer_step_on_card_and_cpu(cuda_device, grad_sync_dtype,
+                                  codec="fused"):
     cfg = reduced(get_config("granite_3_2b")).replace(vocab=64, loss_chunk=8)
     pipe = ShardedTokenPipeline(vocab=64, seq_len=8, global_batch=2)
     cpu = MultiModelCAMRTrainer(cfg, q=2, k=3, device="cpu", seed=3,
-                                grad_sync_dtype=grad_sync_dtype)
+                                grad_sync_dtype=grad_sync_dtype, codec=codec)
     params = [{k: v for k, v in p.items()} for p in cpu.params]
     card = MultiModelCAMRTrainer(cfg, q=2, k=3, device=cuda_device,
                                  params=params,
-                                 grad_sync_dtype=grad_sync_dtype)
+                                 grad_sync_dtype=grad_sync_dtype, codec=codec)
     assert torch.equal(card.flat.cpu(), cpu.flat)
     before = launch_counts()
     rc, rg = cpu.train_steps(pipe, 1), card.train_steps(pipe, 1)
@@ -195,11 +251,22 @@ def test_cuda_trainer_step_matches_cpu(cuda_device):
     card, runs = _trainer_step_on_card_and_cpu(cuda_device, "float32")
     assert runs == {"xor_encode_gather": 2, "xor_decode_gather": 2,
                     "aggregate": card.K, "xor_encode_gather16": 0,
-                    "xor_decode_gather16": 0, "aggregate_bf16": 0}
+                    "xor_decode_gather16": 0, "aggregate_bf16": 0,
+                    "xor_fold": 0, "xor_decode": 0, "xor_encode": 0}
 
 
 def test_cuda_bf16_trainer_step_matches_cpu(cuda_device):
     card, runs = _trainer_step_on_card_and_cpu(cuda_device, "bfloat16")
     assert runs == {"xor_encode_gather": 0, "xor_decode_gather": 0,
                     "aggregate": 0, "xor_encode_gather16": 2,
-                    "xor_decode_gather16": 2, "aggregate_bf16": card.K}
+                    "xor_decode_gather16": 2, "aggregate_bf16": card.K,
+                    "xor_fold": 0, "xor_decode": 0, "xor_encode": 0}
+
+
+def test_cuda_multipass_trainer_step_matches_cpu(cuda_device):
+    card, runs = _trainer_step_on_card_and_cpu(cuda_device, "float32",
+                                               codec="multipass")
+    assert runs == {"xor_encode_gather": 0, "xor_decode_gather": 0,
+                    "aggregate": card.K, "xor_encode_gather16": 0,
+                    "xor_decode_gather16": 0, "aggregate_bf16": 0,
+                    "xor_fold": 2, "xor_decode": 2, "xor_encode": 0}

@@ -23,6 +23,7 @@ _IMPORT_ALL = textwrap.dedent("""
     for name in names:
         __import__(name)
     assert len(names) >= 20, names
+    assert "repro_torch.kernels.ops" in names, names
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     assert not bad, bad

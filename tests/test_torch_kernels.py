@@ -1,11 +1,12 @@
 """The port's kernels: plain PyTorch versions against the JAX package's
 Pallas kernels (interpret mode, as tests/test_kernels.py runs them), one
-virtual-device slice at a time. The CUDA kernels against their plain
+virtual-device slice at a time for the gathers, whole tables for the
+dense folds of the multipass codec. The CUDA kernels against their plain
 versions on a card: tests/test_torch_cuda.py.
 
-Tolerances: the XOR gathers are bit movers, so everything is compared
-BITWISE (on u32 words or u16 lanes, NaN / -0.0 / denormal patterns
-included).
+Tolerances: the XOR gathers and folds are bit movers, so everything is
+compared BITWISE (on u32 words or u16 lanes, NaN / -0.0 / denormal
+patterns included).
 ``aggregate`` is bitwise when every segment holds one row (an exact
 gather in both implementations); with several rows per segment the
 Pallas one-hot product and the port's ascending f32 adds round in
@@ -25,15 +26,21 @@ import torch
 
 import jax.numpy as jnp
 
+from repro.kernels import ops as jax_ops
 from repro.kernels.aggregate import aggregate as jax_aggregate
+from repro.kernels.xor_code import xor_decode as jax_decode
+from repro.kernels.xor_code import xor_encode as jax_encode
+from repro.kernels.xor_code import xor_fold as jax_fold
 from repro.kernels.xor_code import xor_decode_gather as jax_decode_gather
 from repro.kernels.xor_code import xor_encode_gather as jax_encode_gather
 from repro.kernels.xor_code import xor_decode_gather16 as jax_decode_gather16
 from repro.kernels.xor_code import xor_encode_gather16 as jax_encode_gather16
 from repro_torch.kernels import (KERNELS, aggregate, aggregate_bf16,
-                                 launch_counts, ref, reset_launch_counts,
-                                 xor_decode_gather, xor_decode_gather16,
-                                 xor_encode_gather, xor_encode_gather16)
+                                 launch_counts, ops, ref, reset_launch_counts,
+                                 xor_decode, xor_decode_gather,
+                                 xor_decode_gather16, xor_encode,
+                                 xor_encode_gather, xor_encode_gather16,
+                                 xor_fold)
 
 # f32 bit patterns the codec must carry untouched
 SPECIAL = np.array([0x7FC00000, 0xFFC00001, 0x80000000, 0x00000001,
@@ -289,7 +296,8 @@ def test_wrappers_take_plain_version_on_cpu():
     assert launch_counts() == dict.fromkeys(KERNELS, 0)
     assert list(KERNELS) == ["xor_encode_gather", "xor_decode_gather",
                              "aggregate", "xor_encode_gather16",
-                             "xor_decode_gather16", "aggregate_bf16"]
+                             "xor_decode_gather16", "aggregate_bf16",
+                             "xor_fold", "xor_decode", "xor_encode"]
 
 
 def test_wrappers_reject_bad_inputs():
@@ -328,3 +336,116 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(TypeError):
         aggregate_bf16(torch.zeros((3, 4)), torch.zeros(3, dtype=torch.int32),
                        2)
+
+
+# --------------------------------------------------------------------- #
+# the dense folds of the multipass codec (xor_fold / xor_decode /
+# xor_encode): ragged n (1, 2 and 3 mod 4 words, and whole blocks), m
+# from 1 to 4, masks mixed, with whole rows off
+# --------------------------------------------------------------------- #
+FOLD_SHAPES = [(3, 1, 5), (2, 2, 130), (4, 3, 1027), (1, 4, 7), (5, 3, 1024)]
+
+
+def _fold_inputs(R, m, n, seed):
+    rng = np.random.default_rng(seed)
+    packets = rng.integers(0, 2**32, size=(R, m, n), dtype=np.uint32)
+    packets.reshape(-1)[:len(SPECIAL)] = SPECIAL[:packets.size]
+    recv = rng.integers(0, 2**32, size=(R, n), dtype=np.uint32)
+    mask = rng.integers(0, 2, size=(R, m)).astype(bool)
+    mask[0] = False                          # a row with every packet off
+    if R > 1:
+        mask[-1] = True                      # and one with every packet on
+    return packets, recv, mask
+
+
+@pytest.mark.parametrize("R,m,n", FOLD_SHAPES)
+def test_fold_plain_matches_pallas(R, m, n):
+    packets, _, _ = _fold_inputs(R, m, n, 31 * R + n)
+    got = ref.xor_fold_ref(_t(packets))
+    assert got.shape == (R, n) and got.dtype == torch.int32
+    want = jax_fold(jnp.asarray(packets), interpret=True)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  np.asarray(want))
+
+
+@pytest.mark.parametrize("R,m,n", FOLD_SHAPES)
+def test_decode_plain_matches_pallas(R, m, n):
+    packets, recv, mask = _fold_inputs(R, m, n, 37 * R + n)
+    got = ref.xor_decode_ref(_t(recv), _t(packets), _t(mask)).numpy()
+    want = jax_decode(jnp.asarray(recv), jnp.asarray(packets),
+                      jnp.asarray(mask), interpret=True)
+    np.testing.assert_array_equal(got.view(np.uint32), np.asarray(want))
+    np.testing.assert_array_equal(got[0].view(np.uint32), recv[0])
+
+
+@pytest.mark.parametrize("m,n", [(1, 5), (2, 130), (3, 1027), (4, 7)])
+def test_encode_plain_matches_pallas(m, n):
+    packets, _, _ = _fold_inputs(1, m, n, 41 * m + n)
+    got = ref.xor_encode_ref(_t(packets[0]))
+    assert got.shape == (n,)
+    want = jax_encode(jnp.asarray(packets[0]), interpret=True)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  np.asarray(want))
+    # the ops dispatch of both packages (the Algorithm-2 Δ encoder)
+    np.testing.assert_array_equal(
+        ops.xor_fold(_t(packets[0])).numpy().view(np.uint32),
+        np.asarray(jax_ops.xor_fold(jnp.asarray(packets[0]),
+                                    use_pallas=True)))
+
+
+def test_fold_is_the_masked_gather_fold_of_a_dense_table():
+    """The multipass folds and the fused gathers compute one function: a
+    gather whose sources are every row of a dense table is the fold."""
+    packets, recv, mask = _fold_inputs(4, 3, 9, 43)
+    p = _t(packets)
+    idx = torch.arange(12, dtype=torch.int32).view(1, 4, 3)
+    flat = p.view(1, 12, 9)
+    assert torch.equal(ref.xor_fold_ref(p)[None],
+                       ref.xor_encode_gather_ref(flat, idx,
+                                                 torch.ones_like(idx).bool()))
+    rsel = torch.arange(4, dtype=torch.int32)[None]
+    assert torch.equal(
+        ref.xor_decode_ref(_t(recv), p, _t(mask))[None],
+        ref.xor_decode_gather_ref(_t(recv)[None], flat, rsel, idx,
+                                  _t(mask)[None]))
+
+
+def test_fold_wrappers_take_plain_version_on_cpu():
+    packets, recv, mask = _fold_inputs(3, 3, 11, 47)
+    p, r, mk = _t(packets), _t(recv), _t(mask)
+    reset_launch_counts()
+    assert torch.equal(xor_fold(p), ref.xor_fold_ref(p))
+    fold_u = xor_fold(p.view(torch.uint32))     # uint32 in, uint32 out
+    assert fold_u.dtype == torch.uint32
+    assert torch.equal(fold_u.view(torch.int32), ref.xor_fold_ref(p))
+    assert torch.equal(xor_decode(r, p, mk), ref.xor_decode_ref(r, p, mk))
+    assert torch.equal(xor_encode(p[0]), ref.xor_encode_ref(p[0]))
+    assert torch.equal(ops.xor_fold(p[1]), ref.xor_encode_ref(p[1]))
+    vals, ids = _agg_inputs(5, 12, 3, 2, one_per_segment=False)
+    assert torch.equal(ops.combine_aggregates(_t(vals), _t(ids), 3),
+                       ref.aggregate_ref(_t(vals), _t(ids), 3))
+    assert launch_counts() == dict.fromkeys(KERNELS, 0)
+
+
+def test_fold_wrappers_reject_bad_inputs():
+    p = torch.zeros((2, 3, 8), dtype=torch.int32)
+    r = torch.zeros((2, 8), dtype=torch.int32)
+    m = torch.ones((2, 3), dtype=torch.bool)
+    with pytest.raises(TypeError):
+        xor_fold(p.float())
+    with pytest.raises(ValueError):
+        xor_fold(p[0])                               # not [R, m, n]
+    with pytest.raises(ValueError, match="at least one packet"):
+        xor_fold(p[:, :0])
+    with pytest.raises(ValueError, match="recv shape"):
+        xor_decode(r[:, :7], p, m)
+    with pytest.raises(ValueError, match="mask"):
+        xor_decode(r, p, m[:, :2])
+    with pytest.raises(ValueError, match="mask"):
+        xor_decode(r, p, m.int())
+    with pytest.raises(TypeError):
+        xor_decode(r.float(), p, m)
+    with pytest.raises(ValueError):
+        xor_encode(p)                                # not [m, n]
+    with pytest.raises(ValueError, match="at least one packet"):
+        xor_encode(p[0, :0])
