@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-then runs all three phases, always in full, and fails (nonzero exit, no
+then runs all four phases, always in full, and fails (nonzero exit, no
 result line) on any mismatch:
 
 1. **kernels** — each kernel against its plain PyTorch version on the
@@ -12,9 +12,16 @@ result line) on any mismatch:
    (XOR gathers, u32 words and u16 lanes, and the dense XOR folds of the
    multipass codec, bitwise; ``aggregate`` and ``aggregate_bf16``
    bitwise with one row per segment, rtol 1e-6 / one bf16 ulp with
-   several), timed with CUDA events beside its byte bound, its plain
+   several), ``flash_attention`` within 2e-5 (f32) / 2e-2 (bf16) of its
+   plain version at every ``ATTN_CASES`` shape of tests/test_kernels.py,
+   and within two bf16 ulps of each output (rtol 2**-6, atol 1e-5) at
+   the serving prefills' shapes (granite: 32/8 heads, D 64,
+   Tq = Tk in {129, 1000, 1024, 2048}; gemma2: 8/4 heads, D 256, softcap
+   50, window 4096, Tq = Tk in {1000, 5000}); timed with CUDA events
+   beside its bound (bytes, or for ``flash_attention`` the FLOPs of the
+   visible pairs at the bf16 tensor-core peak when larger), its plain
    version and, where one PyTorch call computes the same function, that
-   call;
+   call (SDPA for the causal GQA shapes; none with softcap or window);
 2. **shuffle** — the coded shuffle of (q, k) in {(2,3), (3,3), (2,4)},
    both routers, bitwise equal to the same shuffle through the plain
    versions on the card: f32 (and close to the numpy reference), and the
@@ -22,7 +29,7 @@ result line) on any mismatch:
    exchange bitwise equal to the fused batched shuffle (and each to its
    own plain-version run), the ``debug`` dict's output to the plain one,
    and in f32 the uncoded baseline close to the reference;
-3. **train** — the main path, in three runs: ``MultiModelCAMRTrainer``
+3. **train** — the training path, in three runs: ``MultiModelCAMRTrainer``
    on the cell of ``repro_torch.launch.cell`` (``granite_3_2b`` at full
    width, cut to 2 layers, q=2, k=3: K=6 virtual workers, J=4 models),
    2 steps of ``camr_spmd`` on ``ShardedTokenPipeline(seq_len=512,
@@ -39,7 +46,8 @@ result line) on any mismatch:
    f32 run's.
 
 The last lines are the card's name and power limit, the ``kernels`` JSON
-line and ``{"ok": true, "device": {...}}``. Needs one CUDA card, the
+line (ten kernels, each with its main-path launches: the training runs'
+counts, ``flash_attention``'s summed over the two serving runs) and ``{"ok": true, "device": {...}}``. Needs one CUDA card, the
 CUDA toolkit (``nvcc``) and the rest of this checkout; imports nothing
 of JAX.
 """
@@ -62,6 +70,7 @@ DEVICE = "cuda"
 _GATHER = "src/repro_torch/kernels/csrc/xor_gather.cu"
 _FOLD = "src/repro_torch/kernels/csrc/xor_fold.cu"
 _AGG = "src/repro_torch/kernels/csrc/aggregate.cu"
+_FLASH = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SOURCES = {"xor_encode_gather": (_GATHER, "src/repro/kernels/xor_code.py:240"),
            "xor_decode_gather": (_GATHER, "src/repro/kernels/xor_code.py:309"),
            "aggregate": (_AGG, "src/repro/kernels/aggregate.py:71"),
@@ -72,7 +81,11 @@ SOURCES = {"xor_encode_gather": (_GATHER, "src/repro/kernels/xor_code.py:240"),
            "aggregate_bf16": (_AGG, "src/repro/kernels/aggregate.py:71"),
            "xor_fold": (_FOLD, "src/repro/kernels/xor_code.py:138"),
            "xor_decode": (_FOLD, "src/repro/kernels/xor_code.py:180"),
-           "xor_encode": (_FOLD, "src/repro/kernels/xor_code.py:106")}
+           "xor_encode": (_FOLD, "src/repro/kernels/xor_code.py:106"),
+           "flash_attention": (_FLASH,
+                               "src/repro/kernels/flash_attention.py:127")}
+#: H100 SXM peaks (data sheet, dense): bf16 tensor cores, f32 outside them
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def log(*a):
@@ -373,6 +386,121 @@ def check_aggregate(gen, S, Dpad, dtype):
     return {name: res}
 
 
+#: tests/test_kernels.py's ATTN_CASES: B, Hq, Hkv, Tq, Tk, D, causal,
+#: window, softcap
+ATTN_CASES = [
+    (1, 2, 2, 64, 64, 16, True, None, None),
+    (2, 4, 2, 32, 32, 32, True, None, None),
+    (1, 2, 1, 128, 128, 16, True, 32, None),
+    (1, 2, 2, 64, 64, 16, True, None, 50.0),
+    (1, 4, 4, 48, 48, 16, False, None, None),
+    (1, 2, 1, 1, 96, 16, True, None, None),
+    (1, 2, 2, 100, 100, 16, True, None, None),
+    (1, 8, 2, 8, 72, 16, True, 24, None),
+]
+#: the serving prefills' shapes (bf16): granite_3_2b (32/8 heads, D 64,
+#: causal) and gemma2_2b (8/4 heads, D 256, softcap 50, window 4096);
+#: the first is the one the ``kernels`` line reports
+FLASH_MAIN = (1, 32, 8, 1024, 1024, 64, True, None, None)
+FLASH_SHAPES = [FLASH_MAIN] + [
+    (1, 32, 8, t, t, 64, True, None, None) for t in (129, 1000, 2048)] + [
+    (1, 8, 4, t, t, 256, True, 4096, 50.0) for t in (1000, 5000)]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: the serving shapes' limit, relative to each output: the kernel works
+#: in f32 like the plain version and rounds once to bf16, so an element
+#: may differ by one bf16 ulp of its value (at most 2**-7 of it, taken
+#: twice here) plus f32 rounding near 0. The ATTN_CASES' 2e-2 is about
+#: half of a typical output at these key counts (|o| ~ 0.03-0.08)
+FLASH_SERVE_TOL = dict(rtol=2 ** -6, atol=1e-5)
+
+
+def _visible_pairs(Tq, Tk, causal, window) -> int:
+    """(query, key) pairs the masks leave visible, per (batch, head)."""
+    import numpy as np
+    qpos = np.arange(Tq) + (Tk - Tq)
+    hi = np.minimum(qpos + 1, Tk) if causal else np.full(Tq, Tk)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(Tq, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _sdpa_fn(q, k, v, causal, window, softcap):
+    """The one PyTorch call that computes the same function, or None
+    (SDPA has no softcap and no sliding window)."""
+    import torch.nn.functional as F
+    if window is not None or softcap is not None or not causal:
+        return None
+    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
+
+def check_flash(gen):
+    """``flash_attention`` against its plain version on the card: every
+    ATTN_CASES shape in f32 and bf16 (tolerances of tests/test_kernels.py:
+    2e-5 / 2e-2), and the serving prefills' shapes in bf16 (within
+    ``FLASH_SERVE_TOL`` of each output); each serving shape timed beside
+    its bound, its plain version and SDPA."""
+    import torch
+    from repro_torch.kernels import flash_attention, ref
+    timed = {}
+    cases = [(c, dt) for c in ATTN_CASES for dt in ("float32", "bfloat16")]
+    cases += [(c, "bfloat16") for c in FLASH_SHAPES]
+    for case, dtype in cases:
+        B, Hq, Hkv, Tq, Tk, D, causal, window, softcap = case
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(s, device=DEVICE, generator=gen).to(dt)
+                   for s in ((B, Hq, Tq, D), (B, Hkv, Tk, D),
+                             (B, Hkv, Tk, D)))
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        got, want = flash_attention(q, k, v, **kw), ref.flash_attention_ref(
+            q, k, v, **kw)
+        torch.cuda.synchronize()
+        serving = case in FLASH_SHAPES
+        tol = (FLASH_SERVE_TOL if serving
+               else dict(rtol=FLASH_TOL[dtype], atol=FLASH_TOL[dtype]))
+        err = max_abs_err(got.float(), want.float())
+        if got.dtype != dt or not torch.allclose(got.float(), want.float(),
+                                                 **tol):
+            fail(f"flash_attention != plain at {case} {dtype} "
+                 f"(max abs err {err}, limit {tol})")
+        if not serving:
+            continue
+        rms = float(want.float().square().mean().sqrt())
+        share = float(((got.float() - want.float()).abs() / (
+            tol["atol"] + tol["rtol"] * want.float().abs())).max())
+        del got, want
+        flops = 4 * D * B * Hq * _visible_pairs(Tq, Tk, causal, window)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        bound = max(flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S)
+        lib = _sdpa_fn(q, k, v, causal, window, softcap)
+        r = dict(ms=time_ms(lambda: flash_attention(q, k, v, **kw)),
+                 plain_ms=time_ms(lambda: ref.flash_attention_ref(
+                     q, k, v, **kw), warmup=1, reps=3),
+                 library_ms=time_ms(lib) if lib is not None else None,
+                 bound_ms=bound * 1e3,
+                 bound_by=("operations" if flops / PEAK_FLOPS[dtype]
+                           >= nbytes / HBM_BYTES_PER_S else "bytes"),
+                 max_abs_err=err, rms_want=rms, limit_share=share,
+                 bytes=nbytes,
+                 shape=f"q [{B},{Hq},{Tq},{D}] k/v [{B},{Hkv},{Tk},{D}] "
+                       f"{dtype} causal={causal} window={window} "
+                       f"softcap={softcap}, {flops / 1e9:.3f} GFLOP")
+        timed[case] = r
+        lib_txt = (f"{r['library_ms']:.3f} ms" if lib is not None
+                   else "none: SDPA has no softcap/window")
+        log(f"kernels: flash_attention {r['shape']}: {r['ms']:.3f} ms "
+            f"(plain {r['plain_ms']:.3f} ms, SDPA {lib_txt}, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} at "
+            f"{PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s / 3.35 TB/s), max abs "
+            f"err {err:.2e} (RMS of the output {rms:.3e}; the worst element "
+            f"at {share:.3f} of its limit)")
+        del q, k, v
+        torch.cuda.empty_cache()
+    log(f"kernels: flash_attention within 2e-5 (f32) / 2e-2 (bf16) of plain "
+        f"at {len(ATTN_CASES)} ATTN_CASES shapes x 2 dtypes, and within "
+        f"rtol 2**-6 + atol 1e-5 at {len(FLASH_SHAPES)} serving shapes")
+    return {"flash_attention": timed[FLASH_MAIN]}
+
+
 def phase_kernels(gen, tr):
     """At the shapes the trainer ``tr`` gives the kernels, on both lanes
     (the tables are lane-independent; the row width is not)."""
@@ -425,14 +553,15 @@ def phase_kernels(gen, tr):
         "rows off, one word off alignment)")
     results.update(step_folds(gen, st, K, k, d_shard // (k - 1)))
     torch.cuda.empty_cache()
+    results.update(check_flash(gen))
     log(f"kernels: the checks and timings above launched xor_encode "
         f"{launch_counts()['xor_encode']} times (no training path calls "
         "ops.xor_fold: its main-path count is 0)")
     for name, r in results.items():
-        r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        r.setdefault("bound_ms", r["bytes"] / HBM_BYTES_PER_S * 1e3)
         log(f"kernels: {name} {r['shape']}: {r['ms']:.3f} ms (plain "
             f"{r['plain_ms']:.3f} ms, library {r['library_ms']}, bound "
-            f"{r['bound_ms']:.3f} ms)")
+            f"{r['bound_ms']:.4f} ms)")
     return results
 
 
@@ -643,6 +772,136 @@ def compare_codecs(rep32, peak32, rep_mp, peak_mp):
         f"{peak32 / 1e9:.2f} GB")
 
 
+# --------------------------------------------------------------------- #
+# phase 4: serving (DecodeEngine behind ServeStream)
+# --------------------------------------------------------------------- #
+#: (arch, depth, prompt lengths): granite_3_2b at full width and full
+#: depth, gemma2_2b at full width cut to 4 layers (2 pattern units)
+SERVE_RUNS = (("granite_3_2b", None, (1000, 129, 257, 640, 1024, 77, 513,
+                                      900)),
+              ("gemma2_2b", 4, (1000, 300, 513, 64)))
+#: the prefill logits through the kernel and through its plain version
+#: (bf16 activations round differently once the attention outputs differ
+#: in their last bits): max abs difference <= this share of max |logit|
+LOGIT_SHARE = 0.05
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route prefill attention through the plain version (no launch)."""
+    from repro_torch.kernels import ops, ref
+    saved = ops.flash_attention
+    ops.flash_attention = ref.flash_attention_ref
+    try:
+        yield
+    finally:
+        ops.flash_attention = saved
+
+
+def phase_serve(arch, n_layers, lens, seed=0, max_new=32):
+    """One model served through the port's entry points: its launch
+    counts, statuses, tokens bitwise ``generate``'s, zero builds on a
+    second warm run, the pool's invariants, the prefill logits against
+    the plain attention; returns (flash launches, report lines)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import lm
+    from repro_torch.runtime.serve import (DecodeEngine, Request,
+                                           ServeStream, generate,
+                                           trace_total)
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    tag = f"serve[{arch}]"
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen)
+    rng = np.random.default_rng(seed)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, (T,)).astype(np.int32),
+                    max_new=max_new, seed=i) for i, T in enumerate(lens)]
+    eng = DecodeEngine(cfg, params, slots=4, page_size=16, max_ctx=1056,
+                       max_new_cap=max_new, name=arch, device=DEVICE)
+    stream = ServeStream(eng, wave_len=8)
+    torch.cuda.synchronize()
+    log(f"{tag}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.hd}, {cfg.dtype}; "
+        f"{len(reqs)} greedy requests, prompts {list(lens)}, max_new "
+        f"{max_new}; engine slots 4, page 16, max_ctx 1056, wave 8; init "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = stream.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rep = stream.last_report
+    want = dict.fromkeys(counts, 0)
+    want["flash_attention"] = cfg.n_layers * len(reqs)
+    if counts != want:
+        fail(f"{tag}: launch counts {counts} != expected {want}")
+    if [r.status for r in results] != ["ok"] * len(reqs):
+        fail(f"{tag}: statuses {[r.status for r in results]}")
+    eng.pool.check_invariants()
+    builds = trace_total()
+    again = stream.run(reqs)
+    if trace_total() != builds or stream.last_report.traces:
+        fail(f"{tag}: the warm run built or loaded "
+             f"{trace_total() - builds} kernel libraries")
+    eng.pool.check_invariants()
+    for req, r, r2 in zip(reqs, results, again):
+        want_toks = generate(cfg, params, req.prompt[None], max_new=max_new,
+                             device=DEVICE).tokens[0, len(req.prompt):]
+        if not (np.array_equal(r.generated, want_toks)
+                and np.array_equal(r2.generated, want_toks)):
+            fail(f"{tag}: prompt {len(req.prompt)}: engine tokens "
+                 f"{r.generated} != generate {want_toks}")
+    log(f"{tag}: {len(reqs)} requests ok, tokens bitwise == generate on the "
+        f"card (and on a second warm run); launches {counts}; warm run: 0 "
+        f"kernel builds/loads; pool invariants hold")
+
+    # the prefill logits through the kernel and through the plain version
+    probe = {"tokens": torch.from_numpy(reqs[0].prompt[None]).to(DEVICE)}
+    lg_kernel, _ = lm.prefill(cfg, params, probe)
+    with plain_attention():
+        lg_plain, _ = lm.prefill(cfg, params, probe)
+    diff = float((lg_kernel - lg_plain).abs().max())
+    scale = float(lg_plain.abs().max())
+    if not torch.isfinite(lg_kernel).all() or diff > LOGIT_SHARE * scale:
+        fail(f"{tag}: prefill logits kernel vs plain differ by {diff} "
+             f"(limit {LOGIT_SHARE} x max |logit| {scale})")
+    log(f"{tag}: prefill logits ({len(reqs[0].prompt)} tokens) through the "
+        f"kernel vs the plain version: max abs diff {diff:.4g} <= "
+        f"{LOGIT_SHARE} x max |logit| {scale:.4g} (tokens are not compared "
+        "across the two: bf16 rounding can flip a greedy argmax); argmax "
+        f"equal: {bool(lg_kernel.argmax() == lg_plain.argmax())}")
+
+    lines = []
+    for req in sorted(reqs, key=lambda r: len(r.prompt)):
+        ms = time_ms(lambda: eng.prefill(req), warmup=1, reps=3)
+        lines.append(f"{len(req.prompt)}:{ms:.2f}")
+    log(f"{tag}: prefill ms by prompt length {', '.join(lines)}")
+    toks = sum(r.emitted for r in results)
+    wave_s = sum(s[1] for s in rep.wave_stats)
+    per_step = [s[1] / max(1, s[2]) for s in rep.wave_stats]
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"{tag}: {toks} tokens in {wall:.2f} s wall ({toks / wall:.1f} tok/s "
+        f"end to end), decode {toks / wave_s:.1f} tok/s over {rep.waves} "
+        f"waves ({wave_s:.2f} s), occupancy {rep.occupancy:.3f}, step "
+        f"p50 {1e3 * float(np.percentile(per_step, 50)):.2f} ms p99 "
+        f"{1e3 * float(np.percentile(per_step, 99)):.2f} ms; peak memory "
+        f"{peak / 1e9:.2f} GB (max_memory_allocated) of {total / 1e9:.1f} GB")
+    del eng, stream, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -690,6 +949,11 @@ def main() -> int:
     for name in lane_kernels("float32", tr.K, "multipass"):
         counts[name] = counts_mp[name]
     # xor_encode is on no training path: every run held its count to 0
+    del tr, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["flash_attention"] = sum(phase_serve(arch, depth, lens)
+                                    for arch, depth, lens in SERVE_RUNS)
 
     kernels = []
     for name, r in results.items():
@@ -698,7 +962,8 @@ def main() -> int:
             name=name, route="cuda", source=src, replaces=replaces,
             launches=counts[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by="bytes", library_ms=r["library_ms"]))
+            bound_by=r.get("bound_by", "bytes"),
+            library_ms=r["library_ms"]))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -8,13 +8,15 @@ use; :mod:`.ref` holds the plain-PyTorch version of each kernel;
 from __future__ import annotations
 
 from .aggregate import aggregate, aggregate_bf16
+from .flash_attention import flash_attention
 from .xor_code import (xor_decode, xor_decode_gather, xor_decode_gather16,
                        xor_encode, xor_encode_gather, xor_encode_gather16,
                        xor_fold)
 
 __all__ = ["KERNELS", "aggregate", "aggregate_bf16", "xor_encode_gather",
            "xor_decode_gather", "xor_encode_gather16", "xor_decode_gather16",
-           "xor_fold", "xor_decode", "xor_encode", "launch_counts",
+           "xor_fold", "xor_decode", "xor_encode", "flash_attention",
+           "launch_counts",
            "reset_launch_counts"]
 
 #: every kernel wrapper of the port, by kernel name (``aggregate`` counts
@@ -27,7 +29,8 @@ KERNELS = {"xor_encode_gather": xor_encode_gather,
            "aggregate_bf16": aggregate_bf16,
            "xor_fold": xor_fold,
            "xor_decode": xor_decode,
-           "xor_encode": xor_encode}
+           "xor_encode": xor_encode,
+           "flash_attention": flash_attention}
 
 
 def launch_counts() -> dict[str, int]:

@@ -17,13 +17,19 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "load", "check", "build_dir"]
+__all__ = ["SOURCES", "BUILD_COUNTS", "build_all", "load", "check",
+           "build_dir"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: kernel library name -> its C entry points (argtypes, in order)
 _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_F32 = ctypes.c_float
+#: q, k, v, o; B, Hq, Hkv, Tq, Tk, D; the 12 strides; scale, softcap,
+#: causal, window; the stream
+_FLASH = [_VP] * 4 + [_LL] * 6 + [_VP, _F32, _F32, _INT, _LL, _VP]
 SOURCES = {
     "xor_gather": {
         "xor_encode_gather": [_VP] * 4 + [_LL] * 5 + [_INT, _VP],
@@ -39,12 +45,21 @@ SOURCES = {
         "aggregate_f32": [_VP] * 3 + [_LL] * 3 + [_INT, _VP],
         "aggregate_bf16": [_VP] * 3 + [_LL] * 3 + [_INT, _VP],
     },
+    "flash_attention": {
+        "flash_attention_f32": _FLASH,
+        "flash_attention_bf16": _FLASH,
+    },
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: what the port compiles or loads at run time, by ``("nvcc" | "load",
+#: library)``: one ``nvcc`` run per library built, one load per library
+#: bound. The port has no jit; these are its counterpart of the JAX
+#: package's trace counts (``repro_torch.runtime.serve.trace_total``).
+BUILD_COUNTS: Counter = Counter()
 
 
 def build_dir() -> Path:
@@ -91,6 +106,7 @@ def _finish(name: str, job) -> None:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
+    BUILD_COUNTS["nvcc", name] += 1
 
 
 def build_all() -> list[Path]:
@@ -118,6 +134,7 @@ def load(name: str) -> ctypes.CDLL:
             lib.camr_cuda_error_string.argtypes = [ctypes.c_int]
             lib.camr_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
+            BUILD_COUNTS["load", name] += 1
     return _libs[name]
 
 

@@ -1,0 +1,124 @@
+"""Blockwise attention with an online softmax (CUDA,
+``csrc/flash_attention.cu``).
+
+Counterpart of the JAX package's Pallas kernel
+``repro.kernels.flash_attention.flash_attention``: causal and sliding-
+window masks, GQA, gemma2's logit softcap, queries right-aligned against
+``Tq >= 1`` keys (``Tq <= Tk``), f32 softmax state, a row with no visible
+key written as 0, output in q's dtype (f32 or bf16). Forward only, as in
+the JAX package: the serving prefill calls it (through
+:func:`repro_torch.kernels.ops.attention`), training never does, so an
+input that requires grad is refused.
+
+A tensor on the CPU goes to the plain version
+(:func:`repro_torch.kernels.ref.flash_attention_ref`); a CUDA tensor
+launches the kernel or raises. ``flash_attention.launches`` counts the
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .ref import flash_attention_ref
+
+__all__ = ["flash_attention", "HEAD_DIMS"]
+
+#: head dims the kernel is instantiated for (``by_dim`` in the source)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+_LAUNCHERS = {torch.float32: "flash_attention_f32",
+              torch.bfloat16: "flash_attention_bf16"}
+_MAX_Q_TILES = 65535            # gridDim.y, 32 query rows a tile
+
+
+def _check(q, k, v, window, softcap):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q must be [B, Hq, Tq, D] and k, v "
+                         f"[B, Hkv, Tk, D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Hq, Tq, D = q.shape
+    _, Hkv, Tk, Dk = k.shape
+    if k.shape[0] != B or Dk != D:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} differ in batch or head dim")
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
+    if not 1 <= Tq <= Tk:
+        raise ValueError(f"flash_attention: queries are right-aligned "
+                         f"against the keys, so 1 <= Tq <= Tk; got Tq={Tq}, "
+                         f"Tk={Tk}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got "
+                         f"{window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"flash_attention: softcap must be > 0, got "
+                         f"{softcap}")
+    for t in (q, k, v):
+        if t.requires_grad:
+            raise RuntimeError("flash_attention has no backward (the JAX "
+                               "kernel has none either); the training lane "
+                               "takes the plain attention")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its last axis is contiguous and every row starts
+    on a 4-element boundary (the kernel's 16- or 8-byte loads), else a
+    contiguous copy."""
+    if (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:-1])
+            and t.data_ptr() % (4 * t.element_size()) == 0):
+        return t
+    return t.contiguous()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """q ``[B, Hq, Tq, D]``; k, v ``[B, Hkv, Tk, D]`` -> ``[B, Hq, Tq, D]``.
+
+    Inputs may be strided views (the last axis contiguous); on a card
+    the output is a ``[B, Tq, Hq, D]`` buffer seen as ``[B, Hq, Tq, D]``,
+    so ``out.transpose(1, 2).reshape(B, Tq, Hq * D)`` is free.
+    """
+    _check(q, k, v, window, softcap)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention: tensors must lie on the CPU "
+                           f"(plain version) or a CUDA device, got "
+                           f"{q.device}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention: all tensors must be on {q.device}")
+    if q.dtype not in _LAUNCHERS or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: the CUDA kernel takes float32 or "
+                        f"bfloat16 q, k and v of one dtype, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS or -(-Tq // 32) > _MAX_Q_TILES:
+        raise ValueError(f"flash_attention: head dim {D} (kernel: "
+                         f"{HEAD_DIMS}) or Tq={Tq} out of range")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty((B, Tq, Hq, D), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    fn = _LAUNCHERS[q.dtype]
+    lib = _build.load("flash_attention")
+    code = getattr(lib, fn)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, Hq, Hkv, Tq, Tk, D, strides,
+        float(D ** -0.5 if scale is None else scale),
+        float(softcap or 0.0), int(bool(causal)),
+        int(window or 0),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, fn, code)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

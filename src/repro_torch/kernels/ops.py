@@ -3,9 +3,9 @@
 
 Each routes by the device of its input: the hand-written CUDA kernel for
 a tensor on a card, its plain version for a tensor on the CPU (there is
-no ``use_pallas`` switch: the device decides). ``attention`` and ``ssd``
-are not defined here yet; they come with the slices that port
-``flash_attention`` and ``ssd_scan`` (ROADMAP.md, Queue 1 items 2-3).
+no ``use_pallas`` switch: the device decides). ``ssd`` is not defined
+here yet; it comes with the slice that ports ``ssd_scan`` (ROADMAP.md,
+Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -13,9 +13,32 @@ from __future__ import annotations
 import torch
 
 from .aggregate import aggregate
+from .flash_attention import flash_attention
+from .ref import flash_attention_ref
 from .xor_code import xor_encode
 
-__all__ = ["combine_aggregates", "xor_fold"]
+__all__ = ["attention", "combine_aggregates", "xor_fold"]
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              softcap: float | None = None, scale: float | None = None,
+              valid_len=None) -> torch.Tensor:
+    """Attention with the routing of ``repro.kernels.ops.attention``.
+
+    ``valid_len is None`` (a prefill over its own fresh keys): the
+    ``flash_attention`` kernel for a CUDA tensor, its plain version on
+    the CPU. ``valid_len`` given (a decode step over a partly filled
+    cache, ``Tq`` ~ 1): the plain masked attention on any device, as
+    the JAX package keeps that lane outside Pallas; its score matrix is
+    only ``[B, H, Tq, Tk]``.
+    """
+    if valid_len is None:
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap, scale=scale)
+    return flash_attention_ref(q, k, v, causal=causal, window=window,
+                               softcap=softcap, scale=scale,
+                               valid_len=valid_len)
 
 
 def combine_aggregates(values: torch.Tensor, segment_ids: torch.Tensor,

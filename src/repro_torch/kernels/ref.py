@@ -6,6 +6,10 @@ Each has the kernel's signature, with the leading virtual-device axis
 CPU; the tests hold them against the JAX package's Pallas kernels, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 
+``flash_attention_ref`` is the materialized attention of the JAX
+package's ``repro.kernels.ref.flash_attention_ref``, the plain version
+of the ``flash_attention`` kernel (:mod:`.flash_attention`).
+
 Wire words are 32-bit patterns. ``torch.int32`` is the working view
 (bitwise identical to ``uint32``; XOR, gathers and ``where`` never look
 at the sign), and ``uint32`` inputs are viewed as ``int32`` here. The
@@ -19,7 +23,7 @@ import torch
 __all__ = ["xor_encode_ref", "xor_fold_ref", "xor_decode_ref",
            "xor_encode_gather_ref", "xor_decode_gather_ref",
            "xor_encode_gather16_ref", "xor_decode_gather16_ref",
-           "aggregate_ref", "as_words", "as_lanes"]
+           "aggregate_ref", "flash_attention_ref", "as_words", "as_lanes"]
 
 
 def as_words(x: torch.Tensor) -> torch.Tensor:
@@ -150,3 +154,51 @@ def aggregate_ref(values: torch.Tensor, segment_ids: torch.Tensor,
         if 0 <= s < num_segments:
             out[s] += values[r].float()
     return out.to(values.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None,
+                        softcap: float | None = None,
+                        scale: float | None = None,
+                        valid_len=None) -> torch.Tensor:
+    """Materialized attention: q ``[B, Hq, Tq, D]``, k/v ``[B, Hkv, Tk, D]``
+    (GQA in grouped form, ``Hq % Hkv == 0``) -> ``[B, Hq, Tq, D]`` in the
+    dtype of ``q``; logits and softmax in f32.
+
+    ``window``: keys in ``(i - window, i]``; ``softcap``: ``cap *
+    tanh(s / cap)``; queries are right-aligned, the last one at position
+    ``end - 1`` with ``end = Tk`` or ``valid_len``, and keys at or past
+    ``end`` are masked (the kernel's ``k_pos < Tk``). ``valid_len`` is an
+    int, a 0-d tensor or a ``[B]`` tensor (each batch row its own
+    length: ragged decode over a paged cache). A row with no visible key
+    gets the softmax of equal logits, as the JAX reference gives it.
+    """
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
+    rep = Hq // Hkv
+    qg = q.reshape(B, Hkv, rep, Tq, D).float()
+    scale = scale if scale is not None else D ** -0.5
+    logits = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.float()) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    dev = q.device
+    if valid_len is None or not torch.is_tensor(valid_len):
+        # a host int: filled on the device (a host copy would block)
+        end = torch.full((1,), Tk if valid_len is None else int(valid_len),
+                         dtype=torch.int64, device=dev)
+    else:
+        end = valid_len.to(dev).long().reshape(-1)
+    end = end[:, None, None]                                 # [B|1, 1, 1]
+    qpos = torch.arange(Tq, device=dev)[None, :, None] + (end - Tq)
+    kpos = torch.arange(Tk, device=dev)[None, None, :]
+    mask = kpos < end                                        # [B|1, Tq, Tk]
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    logits = torch.where(mask[:, None, None], logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
+    return out.reshape(B, Hq, Tq, D).to(q.dtype)

@@ -1,21 +1,26 @@
 """Layer primitives of the dense decoder (plain functions on tensors).
 
 Counterparts of ``repro.models.layers``: ``dense``, ``rms_norm``,
-``rope``, ``attention_block`` (no KV cache, no paged cache) and
-``mlp_block``. Activations are ``x [B, T, D]``; attention works on
-``[B, H, T, Dh]``. Products of two same-dtype tensors accumulate in f32
-inside ``torch.matmul``; mixed dtypes go through f32 explicitly.
+``rope``, ``attention_block`` (training, contiguous KV cache and paged
+KV cache) and ``mlp_block``. Activations are ``x [B, T, D]``; attention
+works on ``[B, H, T, Dh]``. Products of two same-dtype tensors
+accumulate in f32 inside ``torch.matmul``; mixed dtypes go through f32
+explicitly.
 
-Attention is the plain materialized form of the JAX package's
+Training attention is the plain materialized form of the JAX package's
 ``repro.kernels.ref.flash_attention_ref`` — the lane ``ops.attention``
-takes there when ``Tq*Tk <= 2**21`` (``seq_len <= 1448``). The
-``flash_attention`` kernel is a later slice's.
+takes there when ``Tq*Tk <= 2**21`` (``seq_len <= 1448``); a gradient
+never passes through the kernel. A prefill over a cache goes through
+``ops.attention``: the ``flash_attention`` kernel on a card.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..kernels import ops
+from ..kernels.ref import flash_attention_ref
 
 __all__ = ["dense", "rms_norm", "rope", "attention_ref", "attention_block",
            "mlp_block", "ATTN_MAX_SCORES"]
@@ -56,49 +61,100 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
                   scale=None):
-    """Materialized attention: q ``[B, Hq, Tq, D]``, k/v ``[B, Hkv, Tk, D]``
-    (GQA: ``Hq % Hkv == 0``), queries right-aligned against the keys;
-    softmax in f32, output in the dtype of ``q``."""
-    B, Hq, Tq, D = q.shape
-    Hkv, Tk = k.shape[1], k.shape[2]
-    rep = Hq // Hkv
-    qg = q.reshape(B, Hkv, rep, Tq, D).float()
-    scale = scale if scale is not None else D ** -0.5
-    logits = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.float()) * scale
-    if softcap is not None:
-        logits = softcap * torch.tanh(logits / softcap)
-    qpos = torch.arange(Tq, device=q.device)[:, None] + (Tk - Tq)
-    kpos = torch.arange(Tk, device=q.device)[None, :]
-    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
-    logits = torch.where(mask, logits, torch.tensor(-1e30, device=q.device))
-    p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
-    return out.reshape(B, Hq, Tq, D).to(q.dtype)
+    """Materialized attention of the training lane: the plain
+    ``flash_attention`` (:func:`repro_torch.kernels.ref.
+    flash_attention_ref`, differentiable) with every key valid."""
+    return flash_attention_ref(q, k, v, causal=causal, window=window,
+                               softcap=softcap, scale=scale)
 
 
-def attention_block(p, x, positions, cfg, *, window=None, softcap=None,
-                    causal=True):
-    """Self-attention with GQA and RoPE (training lane: no cache)."""
-    B, T, _ = x.shape
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+def _check_materialized(T: int, where: str) -> None:
     if T * T > ATTN_MAX_SCORES:
         raise NotImplementedError(
             f"seq_len {T}: Tq*Tk > 2**21 takes the chunked attention lane "
-            "in the JAX package, which is not ported yet (ROADMAP.md, "
-            "Queue 2: flash_attention)")
+            f"in the JAX package, which is not ported yet ({where}; "
+            "ROADMAP.md, Queue 1: the chunked training-attention lane)")
+
+
+def _decode_attention(q, k, v, cache, rows, **kw):
+    """A decode step's attention (``T == 1``), one row at a time: row
+    ``b`` writes its k/v at position ``rows[b]`` and attends over exactly
+    its ``rows[b] + 1`` valid keys, read back in logical order — the same
+    shapes and values from a contiguous cache and from a paged one. A row
+    at ``-1`` (finished), and a row past ``rows`` (the step's padding),
+    writes nothing and gives 0."""
+    out = torch.zeros_like(q)
+    hkv, dh = k.shape[1], k.shape[3]
+    kc, vc = cache["k"], cache["v"]
+    for b, i in enumerate(rows):
+        if i < 0:
+            continue
+        if "pages" in cache:
+            ps = kc.shape[2]
+            pt = cache["pages"][b, :i // ps + 1].long()
+            kc[pt[-1:], :, i % ps] = k[b:b + 1, :, 0]
+            vc[pt[-1:], :, i % ps] = v[b:b + 1, :, 0]
+            kk, vv = (c[pt].transpose(0, 1).reshape(1, hkv, -1, dh)
+                      for c in (kc, vc))
+        else:
+            kc[b, :, i] = k[b, :, 0]
+            vc[b, :, i] = v[b, :, 0]
+            kk, vv = kc[b:b + 1], vc[b:b + 1]
+        out[b:b + 1] = ops.attention(
+            q[b:b + 1], kk[:, :, :i + 1].contiguous(),
+            vv[:, :, :i + 1].contiguous(), valid_len=i + 1, **kw)
+    return out
+
+
+def attention_block(p, x, positions, cfg, *, window=None, softcap=None,
+                    causal=True, cache=None, cache_index=None):
+    """Self-attention with GQA and RoPE; returns ``(out, new_cache)``.
+
+    * ``cache=None`` (training): the plain materialized attention, up to
+      ``seq_len`` 1448; ``new_cache`` is None.
+    * contiguous cache ``{"k", "v": [B, Hkv, Tmax, Dh]}``, prefill (``T >
+      1``): the k/v are written at ``cache_index`` (an int) and the step
+      attends over its fresh ``(k, v)`` through
+      :func:`repro_torch.kernels.ops.attention` (the ``flash_attention``
+      kernel on a card, at any length; the plain version on the CPU, up
+      to 1448).
+    * decode (``T == 1``), over the contiguous cache or the paged one
+      ``{"k", "v": [P, Hkv, page, Dh], "pages": i32[B, npp]}``:
+      ``cache_index`` is an int (every row at one position) or host ints,
+      one per row (``-1``: a finished row); see
+      :func:`_decode_attention`. ``x`` may hold more rows than the cache
+      (a decode step's padding); they give 0.
+
+    The caches are updated in place (the JAX package returns new
+    arrays); ``new_cache`` is the same dict.
+    """
+    B, T, _ = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = dense(x, p["wq"]).reshape(B, T, hq, dh).transpose(1, 2)
     k = dense(x, p["wk"]).reshape(B, T, hkv, dh).transpose(1, 2)
     v = dense(x, p["wv"]).reshape(B, T, hkv, dh).transpose(1, 2)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = attention_ref(q, k, v, causal=causal, window=window,
-                        softcap=softcap)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+
+    if cache is None:
+        _check_materialized(T, "training")
+        out = attention_ref(q, k, v, **kw)
+    elif T == 1:
+        rows = (cache_index if isinstance(cache_index, list)
+                else [int(cache_index)] * cache["k"].shape[0])
+        out = _decode_attention(q, k, v, cache, rows, **kw)
+    elif "pages" in cache:
+        raise ValueError("paged cache entries are decode-only (T == 1)")
+    else:
+        i = int(cache_index)
+        cache["k"][:, :, i:i + T] = k
+        cache["v"][:, :, i:i + T] = v
+        if x.device.type == "cpu":
+            _check_materialized(T, "prefill on the CPU")
+        out = ops.attention(q, k, v, **kw)
     out = out.transpose(1, 2).reshape(B, T, hq * dh)
-    return dense(out, p["wo"])
+    return dense(out, p["wo"]), cache
 
 
 def mlp_block(p, x, cfg):

@@ -6,7 +6,11 @@ and scales, drawn from a ``torch.Generator`` — the numbers differ from
 ``jax.random``; tests start both packages from the same exported
 weights, see :mod:`repro_torch.weights`), ``_embed``, the unit loop (a
 Python loop over the stacked ``repeats`` axis in place of ``lax.scan``),
-``_logits``, ``_chunked_loss`` and ``train_loss``.
+``_logits``, ``_chunked_loss`` and ``train_loss``; and the serving half
+(``init_cache``, ``init_paged_cache``, ``admit_prefill``, ``prefill``,
+``decode_step``, ``poisoned_rows``). Caches are updated in place (the
+JAX package returns new arrays): each entry point returns the cache it
+was given, written.
 
 Parameters are nested dicts of tensors; stacked-layer leaves keep their
 leading ``repeats`` axis, as in the JAX package, so the flat layout of
@@ -17,12 +21,15 @@ the parameters.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..configs import ModelConfig
 from . import layers as L
 
-__all__ = ["slot_names", "init_params", "train_loss"]
+__all__ = ["slot_names", "init_params", "train_loss", "init_cache",
+           "init_paged_cache", "admit_prefill", "prefill", "decode_step",
+           "poisoned_rows", "DECODE_ROWS"]
 
 _DENSE_KINDS = ("attn", "local")
 
@@ -36,8 +43,9 @@ def _check_dense(cfg: ModelConfig) -> None:
     if (cfg.family != "dense" or cfg.n_experts or cfg.n_enc_layers
             or cfg.frontend or bad):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense decoder path is ported (ROADMAP.md, "
-            "Queue 1: the model zoo)")
+            f"{cfg.name}: only the dense decoder path is ported; SSM, MoE, "
+            "hybrid, enc-dec and frontend models wait for ROADMAP.md, "
+            "Queue 1 item 2 (the model zoo)")
 
 
 def _normal(gen, shape, dtype, scale):
@@ -81,13 +89,22 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     return params
 
 
-def _apply_slot(cfg, kind, p, x, positions):
+def _apply_slot(cfg, kind, p, x, positions, *, cache=None,
+                cache_index=None, mode="train"):
+    """One sublayer; returns ``(x, new_cache_entry)`` (None without a
+    cache). ``mode``: ``train`` / ``prefill`` / ``decode``, or
+    ``encoder`` (bidirectional)."""
     window = cfg.local_window if kind == "local" else cfg.window
     h = L.rms_norm(x, p["norm1"])
-    x = x + L.attention_block(p["attn"], h, positions, cfg, window=window,
-                              softcap=cfg.attn_softcap)
+    h, new_self = L.attention_block(
+        p["attn"], h, positions, cfg, window=window,
+        softcap=cfg.attn_softcap, causal=(mode != "encoder"),
+        cache=cache["self"] if cache is not None else None,
+        cache_index=cache_index)
+    x = x + h
     h = L.rms_norm(x, p["norm2"])
-    return x + L.mlp_block(p["mlp"], h, cfg)
+    x = x + L.mlp_block(p["mlp"], h, cfg)
+    return x, ({"self": new_self} if cache is not None else None)
 
 
 def _layer(tree, r: int):
@@ -96,17 +113,22 @@ def _layer(tree, r: int):
     return tree[r]
 
 
-def _units(cfg, params, x, positions):
-    """The pattern repetitions in order (``lax.scan`` in the JAX package)."""
+def _units(cfg, params, x, positions, *, cache=None, cache_index=None,
+           mode="train"):
+    """The pattern repetitions in order (``lax.scan`` in the JAX package);
+    ``cache`` (stacked over ``repeats``, as the params) is updated in
+    place, one layer's view at a time."""
     for r in range(cfg.repeats):
         for name, kind in zip(slot_names(cfg), cfg.pattern):
-            x = _apply_slot(cfg, kind, _layer(params["blocks"][name], r), x,
-                            positions)
+            c = _layer(cache[name], r) if cache is not None else None
+            x, _ = _apply_slot(cfg, kind, _layer(params["blocks"][name], r),
+                               x, positions, cache=c,
+                               cache_index=cache_index, mode=mode)
     return x
 
 
 def _embed(cfg, params, batch):
-    x = params["embed"][batch["tokens"].long()]
+    x = params["embed"][torch.as_tensor(batch["tokens"]).long()]
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -154,3 +176,133 @@ def train_loss(cfg: ModelConfig, params, batch):
     x = L.rms_norm(x, params["norm_f"])
     loss = _chunked_loss(cfg, params, x, batch["labels"])
     return loss, {"loss": loss}
+
+
+# --------------------------------------------------------------------- #
+# serving (DESIGN.md §13)
+# --------------------------------------------------------------------- #
+def init_cache(cfg: ModelConfig, B: int, T: int, *, device) -> dict:
+    """Zeroed contiguous decode cache: per attention slot ``{"self":
+    {"k", "v": [R, B, Hkv, T, Dh]}}`` in the model dtype."""
+    _check_dense(cfg)
+    R, hkv, hd = cfg.repeats, cfg.n_kv_heads, cfg.hd
+
+    def z():
+        return torch.zeros((R, B, hkv, T, hd), dtype=cfg.torch_dtype,
+                           device=device)
+
+    return {name: {"self": {"k": z(), "v": z()}} for name in slot_names(cfg)}
+
+
+def init_paged_cache(cfg: ModelConfig, slots: int, n_pages: int,
+                     page_size: int, pages_per_slot: int, *, device) -> dict:
+    """Zeroed paged decode cache (DESIGN.md §13): per attention slot one
+    physical page pool ``k``/``v`` ``[R, P, Hkv, page, Dh]`` shared by the
+    batch slots and the page table ``pages`` ``i32[R, slots, npp]`` (one
+    row per layer, as in the JAX package). Physical page 0 is the trash
+    page: finished rows write there and the allocator never hands it
+    out."""
+    _check_dense(cfg)
+    R, hkv, hd = cfg.repeats, cfg.n_kv_heads, cfg.hd
+
+    def z():
+        return torch.zeros((R, n_pages, hkv, page_size, hd),
+                           dtype=cfg.torch_dtype, device=device)
+
+    return {name: {"self": {
+        "k": z(), "v": z(),
+        "pages": torch.zeros((R, slots, pages_per_slot), dtype=torch.int32,
+                             device=device)}}
+        for name in slot_names(cfg)}
+
+
+def admit_prefill(cfg: ModelConfig, paged: dict, prefill_cache: dict,
+                  pages: torch.Tensor, slot: int) -> dict:
+    """Scatter a ``B=1`` prefill cache into the paged pool, in place.
+
+    ``prefill_cache`` comes from :func:`prefill` with ``max_len = n *
+    page_size``; ``pages`` is the slot's full page-table row ``i32[npp]``
+    whose first ``n`` entries are its physical pages (the rest point at
+    the trash page and are never valid under the length mask). Pure
+    data movement: every cached value lands bit-identical in its page.
+    """
+    for name in slot_names(cfg):
+        ent, src = paged[name]["self"], prefill_cache[name]["self"]
+        ps = ent["k"].shape[3]
+        R, _, hkv, Tp, hd = src["k"].shape
+        if Tp % ps:
+            raise ValueError(f"prefill cache length {Tp} is not a multiple "
+                             f"of the page size {ps}")
+        npg = Tp // ps
+        dst = pages[:npg].long()
+        for key in ("k", "v"):
+            blocks = src[key][:, 0].reshape(R, hkv, npg, ps, hd)
+            ent[key][:, dst] = blocks.transpose(1, 2)
+        ent["pages"][:, slot] = pages
+    return paged
+
+
+def prefill(cfg: ModelConfig, params, batch, max_len: int | None = None):
+    """Forward pass over the prompt ``batch["tokens"] [B, T]`` that also
+    writes the KV cache (sized ``max_len``, default ``T``) -> (logits of
+    the last position ``[B, 1, V]`` in f32, cache)."""
+    _check_dense(cfg)
+    x = _embed(cfg, params, batch)
+    B, T = x.shape[:2]
+    positions = torch.arange(T, device=x.device)
+    cache = init_cache(cfg, B, max_len or T, device=x.device)
+    x = _units(cfg, params, x, positions, cache=cache, cache_index=0,
+               mode="prefill")
+    x = L.rms_norm(x, params["norm_f"])
+    return _logits(cfg, params, x[:, -1:]), cache
+
+
+#: rows of a decode step: every step of up to this many rows runs its
+#: products, norms and logits at this one width (the pad rows carry token
+#: 0 and see no key), so a row's bits do not depend on how many other
+#: rows share the step — a library product or reduction on a card may
+#: sum in another order at another row count, and in bf16 one flipped bit
+#: can change a greedy token. It is what lets :class:`repro_torch.
+#: runtime.serve.DecodeEngine` batch its slots and still match the
+#: ``B=1`` :func:`repro_torch.runtime.serve.generate` bitwise.
+DECODE_ROWS = 16
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens, cache_index):
+    """One serving step: tokens ``[B, 1]`` + cache -> (logits ``[B, 1,
+    V]``, cache), with ``B <= DECODE_ROWS``.
+
+    ``cache_index``: an int (the contiguous cache, every row at one
+    position) or host ints, one per row, over a paged cache; ``-1`` marks
+    a finished row (it writes nothing and sees no key). Each row attends
+    over exactly its valid keys (see
+    :func:`repro_torch.models.layers.attention_block`).
+    """
+    _check_dense(cfg)
+    B = tokens.shape[0]
+    if B > DECODE_ROWS:
+        raise ValueError(f"a decode step takes at most DECODE_ROWS = "
+                         f"{DECODE_ROWS} rows, got {B}")
+    dev = params["embed"].device
+    if np.ndim(cache_index) == 0:
+        rows = [int(cache_index)] * B
+        positions = torch.full((DECODE_ROWS, 1), int(cache_index),
+                               dtype=torch.long, device=dev)
+    else:
+        rows = [int(i) for i in cache_index]
+        positions = torch.tensor([max(i, 0) for i in rows]
+                                 + [0] * (DECODE_ROWS - B),
+                                 device=dev)[:, None]
+    tokens = torch.cat([tokens, tokens.new_zeros((DECODE_ROWS - B, 1))])
+    x = _embed(cfg, params, {"tokens": tokens})
+    x = _units(cfg, params, x, positions, cache=cache, cache_index=rows,
+               mode="decode")
+    x = L.rms_norm(x, params["norm_f"])
+    return _logits(cfg, params, x)[:B], cache
+
+
+def poisoned_rows(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Poisoned-output sentinel (DESIGN.md §15): ``logits [..., V]`` ->
+    bool ``[...]``, True where a row's logits over the real (unpadded)
+    vocab hold a non-finite value."""
+    return ~torch.isfinite(logits[..., :vocab]).all(dim=-1)

@@ -15,6 +15,10 @@ is rtol 1e-6 in f32 and one bf16 ulp in bf16, as stated for the
 kernel (it is in fact the same ascending f32 sum); the tiny trainer's
 loss on the card is within rtol 1e-4 of the CPU's (cuBLAS and the CPU's
 BLAS sum products in other orders, TF32 off), on both grad-sync lanes.
+``flash_attention`` is within 2e-5 (f32) / 2e-2 (bf16) of its plain
+version, the tolerances of ``tests/test_kernels.py`` (online softmax
+against the materialized one); the serving engine's tokens are bitwise
+the port's ``generate`` on the card.
 """
 
 import numpy as np
@@ -25,12 +29,16 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core.collective import (camr_shuffle, make_plan,
                                          scatter_contributions)
 from repro_torch.data.pipeline import ShardedTokenPipeline
-from repro_torch.kernels import (aggregate, aggregate_bf16, launch_counts,
-                                 ops, ref, xor_decode, xor_decode_gather,
+from repro_torch.kernels import (aggregate, aggregate_bf16, flash_attention,
+                                 launch_counts, ops, ref, xor_decode,
+                                 xor_decode_gather,
                                  xor_decode_gather16, xor_encode,
                                  xor_encode_gather, xor_encode_gather16,
                                  xor_fold)
+from repro_torch.models import lm
 from repro_torch.runtime import MultiModelCAMRTrainer
+from repro_torch.runtime.serve import (DecodeEngine, Request, ServeStream,
+                                       generate)
 
 pytestmark = pytest.mark.cuda
 
@@ -252,7 +260,8 @@ def test_cuda_trainer_step_matches_cpu(cuda_device):
     assert runs == {"xor_encode_gather": 2, "xor_decode_gather": 2,
                     "aggregate": card.K, "xor_encode_gather16": 0,
                     "xor_decode_gather16": 0, "aggregate_bf16": 0,
-                    "xor_fold": 0, "xor_decode": 0, "xor_encode": 0}
+                    "xor_fold": 0, "xor_decode": 0, "xor_encode": 0,
+                    "flash_attention": 0}
 
 
 def test_cuda_bf16_trainer_step_matches_cpu(cuda_device):
@@ -260,7 +269,8 @@ def test_cuda_bf16_trainer_step_matches_cpu(cuda_device):
     assert runs == {"xor_encode_gather": 0, "xor_decode_gather": 0,
                     "aggregate": 0, "xor_encode_gather16": 2,
                     "xor_decode_gather16": 2, "aggregate_bf16": card.K,
-                    "xor_fold": 0, "xor_decode": 0, "xor_encode": 0}
+                    "xor_fold": 0, "xor_decode": 0, "xor_encode": 0,
+                    "flash_attention": 0}
 
 
 def test_cuda_multipass_trainer_step_matches_cpu(cuda_device):
@@ -269,4 +279,106 @@ def test_cuda_multipass_trainer_step_matches_cpu(cuda_device):
     assert runs == {"xor_encode_gather": 0, "xor_decode_gather": 0,
                     "aggregate": card.K, "xor_encode_gather16": 0,
                     "xor_decode_gather16": 0, "aggregate_bf16": 0,
-                    "xor_fold": 2, "xor_decode": 2, "xor_encode": 0}
+                    "xor_fold": 2, "xor_decode": 2, "xor_encode": 0,
+                    "flash_attention": 0}
+
+
+# B, Hq, Hkv, Tq, Tk, D, causal, window, softcap: tests/test_kernels.py's
+# ATTN_CASES, granite's prefill (32/8 heads, D 64) and gemma2's (8/4
+# heads, D 256, softcap 50, window 4096; a window that binds at 300)
+FLASH_CASES = [
+    (1, 2, 2, 64, 64, 16, True, None, None),
+    (2, 4, 2, 32, 32, 32, True, None, None),
+    (1, 2, 1, 128, 128, 16, True, 32, None),
+    (1, 2, 2, 64, 64, 16, True, None, 50.0),
+    (1, 4, 4, 48, 48, 16, False, None, None),
+    (1, 2, 1, 1, 96, 16, True, None, None),
+    (1, 2, 2, 100, 100, 16, True, None, None),
+    (1, 8, 2, 8, 72, 16, True, 24, None),
+    (1, 32, 8, 129, 129, 64, True, None, None),
+    (1, 32, 8, 1000, 1000, 64, True, None, None),
+    (1, 8, 4, 1000, 1000, 256, True, 4096, 50.0),
+    (1, 8, 4, 700, 700, 256, True, 300, 50.0),
+    (2, 4, 2, 33, 70, 128, False, None, None),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
+    B, Hq, Hkv, Tq, Tk, D, causal, window, softcap = case
+    rng = np.random.default_rng(Tq * 31 + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda_device, dtype)
+               for s in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # strided views (a [B, T, H, D] projection seen as [B, H, T, D])
+    qs = q.transpose(1, 2).contiguous().transpose(1, 2)
+    torch.testing.assert_close(flash_attention(qs, k, v, **kw), got,
+                               rtol=0, atol=0)
+
+
+def test_cuda_flash_attention_refuses_grad_and_bad_dims(cuda_device):
+    q = torch.zeros((1, 2, 4, 64), device=cuda_device, requires_grad=True)
+    k = torch.zeros((1, 2, 4, 64), device=cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, k, k)
+    odd = torch.zeros((1, 2, 4, 48), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(odd, odd, odd)
+    with pytest.raises(TypeError):
+        flash_attention(k.half(), k.half(), k.half())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_engine_tokens_equal_generate(cuda_device, dtype):
+    """The reduced gemma2 served on the card: engine tokens bitwise the
+    port's ``generate``, one ``flash_attention`` launch per layer and
+    prefill."""
+    cfg = reduced(get_config("gemma2_2b")).replace(dtype=dtype)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    params = lm.init_params(cfg, gen)
+    rng = np.random.default_rng(3)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, (t,)).astype(np.int32),
+                    max_new=6, temperature=0.7 * (i % 2), seed=i)
+            for i, t in enumerate([5, 40, 17, 9, 33])]
+    eng = DecodeEngine(cfg, params, slots=2, page_size=8, max_ctx=48,
+                       max_new_cap=6, device=cuda_device)
+    before = flash_attention.launches
+    res = ServeStream(eng, wave_len=3).run(reqs)
+    assert flash_attention.launches - before == cfg.n_layers * len(reqs)
+    for req, r in zip(reqs, res):
+        want = generate(cfg, params, req.prompt[None], max_new=6,
+                        temperature=req.temperature, seed=req.seed,
+                        device=cuda_device).tokens[0, len(req.prompt):]
+        assert r.status == "ok" and np.array_equal(r.generated, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_decode_step_rows_do_not_depend_on_batch(cuda_device, dtype):
+    """On the card, a row's logits in a step of three rows are bitwise
+    those of its own step (the fixed ``lm.DECODE_ROWS`` width)."""
+    cfg = reduced(get_config("granite_3_2b")).replace(dtype=dtype)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    params = lm.init_params(cfg, gen)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (3, 12)).astype(np.int32)).to(cuda_device)
+    caches = [lm.prefill(cfg, params, {"tokens": toks[s:s + 1]},
+                         max_len=13)[1] for s in range(3)]
+    stacked = {n: {"self": {k: torch.cat([c[n]["self"][k] for c in caches],
+                                         dim=1) for k in ("k", "v")}}
+               for n in caches[0]}
+    batch, _ = lm.decode_step(cfg, params, stacked, toks[:, :1], 12)
+    for s in range(3):
+        row, _ = lm.decode_step(cfg, params, caches[s], toks[s:s + 1, :1], 12)
+        assert torch.equal(batch[s], row[0])

@@ -297,7 +297,8 @@ def test_wrappers_take_plain_version_on_cpu():
     assert list(KERNELS) == ["xor_encode_gather", "xor_decode_gather",
                              "aggregate", "xor_encode_gather16",
                              "xor_decode_gather16", "aggregate_bf16",
-                             "xor_fold", "xor_decode", "xor_encode"]
+                             "xor_fold", "xor_decode", "xor_encode",
+                             "flash_attention"]
 
 
 def test_wrappers_reject_bad_inputs():
