@@ -22,6 +22,14 @@ result line) on any mismatch:
    visible pairs at the bf16 tensor-core peak when larger), its plain
    version and, where one PyTorch call computes the same function, that
    call (SDPA for the causal GQA shapes; none with softcap or window);
+   ``ssd_scan`` within 2e-4 of its plain version (``ref.ssd_chunked``)
+   at every ``SSD_CASES`` shape of tests/test_kernels.py in f32, with
+   per-head and with group-shared b/c, and at mamba2's serving prefills
+   (bf16, group-shared b/c, 64 heads of P 64, state 128, T in {77, 1000,
+   1024, 2048}) within 1e-5 x max|y| of an f64 evaluation in f32 and
+   within two bf16 ulps of each output (plus twice that f32 error) of
+   its plain version in bf16, timed beside its bound (bytes), its plain
+   version and no library call (none computes an SSD scan);
 2. **shuffle** — the coded shuffle of (q, k) in {(2,3), (3,3), (2,4)},
    both routers, bitwise equal to the same shuffle through the plain
    versions on the card: f32 (and close to the numpy reference), and the
@@ -43,13 +51,33 @@ result line) on any mismatch:
    1's losses to the f32 run's (same parameters and data, the map runs
    before any sync), its wire bytes to exactly half and its peak memory
    below the f32 run's; the multipass run holds its step-1 losses to the
-   f32 run's.
+   f32 run's;
+4. **serve** — three models served through ``DecodeEngine(slots=4,
+   page_size=16, max_ctx=1056)`` behind ``ServeStream(wave_len=8)``,
+   each on random bf16 weights from seed 0: ``granite_3_2b`` at full
+   depth (40 layers) and ``mamba2_1p3b`` at full depth (48 SSM layers),
+   8 greedy requests each with prompts of {1000, 129, 257, 640, 1024, 77,
+   513, 900} tokens and 32 new tokens, and ``gemma2_2b`` cut to 4 layers,
+   4 requests. Each run has its own launch counts (counters set to 0
+   just before it): one ``flash_attention`` per attention layer and
+   prefill, one ``ssd_scan`` per SSM layer and prefill, no other kernel
+   (granite 320 / 0, gemma2 16 / 0, mamba2 0 / 384). Gates: every status
+   ``ok``, engine tokens bitwise the port's ``generate`` on the card (and
+   on a warm second run that builds or loads no kernel library), the
+   page pool's invariants, the prefill logits through the kernels within
+   5% of max |logit| of the same prefill through the plain versions
+   (mamba2's at 4 layers: the random bf16 model amplifies rounding with
+   depth as far between two plain evaluations, which it prints, so its
+   48 scans are also held one by one, at the model's own activations,
+   to the bf16 limit of phase 1). Reports prefill ms by prompt length,
+   decode tok/s, step p50/p99 and peak memory.
 
 The last lines are the card's name and power limit, the ``kernels`` JSON
-line (ten kernels, each with its main-path launches: the training runs'
-counts, ``flash_attention``'s summed over the two serving runs) and ``{"ok": true, "device": {...}}``. Needs one CUDA card, the
-CUDA toolkit (``nvcc``) and the rest of this checkout; imports nothing
-of JAX.
+line (eleven kernels, each with its main-path launches: the training
+runs' counts, ``flash_attention``'s summed over the granite and gemma2
+serving runs, ``ssd_scan``'s from the mamba2 run) and ``{"ok": true,
+"device": {...}}``. Needs one CUDA card, the CUDA toolkit (``nvcc``) and
+the rest of this checkout; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -71,6 +99,7 @@ _GATHER = "src/repro_torch/kernels/csrc/xor_gather.cu"
 _FOLD = "src/repro_torch/kernels/csrc/xor_fold.cu"
 _AGG = "src/repro_torch/kernels/csrc/aggregate.cu"
 _FLASH = "src/repro_torch/kernels/csrc/flash_attention.cu"
+_SSD = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 SOURCES = {"xor_encode_gather": (_GATHER, "src/repro/kernels/xor_code.py:240"),
            "xor_decode_gather": (_GATHER, "src/repro/kernels/xor_code.py:309"),
            "aggregate": (_AGG, "src/repro/kernels/aggregate.py:71"),
@@ -83,7 +112,8 @@ SOURCES = {"xor_encode_gather": (_GATHER, "src/repro/kernels/xor_code.py:240"),
            "xor_decode": (_FOLD, "src/repro/kernels/xor_code.py:180"),
            "xor_encode": (_FOLD, "src/repro/kernels/xor_code.py:106"),
            "flash_attention": (_FLASH,
-                               "src/repro/kernels/flash_attention.py:127")}
+                               "src/repro/kernels/flash_attention.py:127"),
+           "ssd_scan": (_SSD, "src/repro/kernels/ssd_scan.py:98")}
 #: H100 SXM peaks (data sheet, dense): bf16 tensor cores, f32 outside them
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
@@ -501,6 +531,130 @@ def check_flash(gen):
     return {"flash_attention": timed[FLASH_MAIN]}
 
 
+#: tests/test_kernels.py's SSD_CASES: B, T, H, P, S, chunk (the chunk is
+#: the plain version's; the kernel's is 64)
+SSD_CASES = [(1, 32, 2, 8, 4, 8), (2, 64, 1, 16, 8, 16),
+             (1, 100, 2, 8, 4, 32), (1, 16, 3, 4, 16, 16)]
+#: mamba2_1p3b's serving prefill (bf16, group-shared b/c, 64 heads of
+#: P 64, state 128) at these lengths; the first is the one the
+#: ``kernels`` line reports
+SSD_MAIN = 1024
+SSD_LENS = (SSD_MAIN, 77, 1000, 2048)
+SSD_TOL = 2e-4
+#: the serving shapes' accuracy: the kernel's f32 result (the bf16 inputs
+#: upcast) within this share of max |y| of an f64 evaluation. The chunked
+#: form's weights exp(cum_t - cum_s) are differences of in-chunk sums of
+#: up to ~100 in magnitude, so both f32 evaluations (kernel and plain)
+#: are off by a few 1e-6 of max |y| (|y| up to ~130 at RMS ~13)
+SSD_F32_REL = 1e-5
+#: the serving shapes' limit for the bf16 outputs, kernel against plain:
+#: each rounds its f32 result once to bf16, so an element may differ by
+#: a bf16 ulp of its value (at most 2**-7 of it, taken twice here) plus
+#: the two f32 errors (``SSD_F32_REL`` of max |y| each)
+SSD_SERVE_RTOL = 2 ** -6
+
+
+def _ssd_work(B, T, H, P, S, C=64):
+    """(FLOPs, bytes) of one scan: per head and step, the Pallas kernel's
+    products (c b^T over the chunk, M x, c h and the state update:
+    C*S + C*P + 2*S*P multiply-adds); x and y in bf16, a in f32, b and c
+    group-shared in bf16, each read or written once."""
+    flops = 2 * B * H * T * (C * S + C * P + 2 * S * P)
+    nbytes = 2 * 2 * B * T * H * P + 4 * B * T * H + 2 * 2 * B * T * S
+    return flops, nbytes
+
+
+def check_ssd(gen):
+    """``ssd_scan`` against its plain version on the card: every
+    SSD_CASES shape in f32 with per-head and group-shared b/c (2e-4, the
+    tolerance of tests/test_kernels.py), and mamba2's serving prefills in
+    f32 (within ``SSD_F32_REL`` x max|y| of an f64 evaluation) and in
+    bf16 (within ``SSD_SERVE_RTOL`` of each output plus twice
+    ``SSD_F32_REL`` x max|y| of the plain version), each timed beside its
+    bound and its plain version (no single PyTorch call computes an SSD
+    scan)."""
+    import torch
+    from repro_torch.kernels import ref, ssd_scan
+
+    def inputs(B, T, H, P, S, dt, shared, decay):
+        bs = (B, T, S) if shared else (B, T, H, S)
+        x, b, c = (torch.randn(sh, device=DEVICE, generator=gen).to(dt)
+                   for sh in ((B, T, H, P), bs, bs))
+        a = torch.randn((B, T, H), device=DEVICE, generator=gen)
+        # the model's log-decay -softplus(.), or tests/test_kernels.py's
+        a = (-torch.nn.functional.softplus(a) if decay == "model"
+             else -a.abs() * 0.1)
+        return x, a, b, c
+
+    for B, T, H, P, S, chunk in SSD_CASES:
+        for shared in (False, True):
+            args = inputs(B, T, H, P, S, torch.float32, shared, "test")
+            got, want = ssd_scan(*args), ref.ssd_chunked(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            if got.dtype != torch.float32 or not torch.allclose(
+                    got, want, rtol=SSD_TOL, atol=SSD_TOL):
+                fail(f"ssd_scan != plain at {(B, T, H, P, S)} shared={shared} "
+                     f"f32 (max abs err {err})")
+    timed = {}
+    for T in SSD_LENS:
+        B, H, P, S = 1, 64, 64, 128
+        args = inputs(B, T, H, P, S, torch.bfloat16, True, "model")
+        x, a, b, c = args
+        exact = ref.ssd_chunked(*(t.double() for t in args))
+        scale = float(exact.abs().max())
+        k32, p32 = (fn(x.float(), a, b.float(), c.float())
+                    for fn in (ssd_scan, ref.ssd_chunked))
+        f32_err, plain_err = (float((t.double() - exact).abs().max()) / scale
+                              for t in (k32, p32))
+        if not f32_err <= SSD_F32_REL:
+            fail(f"ssd_scan at T={T} (f32): max abs err {f32_err} x max|y| "
+                 f"against an f64 evaluation > {SSD_F32_REL}")
+        del exact, k32, p32
+        got, want = ssd_scan(*args), ref.ssd_chunked(*args)
+        torch.cuda.synchronize()
+        g, w = got.float(), want.float()
+        err = max_abs_err(g, w)
+        limit = 2 * SSD_F32_REL * scale + SSD_SERVE_RTOL * w.abs()
+        share = float(((g - w).abs() / limit).max())
+        rms = float(w.square().mean().sqrt())
+        if got.dtype != torch.bfloat16 or not torch.isfinite(g).all() \
+                or share > 1:
+            fail(f"ssd_scan != plain at T={T} bf16 (max abs err {err}, worst "
+                 f"element at {share:.3f} of its limit)")
+        log(f"kernels: ssd_scan T={T}: f32 max abs err against f64 "
+            f"{f32_err:.2e} x max|y| {scale:.1f} (plain {plain_err:.2e}; "
+            f"limit {SSD_F32_REL})")
+        del got, want, g, w, limit
+        flops, nbytes = _ssd_work(B, T, H, P, S)
+        t_ops = flops / PEAK_FLOPS["bfloat16"]
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        r = dict(ms=time_ms(lambda: ssd_scan(*args)),
+                 plain_ms=time_ms(lambda: ref.ssd_chunked(*args), warmup=1,
+                                  reps=3),
+                 library_ms=None, bound_ms=max(t_ops, t_bytes) * 1e3,
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 max_abs_err=err, bytes=nbytes,
+                 shape=f"x [{B},{T},{H},{P}] bf16, a f32, b/c [{B},{T},{S}] "
+                       f"group-shared, {flops / 1e9:.3f} GFLOP, "
+                       f"{nbytes / 1e6:.2f} MB")
+        timed[T] = r
+        log(f"kernels: ssd_scan {r['shape']}: {r['ms']:.3f} ms (plain "
+            f"{r['plain_ms']:.3f} ms, library none: no single call computes "
+            f"an SSD scan, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+            f"at 989 TFLOP/s / 3.35 TB/s), max abs err {err:.2e} (RMS of the "
+            f"output {rms:.3e}; the worst element at {share:.3f} of its "
+            "limit)")
+        del x, a, b, c, args
+        torch.cuda.empty_cache()
+    log(f"kernels: ssd_scan within {SSD_TOL} of plain at {len(SSD_CASES)} "
+        f"SSD_CASES shapes x per-head/group-shared b/c (f32), and at "
+        f"{len(SSD_LENS)} serving shapes within {SSD_F32_REL} x max|y| of "
+        f"f64 (f32) and within rtol 2**-6 + {2 * SSD_F32_REL} x max|y| of "
+        "plain (bf16)")
+    return {"ssd_scan": timed[SSD_MAIN]}
+
+
 def phase_kernels(gen, tr):
     """At the shapes the trainer ``tr`` gives the kernels, on both lanes
     (the tables are lane-independent; the row width is not)."""
@@ -554,6 +708,7 @@ def phase_kernels(gen, tr):
     results.update(step_folds(gen, st, K, k, d_shard // (k - 1)))
     torch.cuda.empty_cache()
     results.update(check_flash(gen))
+    results.update(check_ssd(gen))
     log(f"kernels: the checks and timings above launched xor_encode "
         f"{launch_counts()['xor_encode']} times (no training path calls "
         "ops.xor_fold: its main-path count is 0)")
@@ -776,14 +931,24 @@ def compare_codecs(rep32, peak32, rep_mp, peak_mp):
 # phase 4: serving (DecodeEngine behind ServeStream)
 # --------------------------------------------------------------------- #
 #: (arch, depth, prompt lengths): granite_3_2b at full width and full
-#: depth, gemma2_2b at full width cut to 4 layers (2 pattern units)
-SERVE_RUNS = (("granite_3_2b", None, (1000, 129, 257, 640, 1024, 77, 513,
-                                      900)),
-              ("gemma2_2b", 4, (1000, 300, 513, 64)))
+#: depth, gemma2_2b at full width cut to 4 layers (2 pattern units),
+#: mamba2_1p3b at full width and full depth (six of its lengths leave a
+#: ragged last SSD chunk of 64)
+_LENS = (1000, 129, 257, 640, 1024, 77, 513, 900)
+SERVE_RUNS = (("granite_3_2b", None, _LENS),
+              ("gemma2_2b", 4, (1000, 300, 513, 64)),
+              ("mamba2_1p3b", None, _LENS))
 #: the prefill logits through the kernel and through its plain version
 #: (bf16 activations round differently once the attention outputs differ
 #: in their last bits): max abs difference <= this share of max |logit|
 LOGIT_SHARE = 0.05
+#: layers of the SSM model whose prefill logits are held to the plain
+#: version's under ``LOGIT_SHARE``. The random bf16 mamba2 amplifies
+#: rounding with depth: two plain evaluations (chunks of 64 and of 32)
+#: drift apart as far as the kernel and the plain version do, which
+#: ``check_ssm_prefill`` prints at this depth and at full depth; at full
+#: depth the scans are held layer by layer instead
+SSM_LOGIT_LAYERS = 4
 
 
 @contextlib.contextmanager
@@ -798,11 +963,82 @@ def plain_attention():
         ops.flash_attention = saved
 
 
+@contextlib.contextmanager
+def plain_ssd(scan=None):
+    """Route the SSM prefill's scan through ``scan``, by default the plain
+    version in the kernel's chunks of 64 (no launch)."""
+    from repro_torch.kernels import ops, ref
+    saved = ops.ssd_scan
+    ops.ssd_scan = scan or ref.ssd_chunked
+    try:
+        yield
+    finally:
+        ops.ssd_scan = saved
+
+
+def check_ssm_prefill(cfg, params, probe, tag):
+    """A full-depth SSM prefill's scans at the model's own activations:
+    every layer's ``ssd_scan`` launch recorded and held against the plain
+    version on the same inputs (the bf16 limit of ``check_ssd``); then the
+    logits' drift between two plain evaluations (chunks of 64 and of 32)
+    at ``SSM_LOGIT_LAYERS`` and at full depth, beside the kernel's."""
+    import functools
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import lm
+    calls = []
+    kernel = ops.ssd_scan
+
+    def record(*args):
+        y = kernel(*args)
+        calls.append((args, y))
+        return y
+
+    with plain_ssd(record):
+        lg_kernel, _ = lm.prefill(cfg, params, probe)
+    worst = 0.0
+    for args, y in calls:
+        want = ref.ssd_chunked(*args).float()
+        limit = (2 * SSD_F32_REL * float(want.abs().max())
+                 + SSD_SERVE_RTOL * want.abs())
+        worst = max(worst, float(((y.float() - want).abs() / limit).max()))
+    n_ssm = cfg.repeats * cfg.pattern.count("ssm")
+    if len(calls) != n_ssm or worst > 1:
+        fail(f"{tag}: {len(calls)} of {n_ssm} prefill scans recorded, the "
+             f"worst element at {worst:.3f} of its limit")
+    del calls
+    log(f"{tag}: the {n_ssm} scans of a {probe['tokens'].shape[1]}-token "
+        f"prefill within the bf16 limit of their plain versions on the "
+        f"model's activations (worst element at {worst:.3f} of its limit)")
+    chunk32 = functools.partial(ref.ssd_chunked, chunk=32)
+    for depth in (min(SSM_LOGIT_LAYERS, cfg.n_layers), cfg.n_layers):
+        c = cfg.replace(n_layers=depth)
+        with plain_ssd():
+            lp, _ = lm.prefill(c, params, probe)
+        with plain_ssd(chunk32):
+            lp32, _ = lm.prefill(c, params, probe)
+        drift = float((lg_kernel - lp).abs().max())
+        kernel_txt = (f"kernel vs plain {drift:.4g}, "
+                      if depth == cfg.n_layers else "")
+        log(f"{tag}: prefill logits at {depth} layers: max |logit| "
+            f"{float(lp.abs().max()):.4g}; {kernel_txt}plain (chunks of 64) "
+            f"vs plain (chunks of 32) {float((lp - lp32).abs().max()):.4g}")
+
+
+def serve_kernels(cfg, n_requests: int) -> dict:
+    """Prefill launches of a serving run: one ``flash_attention`` per
+    attention sublayer and one ``ssd_scan`` per SSM sublayer, per
+    request; no other kernel."""
+    per = {"flash_attention": ("attn", "local"), "ssd_scan": ("ssm",)}
+    return {name: cfg.repeats * n_requests * sum(k in kinds
+                                                 for k in cfg.pattern)
+            for name, kinds in per.items()}
+
+
 def phase_serve(arch, n_layers, lens, seed=0, max_new=32):
     """One model served through the port's entry points: its launch
     counts, statuses, tokens bitwise ``generate``'s, zero builds on a
     second warm run, the pool's invariants, the prefill logits against
-    the plain attention; returns (flash launches, report lines)."""
+    the plain versions; returns the run's launch counts."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -826,11 +1062,13 @@ def phase_serve(arch, n_layers, lens, seed=0, max_new=32):
                        max_new_cap=max_new, name=arch, device=DEVICE)
     stream = ServeStream(eng, wave_len=8)
     torch.cuda.synchronize()
-    log(f"{tag}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.hd}, {cfg.dtype}; "
-        f"{len(reqs)} greedy requests, prompts {list(lens)}, max_new "
-        f"{max_new}; engine slots 4, page 16, max_ctx 1056, wave 8; init "
-        f"{time.perf_counter() - t0:.1f} s")
+    mixer = (f"{cfg.ssm_heads} SSM heads x {cfg.ssm_d_inner // cfg.ssm_heads}"
+             f", state {cfg.ssm_state}" if "ssm" in cfg.pattern else
+             f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.hd}")
+    log(f"{tag}: {cfg.n_layers} layers, d_model {cfg.d_model}, {mixer}, "
+        f"{cfg.dtype}; {len(reqs)} greedy requests, prompts {list(lens)}, "
+        f"max_new {max_new}; engine slots 4, page 16, max_ctx 1056, wave 8; "
+        f"init {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -842,7 +1080,7 @@ def phase_serve(arch, n_layers, lens, seed=0, max_new=32):
     peak = torch.cuda.max_memory_allocated()
     rep = stream.last_report
     want = dict.fromkeys(counts, 0)
-    want["flash_attention"] = cfg.n_layers * len(reqs)
+    want.update(serve_kernels(cfg, len(reqs)))
     if counts != want:
         fail(f"{tag}: launch counts {counts} != expected {want}")
     if [r.status for r in results] != ["ok"] * len(reqs):
@@ -865,18 +1103,25 @@ def phase_serve(arch, n_layers, lens, seed=0, max_new=32):
         f"card (and on a second warm run); launches {counts}; warm run: 0 "
         f"kernel builds/loads; pool invariants hold")
 
-    # the prefill logits through the kernel and through the plain version
+    # the prefill logits through the kernels and through the plain versions
+    # (an SSM model's at SSM_LOGIT_LAYERS, its scans layer by layer)
     probe = {"tokens": torch.from_numpy(reqs[0].prompt[None]).to(DEVICE)}
-    lg_kernel, _ = lm.prefill(cfg, params, probe)
-    with plain_attention():
-        lg_plain, _ = lm.prefill(cfg, params, probe)
+    ssm = "ssm" in cfg.pattern
+    gate = (cfg.replace(n_layers=min(SSM_LOGIT_LAYERS, cfg.n_layers)) if ssm
+            else cfg)
+    lg_kernel, _ = lm.prefill(gate, params, probe)
+    with plain_attention(), plain_ssd():
+        lg_plain, _ = lm.prefill(gate, params, probe)
     diff = float((lg_kernel - lg_plain).abs().max())
     scale = float(lg_plain.abs().max())
     if not torch.isfinite(lg_kernel).all() or diff > LOGIT_SHARE * scale:
         fail(f"{tag}: prefill logits kernel vs plain differ by {diff} "
              f"(limit {LOGIT_SHARE} x max |logit| {scale})")
-    log(f"{tag}: prefill logits ({len(reqs[0].prompt)} tokens) through the "
-        f"kernel vs the plain version: max abs diff {diff:.4g} <= "
+    if ssm:
+        check_ssm_prefill(cfg, params, probe, tag)
+    log(f"{tag}: prefill logits ({len(reqs[0].prompt)} tokens, "
+        f"{gate.n_layers} layers) through the kernels vs the plain "
+        f"versions: max abs diff {diff:.4g} <= "
         f"{LOGIT_SHARE} x max |logit| {scale:.4g} (tokens are not compared "
         "across the two: bf16 rounding can flip a greedy argmax); argmax "
         f"equal: {bool(lg_kernel.argmax() == lg_plain.argmax())}")
@@ -899,7 +1144,7 @@ def phase_serve(arch, n_layers, lens, seed=0, max_new=32):
     del eng, stream, params
     gc.collect()
     torch.cuda.empty_cache()
-    return counts["flash_attention"]
+    return counts
 
 
 def main() -> int:
@@ -952,8 +1197,10 @@ def main() -> int:
     del tr, pipe
     gc.collect()
     torch.cuda.empty_cache()
-    counts["flash_attention"] = sum(phase_serve(arch, depth, lens)
-                                    for arch, depth, lens in SERVE_RUNS)
+    served = [phase_serve(arch, depth, lens)
+              for arch, depth, lens in SERVE_RUNS]
+    for name in ("flash_attention", "ssd_scan"):
+        counts[name] = sum(c[name] for c in served)
 
     kernels = []
     for name, r in results.items():

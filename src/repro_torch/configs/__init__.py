@@ -6,9 +6,10 @@ the small same-family variant the CPU tests use. The architecture
 fields are the JAX package's; its XLA execution knobs (``use_pallas``,
 ``remat``, ``scan_unroll``, ``attn_block``, ``ssm_chunk``,
 ``microbatches``, ``grad_sync``, ``moe_shard_mode``) have no
-counterpart here. The port ships the dense ``granite_3_2b`` and
-``gemma2_2b`` configs; the rest of the zoo is still to port (ROADMAP.md,
-Queue 1).
+counterpart here (the SSD chunk is the ``ssd_scan`` kernel's constant,
+64, mamba2's ``ssm_chunk``). The port ships the dense ``granite_3_2b``
+and ``gemma2_2b`` configs and the SSM ``mamba2_1p3b``; the rest of the
+zoo is still to port (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -97,7 +98,7 @@ ARCHS = [
     "mamba2_1p3b", "seamless_m4t_large_v2",
 ]
 #: the configs this slice of the port ships
-PORTED_ARCHS = ["granite_3_2b", "gemma2_2b"]
+PORTED_ARCHS = ["granite_3_2b", "gemma2_2b", "mamba2_1p3b"]
 
 
 def get_config(name: str) -> ModelConfig:

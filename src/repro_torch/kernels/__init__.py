@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from .aggregate import aggregate, aggregate_bf16
 from .flash_attention import flash_attention
+from .ssd_scan import ssd_scan
 from .xor_code import (xor_decode, xor_decode_gather, xor_decode_gather16,
                        xor_encode, xor_encode_gather, xor_encode_gather16,
                        xor_fold)
@@ -16,8 +17,7 @@ from .xor_code import (xor_decode, xor_decode_gather, xor_decode_gather16,
 __all__ = ["KERNELS", "aggregate", "aggregate_bf16", "xor_encode_gather",
            "xor_decode_gather", "xor_encode_gather16", "xor_decode_gather16",
            "xor_fold", "xor_decode", "xor_encode", "flash_attention",
-           "launch_counts",
-           "reset_launch_counts"]
+           "ssd_scan", "launch_counts", "reset_launch_counts"]
 
 #: every kernel wrapper of the port, by kernel name (``aggregate`` counts
 #: the f32 combiner, ``aggregate_bf16`` the bf16 one)
@@ -30,7 +30,8 @@ KERNELS = {"xor_encode_gather": xor_encode_gather,
            "xor_fold": xor_fold,
            "xor_decode": xor_decode,
            "xor_encode": xor_encode,
-           "flash_attention": flash_attention}
+           "flash_attention": flash_attention,
+           "ssd_scan": ssd_scan}
 
 
 def launch_counts() -> dict[str, int]:

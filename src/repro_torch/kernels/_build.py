@@ -30,6 +30,8 @@ _F32 = ctypes.c_float
 #: q, k, v, o; B, Hq, Hkv, Tq, Tk, D; the 12 strides; scale, softcap,
 #: causal, window; the stream
 _FLASH = [_VP] * 4 + [_LL] * 6 + [_VP, _F32, _F32, _INT, _LL, _VP]
+#: x, a, b, c, y; B, T, H, P, S; the 12 strides; the stream
+_SSD = [_VP] * 5 + [_LL] * 5 + [_VP, _VP]
 SOURCES = {
     "xor_gather": {
         "xor_encode_gather": [_VP] * 4 + [_LL] * 5 + [_INT, _VP],
@@ -48,6 +50,10 @@ SOURCES = {
     "flash_attention": {
         "flash_attention_f32": _FLASH,
         "flash_attention_bf16": _FLASH,
+    },
+    "ssd_scan": {
+        "ssd_scan_f32": _SSD,
+        "ssd_scan_bf16": _SSD,
     },
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -3,9 +3,7 @@
 
 Each routes by the device of its input: the hand-written CUDA kernel for
 a tensor on a card, its plain version for a tensor on the CPU (there is
-no ``use_pallas`` switch: the device decides). ``ssd`` is not defined
-here yet; it comes with the slice that ports ``ssd_scan`` (ROADMAP.md,
-Queue 1 item 2).
+no ``use_pallas`` switch: the device decides).
 """
 
 from __future__ import annotations
@@ -15,9 +13,10 @@ import torch
 from .aggregate import aggregate
 from .flash_attention import flash_attention
 from .ref import flash_attention_ref
+from .ssd_scan import ssd_scan
 from .xor_code import xor_encode
 
-__all__ = ["attention", "combine_aggregates", "xor_fold"]
+__all__ = ["attention", "ssd", "combine_aggregates", "xor_fold"]
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -39,6 +38,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return flash_attention_ref(q, k, v, causal=causal, window=window,
                                softcap=softcap, scale=scale,
                                valid_len=valid_len)
+
+
+def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+        c: torch.Tensor) -> torch.Tensor:
+    """The Mamba2 SSD scan with the routing of ``repro.kernels.ops.ssd``
+    under ``use_pallas``: the ``ssd_scan`` kernel for a CUDA tensor, its
+    plain chunked version on the CPU, both in chunks of 64 (mamba2's
+    ``ssm_chunk``). ``b``/``c`` group-shared ``[B, T, S]`` are read in
+    place with a head stride of 0, never broadcast over the heads; per-
+    head ``[B, T, H, S]`` are taken as they are."""
+    return ssd_scan(x, a, b, c)
 
 
 def combine_aggregates(values: torch.Tensor, segment_ids: torch.Tensor,

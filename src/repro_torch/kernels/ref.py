@@ -9,6 +9,10 @@ CPU; the tests hold them against the JAX package's Pallas kernels, and
 ``flash_attention_ref`` is the materialized attention of the JAX
 package's ``repro.kernels.ref.flash_attention_ref``, the plain version
 of the ``flash_attention`` kernel (:mod:`.flash_attention`).
+``ssd_chunked`` is the chunked matmul form of the Mamba2 SSD scan
+(``repro.kernels.ref.ssd_chunked``), the plain version of the
+``ssd_scan`` kernel (:mod:`.ssd_scan`); ``ssd_scan_ref``, the sequential
+recurrence, is the oracle both are held to.
 
 Wire words are 32-bit patterns. ``torch.int32`` is the working view
 (bitwise identical to ``uint32``; XOR, gathers and ``where`` never look
@@ -23,7 +27,8 @@ import torch
 __all__ = ["xor_encode_ref", "xor_fold_ref", "xor_decode_ref",
            "xor_encode_gather_ref", "xor_decode_gather_ref",
            "xor_encode_gather16_ref", "xor_decode_gather16_ref",
-           "aggregate_ref", "flash_attention_ref", "as_words", "as_lanes"]
+           "aggregate_ref", "flash_attention_ref", "ssd_chunked",
+           "ssd_scan_ref", "as_words", "as_lanes"]
 
 
 def as_words(x: torch.Tensor) -> torch.Tensor:
@@ -202,3 +207,74 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
     return out.reshape(B, Hq, Tq, D).to(q.dtype)
+
+
+def _per_head(b: torch.Tensor, H: int, acc: torch.dtype) -> torch.Tensor:
+    """SSD ``b``/``c`` as ``[B, T, H, S]`` in ``acc``: group-shared ``[B,
+    T, S]`` broadcast over the heads (a view), per-head taken as they
+    are."""
+    b = b.to(acc)
+    return b[:, :, None].expand(-1, -1, H, -1) if b.dim() == 3 else b
+
+
+def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor, *, chunk: int = 64) -> torch.Tensor:
+    """Mamba2 SSD in the chunked matmul form of ``repro.kernels.ref.
+    ssd_chunked`` / the Pallas ``ssd_scan``: x ``[B, T, H, P]``, a ``[B, T,
+    H]`` (log-decay), b and c group-shared ``[B, T, S]`` or per-head
+    ``[B, T, H, S]`` -> y ``[B, T, H, P]`` in x's dtype; f32 inside (f64
+    for f64 inputs: the accuracy yardstick of ``chip_smoke.py``).
+
+    Per chunk of ``chunk`` steps, with ``cum`` the in-chunk cumulative sum
+    of ``a``: ``y = tril(c b^T * exp(cum_t - cum_s)) x + exp(cum_t) c h``
+    and ``h <- exp(cum_end) h + sum_s exp(cum_end - cum_s) b_s x_s^T``, the
+    f32 ``[S, P]`` state carried across chunks. The last chunk may be
+    short (the same values as padding with ``a = 0, x = 0``). The decay
+    ratio is exponentiated only where ``s <= t``, so nothing overflows.
+    """
+    B, T, H, P = x.shape
+    if b.dim() not in (3, 4) or c.shape != b.shape:
+        raise ValueError(f"ssd: b and c must both be [B, T, S] or "
+                         f"[B, T, H, S], got {tuple(b.shape)}, "
+                         f"{tuple(c.shape)}")
+    acc = torch.promote_types(x.dtype, torch.float32)
+    bh, ch = _per_head(b, H, acc), _per_head(c, H, acc)
+    S = bh.shape[-1]
+    h = torch.zeros((B, H, S, P), dtype=acc, device=x.device)
+    ys = []
+    for t0 in range(0, T, chunk):
+        xc = x[:, t0:t0 + chunk].to(acc)                    # [B, C, H, P]
+        bc, cc = bh[:, t0:t0 + chunk], ch[:, t0:t0 + chunk]  # [B, C, H, S]
+        C = xc.shape[1]
+        cum = torch.cumsum(a[:, t0:t0 + chunk].to(acc), dim=1)  # [B, C, H]
+        tri = torch.ones((C, C), dtype=torch.bool,
+                         device=x.device).tril()[None, :, :, None]
+        expo = torch.where(tri, cum[:, :, None] - cum[:, None], -torch.inf)
+        cb = torch.einsum("bchs,bkhs->bckh", cc, bc)        # [B, C, C, H]
+        y = (torch.exp(cum)[..., None]
+             * torch.einsum("bchs,bhsp->bchp", cc, h)
+             + torch.einsum("bckh,bkhp->bchp", cb * torch.exp(expo), xc))
+        ys.append(y)
+        w = torch.exp(cum[:, -1:] - cum)                     # [B, C, H]
+        h = (torch.exp(cum[:, -1])[..., None, None] * h
+             + torch.einsum("bchs,bch,bchp->bhsp", bc, w, xc))
+    return torch.cat(ys, dim=1).to(x.dtype)
+
+
+def ssd_scan_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor) -> torch.Tensor:
+    """The SSD oracle, ``repro.kernels.ref.ssd_scan_ref``: the sequential
+    recurrence ``h_t = exp(a_t) h_{t-1} + b_t x_t^T``, ``y_t = c_t^T h_t``
+    (h ``[S, P]`` per head, f32), with b and c group-shared ``[B, T, S]``
+    or per-head ``[B, T, H, S]``; y in x's dtype."""
+    B, T, H, P = x.shape
+    bh, ch = _per_head(b, H, torch.float32), _per_head(c, H, torch.float32)
+    h = torch.zeros((B, H, bh.shape[-1], P), dtype=torch.float32,
+                    device=x.device)
+    decay = torch.exp(a.float())
+    ys = []
+    for t in range(T):
+        h = (decay[:, t, :, None, None] * h
+             + bh[:, t, :, :, None] * x[:, t, :, None, :].float())
+        ys.append(torch.einsum("bhs,bhsp->bhp", ch[:, t], h))
+    return torch.stack(ys, dim=1).to(x.dtype)

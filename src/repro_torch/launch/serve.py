@@ -26,9 +26,14 @@ the plain versions, best with ``--reduced``):
     PYTHONPATH=src python -m repro_torch.launch.serve --archs gemma2_2b \\
         --reduced --device cpu --legacy --requests 4
 
-Parameters are the port's ``init_params`` from seed 0. Only the
-dense configs are ported (``repro_torch.configs.PORTED_ARCHS``); the
-enc-dec and frontend archs raise with a pointer to ROADMAP.md.
+    # the SSM family (mamba2: the ssd_scan kernel on every prefill)
+    PYTHONPATH=src python -m repro_torch.launch.serve --archs mamba2_1p3b \
+        --reduced --device cpu
+
+Parameters are the port's ``init_params`` from seed 0. The dense
+configs and ``mamba2_1p3b`` are ported (``repro_torch.configs.
+PORTED_ARCHS``); the hybrid, MoE, enc-dec and frontend archs raise with
+a pointer to ROADMAP.md.
 """
 
 from __future__ import annotations

@@ -1,8 +1,11 @@
-"""Layer primitives of the dense decoder (plain functions on tensors).
+"""Layer primitives of the dense and SSM decoders (plain functions on
+tensors).
 
 Counterparts of ``repro.models.layers``: ``dense``, ``rms_norm``,
 ``rope``, ``attention_block`` (training, contiguous KV cache and paged
-KV cache) and ``mlp_block``. Activations are ``x [B, T, D]``; attention
+KV cache), ``mlp_block`` and the Mamba2 ``ssm_block`` (prefill through
+``ops.ssd``, the ``ssd_scan`` kernel on a card, and the single-step
+decode recurrence). Activations are ``x [B, T, D]``; attention
 works on ``[B, H, T, Dh]``. Products of two same-dtype tensors
 accumulate in f32 inside ``torch.matmul``; mixed dtypes go through f32
 explicitly.
@@ -23,7 +26,7 @@ from ..kernels import ops
 from ..kernels.ref import flash_attention_ref
 
 __all__ = ["dense", "rms_norm", "rope", "attention_ref", "attention_block",
-           "mlp_block", "ATTN_MAX_SCORES"]
+           "mlp_block", "softplus", "ssm_block", "ATTN_MAX_SCORES"]
 
 #: Tq*Tk above which the JAX package switches to its chunked attention
 #: lane, not ported yet
@@ -164,3 +167,74 @@ def mlp_block(p, x, cfg):
     else:
         gate = F.silu(dense(x, p["w_gate"]))
     return dense(gate * dense(x, p["w_up"]), p["w_down"])
+
+
+# --------------------------------------------------------------------- #
+# Mamba2 block (SSD core + gating)
+# --------------------------------------------------------------------- #
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``): ``max(x, 0) +
+    log1p(exp(-|x|))`` at every x; ``torch.nn.functional.softplus``
+    returns ``x`` itself above its threshold of 20 instead."""
+    return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def ssm_block(p, x, cfg, *, state=None, rows=None, return_state=False):
+    """Mamba2 SSD block, the twin of ``repro.models.layers.ssm_block``;
+    returns ``(out, new_state)``.
+
+    * ``state=None`` (prefill): the scan through
+      :func:`repro_torch.kernels.ops.ssd` (the ``ssd_scan`` kernel on a
+      card); with ``return_state`` also the final state ``[B, H, S, P]``
+      in JAX's closed form ``h_T = sum_s exp(cum_T - cum_s) b_s x_s^T``
+      (f32, outside the kernel, as JAX computes it), else None.
+    * ``state`` given (decode, ``T == 1``): the cache's ``[Bc, H, S, P]``
+      f32 state rows, ``Bc <= B``; ``rows`` holds one host position per
+      cache row (``-1``: a finished row). The recurrence runs at the
+      width of ``x`` (a decode step's ``lm.DECODE_ROWS``): the cache rows
+      are copied into a ``[B, H, S, P]`` buffer whose pad rows are zero,
+      and only the live rows are written back, in place (a finished row
+      writes nothing). Rows are independent, so a finished row's stale
+      state changes no live row's bits; the row selection stays on the
+      host (a device index would cost a blocking copy per layer).
+      ``new_state`` is ``state``.
+    """
+    B, T, _ = x.shape
+    H, S = cfg.ssm_heads, cfg.ssm_state
+    P = cfg.ssm_d_inner // H
+    u = dense(x, p["w_in"]).reshape(B, T, H, P)
+    z = dense(x, p["w_gate"])                                # [B, T, di]
+    bc = dense(x, p["w_bc"])                                 # [B, T, 2S]
+    b, c = bc[..., :S], bc[..., S:]                          # [B, T, S]
+    dt = softplus(dense(x, p["w_dt"]).float())               # [B, T, H]
+    a = -torch.exp(p["a_log"])[None, None, :] * dt           # log-decay < 0
+    xin = u * dt[..., None].to(u.dtype)
+
+    if state is None:
+        y = ops.ssd(xin, a, b, c)
+        new_state = None
+        if return_state:
+            cum = torch.cumsum(a, dim=1)                     # [B, T, H]
+            w = torch.exp(cum[:, -1:, :] - cum)
+            new_state = torch.einsum("bth,bts,bthp->bhsp", w, b.float(),
+                                     xin.float())
+    else:
+        Bc = state.shape[0]
+        st = torch.zeros((B, H, S, P), dtype=torch.float32, device=x.device)
+        st[:Bc] = state
+        at = torch.exp(a[:, 0]).float()                      # [B, H]
+        st = (st * at[..., None, None]
+              + b[:, 0].float()[:, None, :, None]
+              * xin[:, 0].float()[:, :, None, :])
+        y = torch.einsum("bs,bhsp->bhp", c[:, 0].float(),
+                         st)[:, None].to(x.dtype)
+        live = [i for i, r in enumerate(rows) if r >= 0]
+        if len(live) == Bc:
+            state.copy_(st[:Bc])
+        else:
+            for i in live:
+                state[i] = st[i]
+        new_state = state
+    y = y + xin * p["skip"][None, None, :, None].to(u.dtype)
+    y = y.reshape(B, T, H * P) * F.silu(z)
+    return dense(y, p["w_out"]), new_state

@@ -1,16 +1,21 @@
-"""Dense decoder LM of the map lane: init, forward and training loss.
+"""Decoder LMs of the port: init, forward, training loss and serving.
 
 Counterpart of ``repro.models.lm`` for the dense family (``attn`` and
-``local`` sublayers with an MLP): ``init_params`` (same shapes, dtypes
-and scales, drawn from a ``torch.Generator`` — the numbers differ from
-``jax.random``; tests start both packages from the same exported
-weights, see :mod:`repro_torch.weights`), ``_embed``, the unit loop (a
+``local`` sublayers with an MLP) and, on the serving entry points, the
+SSM family (``ssm`` sublayers: Mamba2's SSD block, no MLP; training it
+needs a backward of ``ssd_scan`` and is not ported): ``init_params``
+(same shapes, dtypes and scales, drawn from a ``torch.Generator`` — the
+numbers differ from ``jax.random``; tests start both packages from the
+same exported weights, see :mod:`repro_torch.weights`), ``_embed``, the
+unit loop (a
 Python loop over the stacked ``repeats`` axis in place of ``lax.scan``),
 ``_logits``, ``_chunked_loss`` and ``train_loss``; and the serving half
 (``init_cache``, ``init_paged_cache``, ``admit_prefill``, ``prefill``,
 ``decode_step``, ``poisoned_rows``). Caches are updated in place (the
 JAX package returns new arrays): each entry point returns the cache it
-was given, written.
+was given, written. An attention slot's cache entry is ``{"self": {"k",
+"v"[, "pages"]}}``, an SSM slot's ``{"state": f32[R, B|slots, H, S,
+P]}`` (recurrent: no sequence axis, no page table).
 
 Parameters are nested dicts of tensors; stacked-layer leaves keep their
 leading ``repeats`` axis, as in the JAX package, so the flat layout of
@@ -31,21 +36,33 @@ __all__ = ["slot_names", "init_params", "train_loss", "init_cache",
            "init_paged_cache", "admit_prefill", "prefill", "decode_step",
            "poisoned_rows", "DECODE_ROWS"]
 
-_DENSE_KINDS = ("attn", "local")
+_ATTN_KINDS = ("attn", "local")
+_SERVED_KINDS = _ATTN_KINDS + ("ssm",)
 
 
 def slot_names(cfg: ModelConfig) -> list[str]:
     return [f"{i}_{kind}" for i, kind in enumerate(cfg.pattern)]
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    bad = [k for k in cfg.pattern if k not in _DENSE_KINDS]
-    if (cfg.family != "dense" or cfg.n_experts or cfg.n_enc_layers
-            or cfg.frontend or bad):
+def _check_served(cfg: ModelConfig) -> None:
+    """The families the port serves: dense decoders and the SSM family."""
+    bad = [k for k in cfg.pattern if k not in _SERVED_KINDS]
+    if (cfg.family not in ("dense", "ssm") or cfg.n_experts
+            or cfg.n_enc_layers or cfg.frontend or bad):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense decoder path is ported; SSM, MoE, "
-            "hybrid, enc-dec and frontend models wait for ROADMAP.md, "
-            "Queue 1 item 2 (the model zoo)")
+            f"{cfg.name}: only the dense decoder and the SSM (mamba2) paths "
+            "are ported; MoE, hybrid (zamba2's shared_attn), enc-dec and "
+            "frontend models wait for ROADMAP.md, Queue 1 item 2 (the "
+            "model zoo)")
+
+
+def _check_trainable(cfg: ModelConfig) -> None:
+    _check_served(cfg)
+    if "ssm" in cfg.pattern:
+        raise NotImplementedError(
+            f"{cfg.name}: training the SSM family needs a backward of the "
+            "ssd_scan kernel, which the JAX kernel lacks too (ROADMAP.md, "
+            "Queue 1 item 2)")
 
 
 def _normal(gen, shape, dtype, scale):
@@ -53,14 +70,28 @@ def _normal(gen, shape, dtype, scale):
     return x * scale
 
 
-def _init_slot(gen, cfg: ModelConfig, R: int) -> dict:
+def _init_slot(gen, cfg: ModelConfig, kind: str, R: int) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt, sc = cfg.torch_dtype, d ** -0.5
 
-    def z():
-        return torch.zeros((R, d), dtype=torch.float32, device=gen.device)
+    def z(*shape):
+        return torch.zeros((R, *(shape or (d,))), dtype=torch.float32,
+                           device=gen.device)
 
+    if kind == "ssm":
+        di, H, S = cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_state
+        return {
+            "norm": z(),
+            "ssm": {"w_in": _normal(gen, (R, d, di), dt, sc),
+                    "w_gate": _normal(gen, (R, d, di), dt, sc),
+                    # B/C group-shared across heads (n_groups=1)
+                    "w_bc": _normal(gen, (R, d, 2 * S), dt, sc),
+                    "w_dt": _normal(gen, (R, d, H), dt, sc),
+                    "a_log": z(H),
+                    "skip": z(H) + 0.1,          # D residual term
+                    "w_out": _normal(gen, (R, di, d), dt, di ** -0.5)},
+        }
     return {
         "norm1": z(),
         "attn": {"wq": _normal(gen, (R, d, hq * dh), dt, sc),
@@ -76,7 +107,7 @@ def _init_slot(gen, cfg: ModelConfig, R: int) -> dict:
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random parameters on the generator's device."""
-    _check_dense(cfg)
+    _check_served(cfg)
     d, V = cfg.d_model, cfg.vocab_padded
     params = {
         "embed": _normal(gen, (V, d), cfg.torch_dtype, d ** -0.5),
@@ -84,8 +115,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     }
     if not cfg.tie_embeddings:
         params["out"] = _normal(gen, (d, V), cfg.torch_dtype, d ** -0.5)
-    params["blocks"] = {name: _init_slot(gen, cfg, cfg.repeats)
-                        for name in slot_names(cfg)}
+    params["blocks"] = {name: _init_slot(gen, cfg, kind, cfg.repeats)
+                        for name, kind in zip(slot_names(cfg), cfg.pattern)}
     return params
 
 
@@ -93,7 +124,20 @@ def _apply_slot(cfg, kind, p, x, positions, *, cache=None,
                 cache_index=None, mode="train"):
     """One sublayer; returns ``(x, new_cache_entry)`` (None without a
     cache). ``mode``: ``train`` / ``prefill`` / ``decode``, or
-    ``encoder`` (bidirectional)."""
+    ``encoder`` (bidirectional). An ``ssm`` slot has no MLP: ``x +
+    ssm_block(rms_norm(x))``, its prefill writing the final state into
+    the cache and its decode step the live rows' states."""
+    if kind == "ssm":
+        h = L.rms_norm(x, p["norm"])
+        if mode == "decode":
+            h, _ = L.ssm_block(p["ssm"], h, cfg, state=cache["state"],
+                               rows=cache_index)
+        else:
+            h, st = L.ssm_block(p["ssm"], h, cfg,
+                                return_state=cache is not None)
+            if cache is not None:
+                cache["state"].copy_(st)
+        return x + h, cache
     window = cfg.local_window if kind == "local" else cfg.window
     h = L.rms_norm(x, p["norm1"])
     h, new_self = L.attention_block(
@@ -169,7 +213,7 @@ def _chunked_loss(cfg, params, x, labels):
 
 def train_loss(cfg: ModelConfig, params, batch):
     """batch: ``tokens``, ``labels`` int ``[B, T]`` -> (loss, metrics)."""
-    _check_dense(cfg)
+    _check_trainable(cfg)
     x = _embed(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     x = _units(cfg, params, x, positions)
@@ -181,17 +225,27 @@ def train_loss(cfg: ModelConfig, params, batch):
 # --------------------------------------------------------------------- #
 # serving (DESIGN.md §13)
 # --------------------------------------------------------------------- #
+def _ssm_state(cfg: ModelConfig, rows: int, device) -> dict:
+    P = cfg.ssm_d_inner // cfg.ssm_heads
+    return {"state": torch.zeros((cfg.repeats, rows, cfg.ssm_heads,
+                                  cfg.ssm_state, P), dtype=torch.float32,
+                                 device=device)}
+
+
 def init_cache(cfg: ModelConfig, B: int, T: int, *, device) -> dict:
     """Zeroed contiguous decode cache: per attention slot ``{"self":
-    {"k", "v": [R, B, Hkv, T, Dh]}}`` in the model dtype."""
-    _check_dense(cfg)
+    {"k", "v": [R, B, Hkv, T, Dh]}}`` in the model dtype, per SSM slot
+    ``{"state": f32[R, B, H, S, P]}``."""
+    _check_served(cfg)
     R, hkv, hd = cfg.repeats, cfg.n_kv_heads, cfg.hd
 
     def z():
         return torch.zeros((R, B, hkv, T, hd), dtype=cfg.torch_dtype,
                            device=device)
 
-    return {name: {"self": {"k": z(), "v": z()}} for name in slot_names(cfg)}
+    return {name: (_ssm_state(cfg, B, device) if kind == "ssm"
+                   else {"self": {"k": z(), "v": z()}})
+            for name, kind in zip(slot_names(cfg), cfg.pattern)}
 
 
 def init_paged_cache(cfg: ModelConfig, slots: int, n_pages: int,
@@ -201,19 +255,23 @@ def init_paged_cache(cfg: ModelConfig, slots: int, n_pages: int,
     batch slots and the page table ``pages`` ``i32[R, slots, npp]`` (one
     row per layer, as in the JAX package). Physical page 0 is the trash
     page: finished rows write there and the allocator never hands it
-    out."""
-    _check_dense(cfg)
+    out. An SSM slot's state is recurrent (no sequence axis), so it is a
+    per-slot row ``{"state": f32[R, slots, H, S, P]}``, overwritten at
+    admission."""
+    _check_served(cfg)
     R, hkv, hd = cfg.repeats, cfg.n_kv_heads, cfg.hd
 
     def z():
         return torch.zeros((R, n_pages, hkv, page_size, hd),
                            dtype=cfg.torch_dtype, device=device)
 
-    return {name: {"self": {
-        "k": z(), "v": z(),
-        "pages": torch.zeros((R, slots, pages_per_slot), dtype=torch.int32,
-                             device=device)}}
-        for name in slot_names(cfg)}
+    return {name: (_ssm_state(cfg, slots, device) if kind == "ssm"
+                   else {"self": {
+                       "k": z(), "v": z(),
+                       "pages": torch.zeros((R, slots, pages_per_slot),
+                                            dtype=torch.int32,
+                                            device=device)}})
+            for name, kind in zip(slot_names(cfg), cfg.pattern)}
 
 
 def admit_prefill(cfg: ModelConfig, paged: dict, prefill_cache: dict,
@@ -223,10 +281,14 @@ def admit_prefill(cfg: ModelConfig, paged: dict, prefill_cache: dict,
     ``prefill_cache`` comes from :func:`prefill` with ``max_len = n *
     page_size``; ``pages`` is the slot's full page-table row ``i32[npp]``
     whose first ``n`` entries are its physical pages (the rest point at
-    the trash page and are never valid under the length mask). Pure
-    data movement: every cached value lands bit-identical in its page.
+    the trash page and are never valid under the length mask); an SSM
+    slot's state row ``slot`` is overwritten. Pure data movement: every
+    cached value lands bit-identical in its page or row.
     """
-    for name in slot_names(cfg):
+    for name, kind in zip(slot_names(cfg), cfg.pattern):
+        if kind == "ssm":
+            paged[name]["state"][:, slot] = prefill_cache[name]["state"][:, 0]
+            continue
         ent, src = paged[name]["self"], prefill_cache[name]["self"]
         ps = ent["k"].shape[3]
         R, _, hkv, Tp, hd = src["k"].shape
@@ -246,7 +308,7 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int | None = None):
     """Forward pass over the prompt ``batch["tokens"] [B, T]`` that also
     writes the KV cache (sized ``max_len``, default ``T``) -> (logits of
     the last position ``[B, 1, V]`` in f32, cache)."""
-    _check_dense(cfg)
+    _check_served(cfg)
     x = _embed(cfg, params, batch)
     B, T = x.shape[:2]
     positions = torch.arange(T, device=x.device)
@@ -276,9 +338,11 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, cache_index):
     position) or host ints, one per row, over a paged cache; ``-1`` marks
     a finished row (it writes nothing and sees no key). Each row attends
     over exactly its valid keys (see
-    :func:`repro_torch.models.layers.attention_block`).
+    :func:`repro_torch.models.layers.attention_block`); an SSM row's
+    recurrence runs at the same fixed width and a finished row writes no
+    state (see :func:`repro_torch.models.layers.ssm_block`).
     """
-    _check_dense(cfg)
+    _check_served(cfg)
     B = tokens.shape[0]
     if B > DECODE_ROWS:
         raise ValueError(f"a decode step takes at most DECODE_ROWS = "

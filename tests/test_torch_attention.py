@@ -130,7 +130,8 @@ def test_wrapper_refuses_grad_and_other_devices():
 
 
 def test_kernel_table_lists_ten_kernels():
-    assert len(KERNELS) == 10 and KERNELS["flash_attention"] is \
+    """Ten kernels through slice 4; ``ssd_scan`` (slice 5) makes eleven."""
+    assert len(KERNELS) == 11 and KERNELS["flash_attention"] is \
         flash_attention
     assert launch_counts()["flash_attention"] == flash_attention.launches
 

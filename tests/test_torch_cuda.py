@@ -17,8 +17,11 @@ loss on the card is within rtol 1e-4 of the CPU's (cuBLAS and the CPU's
 BLAS sum products in other orders, TF32 off), on both grad-sync lanes.
 ``flash_attention`` is within 2e-5 (f32) / 2e-2 (bf16) of its plain
 version, the tolerances of ``tests/test_kernels.py`` (online softmax
-against the materialized one); the serving engine's tokens are bitwise
-the port's ``generate`` on the card.
+against the materialized one); ``ssd_scan`` within 2e-4 of its plain
+version in f32 (that file's tolerance: chunked sums in another order)
+and within two bf16 ulps of each output (rtol 2**-6, atol 1e-4) in bf16;
+the serving engine's tokens are bitwise the port's ``generate`` on the
+card.
 """
 
 import numpy as np
@@ -30,7 +33,8 @@ from repro_torch.core.collective import (camr_shuffle, make_plan,
                                          scatter_contributions)
 from repro_torch.data.pipeline import ShardedTokenPipeline
 from repro_torch.kernels import (aggregate, aggregate_bf16, flash_attention,
-                                 launch_counts, ops, ref, xor_decode,
+                                 launch_counts, ops, ref, ssd_scan,
+                                 xor_decode,
                                  xor_decode_gather,
                                  xor_decode_gather16, xor_encode,
                                  xor_encode_gather, xor_encode_gather16,
@@ -261,7 +265,7 @@ def test_cuda_trainer_step_matches_cpu(cuda_device):
                     "aggregate": card.K, "xor_encode_gather16": 0,
                     "xor_decode_gather16": 0, "aggregate_bf16": 0,
                     "xor_fold": 0, "xor_decode": 0, "xor_encode": 0,
-                    "flash_attention": 0}
+                    "flash_attention": 0, "ssd_scan": 0}
 
 
 def test_cuda_bf16_trainer_step_matches_cpu(cuda_device):
@@ -270,7 +274,7 @@ def test_cuda_bf16_trainer_step_matches_cpu(cuda_device):
                     "aggregate": 0, "xor_encode_gather16": 2,
                     "xor_decode_gather16": 2, "aggregate_bf16": card.K,
                     "xor_fold": 0, "xor_decode": 0, "xor_encode": 0,
-                    "flash_attention": 0}
+                    "flash_attention": 0, "ssd_scan": 0}
 
 
 def test_cuda_multipass_trainer_step_matches_cpu(cuda_device):
@@ -280,7 +284,7 @@ def test_cuda_multipass_trainer_step_matches_cpu(cuda_device):
                     "aggregate": card.K, "xor_encode_gather16": 0,
                     "xor_decode_gather16": 0, "aggregate_bf16": 0,
                     "xor_fold": 2, "xor_decode": 2, "xor_encode": 0,
-                    "flash_attention": 0}
+                    "flash_attention": 0, "ssd_scan": 0}
 
 
 # B, Hq, Hkv, Tq, Tk, D, causal, window, softcap: tests/test_kernels.py's
@@ -382,3 +386,79 @@ def test_cuda_decode_step_rows_do_not_depend_on_batch(cuda_device, dtype):
     for s in range(3):
         row, _ = lm.decode_step(cfg, params, caches[s], toks[s:s + 1, :1], 12)
         assert torch.equal(batch[s], row[0])
+
+
+# B, T, H, P, S: tests/test_kernels.py's SSD_CASES (its chunks are the
+# plain version's), a ragged T over two P tiles, and mamba2's serving
+# prefill (64 heads of P 64, S 128) at a ragged length
+SSD_CASES = [(1, 32, 2, 8, 4, 8), (2, 64, 1, 16, 8, 16),
+             (1, 100, 2, 8, 4, 32), (1, 16, 3, 4, 16, 16),
+             (2, 130, 3, 40, 24, 64), (1, 1000, 64, 64, 128, 64)]
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shared", [False, True])
+def test_cuda_ssd_scan_matches_plain(cuda_device, case, dtype, shared):
+    B, T, H, P, S, chunk = case
+    rng = np.random.default_rng(T * 7 + S)
+    bs = (B, T, S) if shared else (B, T, H, S)
+    x, b, c = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               .to(cuda_device, dtype) for sh in ((B, T, H, P), bs, bs))
+    a = torch.from_numpy(-np.abs(rng.standard_normal((B, T, H))).astype(
+        np.float32) * 0.5).to(cuda_device)
+    before = ssd_scan.launches
+    got = ssd_scan(x, a, b, c)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    want = ref.ssd_chunked(x, a, b, c, chunk=chunk)
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -6,
+                                   atol=1e-4)
+    # b/c as column slices of one projection, as the model passes them
+    bc = torch.cat([b, c], dim=-1)
+    torch.testing.assert_close(ssd_scan(x, a, bc[..., :S], bc[..., S:]), got,
+                               rtol=0, atol=0)
+
+
+def test_cuda_ssd_scan_refuses_grad_and_bad_inputs(cuda_device):
+    x = torch.zeros((1, 8, 2, 4), device=cuda_device, requires_grad=True)
+    a = torch.zeros((1, 8, 2), device=cuda_device)
+    b = torch.zeros((1, 8, 4), device=cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_scan(x, a, b, b)
+    with pytest.raises(TypeError):
+        ssd_scan(x.detach().half(), a, b.half(), b.half())
+    big = torch.zeros((1, 8, 300), device=cuda_device)
+    with pytest.raises(ValueError, match="state size"):
+        ssd_scan(x.detach(), a, big, big)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mamba_engine_tokens_equal_generate(cuda_device, dtype):
+    """The reduced mamba2 served on the card: engine tokens bitwise the
+    port's ``generate``, one ``ssd_scan`` launch per layer and prefill,
+    no ``flash_attention``."""
+    cfg = reduced(get_config("mamba2_1p3b")).replace(dtype=dtype)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    params = lm.init_params(cfg, gen)
+    rng = np.random.default_rng(5)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, (t,)).astype(np.int32),
+                    max_new=6, temperature=0.7 * (i % 2), seed=i)
+            for i, t in enumerate([5, 70, 17, 130, 64])]
+    eng = DecodeEngine(cfg, params, slots=2, page_size=8, max_ctx=144,
+                       max_new_cap=6, device=cuda_device)
+    before = launch_counts()
+    res = ServeStream(eng, wave_len=3).run(reqs)
+    after = launch_counts()
+    assert after["ssd_scan"] - before["ssd_scan"] == cfg.n_layers * len(reqs)
+    assert after["flash_attention"] == before["flash_attention"]
+    for req, r in zip(reqs, res):
+        want = generate(cfg, params, req.prompt[None], max_new=6,
+                        temperature=req.temperature, seed=req.seed,
+                        device=cuda_device).tokens[0, len(req.prompt):]
+        assert r.status == "ok" and np.array_equal(r.generated, want)

@@ -298,7 +298,7 @@ def test_wrappers_take_plain_version_on_cpu():
                              "aggregate", "xor_encode_gather16",
                              "xor_decode_gather16", "aggregate_bf16",
                              "xor_fold", "xor_decode", "xor_encode",
-                             "flash_attention"]
+                             "flash_attention", "ssd_scan"]
 
 
 def test_wrappers_reject_bad_inputs():

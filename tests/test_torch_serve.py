@@ -1,7 +1,7 @@
 """The port's serving path on the CPU: the model's prefill and decode
 steps against the JAX package's, the legacy ``generate`` and the
 ``DecodeEngine`` against JAX's, and inside the port the twins of
-``tests/test_serve.py`` (bar the mamba cases) and of
+``tests/test_serve.py`` (its mamba cases are in ``test_torch_ssm.py``) and of
 ``tests/test_serve_chaos.py``, driven through ``tests/chaos.py``'s
 ``ServeChaosController``.
 
@@ -440,13 +440,14 @@ def test_engine_rejects_oversized_and_unsupported(gemma):
     enc = cfg.replace(name="seamless", family="encdec", n_enc_layers=2)
     with pytest.raises(NotImplementedError):
         DecodeEngine(enc, None)
-    ssm = cfg.replace(name="mamba", family="ssm", pattern=("ssm",),
-                      n_layers=2)
+    # still unported: zamba2's hybrid pattern and the MoE family
+    moe = cfg.replace(name="mixtral", family="moe", n_experts=4,
+                      experts_per_token=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_paged_cache(ssm, 2, 5, 4, 2, device="cpu")
+        lm.init_paged_cache(moe, 2, 5, 4, 2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("mamba2_1p3b")
-    assert "gemma2_2b" in PORTED_ARCHS
+        get_config("zamba2_2p7b")
+    assert "gemma2_2b" in PORTED_ARCHS and "mamba2_1p3b" in PORTED_ARCHS
 
 
 def test_serial_stream_matches_pipelined(gemma):
