@@ -17,11 +17,15 @@ result line) on any mismatch:
    and within two bf16 ulps of each output (rtol 2**-6, atol 1e-5) at
    the serving prefills' shapes (granite: 32/8 heads, D 64,
    Tq = Tk in {129, 1000, 1024, 2048}; gemma2: 8/4 heads, D 256, softcap
-   50, window 4096, Tq = Tk in {1000, 5000}); timed with CUDA events
+   50, window 4096, Tq = Tk in {1000, 5000}; zamba2: 32/32 heads, D 80,
+   Tq = Tk = 1024); timed with CUDA events
    beside its bound (bytes, or for ``flash_attention`` the FLOPs of the
    visible pairs at the bf16 tensor-core peak when larger), its plain
    version and, where one PyTorch call computes the same function, that
-   call (SDPA for the causal GQA shapes; none with softcap or window);
+   call (SDPA for the causal shapes; none with softcap or window), and
+   for ``flash_attention`` also the device time of the kernel's and of
+   SDPA's kernels in a ``torch.profiler`` trace (host launch time left
+   out);
    ``ssd_scan`` within 2e-4 of its plain version (``ref.ssd_chunked``)
    at every ``SSD_CASES`` shape of tests/test_kernels.py in f32, with
    per-head and with group-shared b/c, and at mamba2's serving prefills
@@ -141,6 +145,24 @@ def time_ms(fn, *, warmup=2, reps=5):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, *, reps=5):
+    """Device milliseconds of one call: the CUDA kernels' own time in a
+    ``torch.profiler`` trace of ``reps`` calls (after one warm-up), over
+    ``reps``; the host's launch time is left out. None when the profiler
+    records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(float(getattr(e, "self_device_time_total", 0.0))
+             for e in prof.key_averages() if e.device_type.name == "CUDA")
+    return us / reps / 1e3 if us > 0 else None
 
 
 def max_abs_err(a, b) -> float:
@@ -429,12 +451,14 @@ ATTN_CASES = [
     (1, 8, 2, 8, 72, 16, True, 24, None),
 ]
 #: the serving prefills' shapes (bf16): granite_3_2b (32/8 heads, D 64,
-#: causal) and gemma2_2b (8/4 heads, D 256, softcap 50, window 4096);
-#: the first is the one the ``kernels`` line reports
+#: causal), gemma2_2b (8/4 heads, D 256, softcap 50, window 4096) and
+#: zamba2_2p7b's shared attention block (32/32 heads, D 80, causal); the
+#: first is the one the ``kernels`` line reports
 FLASH_MAIN = (1, 32, 8, 1024, 1024, 64, True, None, None)
 FLASH_SHAPES = [FLASH_MAIN] + [
     (1, 32, 8, t, t, 64, True, None, None) for t in (129, 1000, 2048)] + [
-    (1, 8, 4, t, t, 256, True, 4096, 50.0) for t in (1000, 5000)]
+    (1, 8, 4, t, t, 256, True, 4096, 50.0) for t in (1000, 5000)] + [
+    (1, 32, 32, 1024, 1024, 80, True, None, None)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: the serving shapes' limit, relative to each output: the kernel works
 #: in f32 like the plain version and rounds once to bf16, so an element
@@ -463,12 +487,17 @@ def _sdpa_fn(q, k, v, causal, window, softcap):
                                                   enable_gqa=True)
 
 
+def _ms_txt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def check_flash(gen):
     """``flash_attention`` against its plain version on the card: every
     ATTN_CASES shape in f32 and bf16 (tolerances of tests/test_kernels.py:
     2e-5 / 2e-2), and the serving prefills' shapes in bf16 (within
     ``FLASH_SERVE_TOL`` of each output); each serving shape timed beside
-    its bound, its plain version and SDPA."""
+    its bound, its plain version and SDPA, by CUDA events around each
+    call and by the device time of its kernels in a profiler trace."""
     import torch
     from repro_torch.kernels import flash_attention, ref
     timed = {}
@@ -506,6 +535,9 @@ def check_flash(gen):
                  plain_ms=time_ms(lambda: ref.flash_attention_ref(
                      q, k, v, **kw), warmup=1, reps=3),
                  library_ms=time_ms(lib) if lib is not None else None,
+                 device_ms=device_ms(lambda: flash_attention(q, k, v, **kw)),
+                 library_device_ms=(device_ms(lib) if lib is not None
+                                    else None),
                  bound_ms=bound * 1e3,
                  bound_by=("operations" if flops / PEAK_FLOPS[dtype]
                            >= nbytes / HBM_BYTES_PER_S else "bytes"),
@@ -523,6 +555,9 @@ def check_flash(gen):
             f"{PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s / 3.35 TB/s), max abs "
             f"err {err:.2e} (RMS of the output {rms:.3e}; the worst element "
             f"at {share:.3f} of its limit)")
+        log(f"kernels: flash_attention {r['shape']}: device time "
+            f"(torch.profiler) {_ms_txt(r['device_ms'])}, SDPA's "
+            f"{_ms_txt(r['library_device_ms']) if lib is not None else 'n/a'}")
         del q, k, v
         torch.cuda.empty_cache()
     log(f"kernels: flash_attention within 2e-5 (f32) / 2e-2 (bf16) of plain "

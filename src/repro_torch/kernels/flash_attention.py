@@ -12,8 +12,9 @@ input that requires grad is refused.
 
 A tensor on the CPU goes to the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`); a CUDA tensor
-launches the kernel or raises. ``flash_attention.launches`` counts the
-launches.
+launches the kernel or raises: bf16 takes the tensor-core body (wgmma
+fed by a TMA K/V ring), f32 the CUDA-core body, and neither falls back
+to the other. ``flash_attention.launches`` counts the launches.
 """
 
 from __future__ import annotations
@@ -27,11 +28,15 @@ from .ref import flash_attention_ref
 
 __all__ = ["flash_attention", "HEAD_DIMS"]
 
-#: head dims the kernel is instantiated for (``by_dim`` in the source)
-HEAD_DIMS = (16, 32, 64, 128, 256)
+#: head dims both bodies are instantiated for: the JAX zoo's 64
+#: (granite, seamless), 80 (zamba2), 128 (internlm2, internvl2, mistral,
+#: mixtral, moonshot) and 256 (gemma2), and the 16 and 32 of the tests'
+#: ``ATTN_CASES``
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+#: dtype -> C entry point: bf16 the tensor-core body, f32 the CUDA-core one
 _LAUNCHERS = {torch.float32: "flash_attention_f32",
               torch.bfloat16: "flash_attention_bf16"}
-_MAX_Q_TILES = 65535            # gridDim.y, 32 query rows a tile
+_MAX_Q_TILES = 65535            # gridDim.y; 32 query rows a tile (f32 body)
 
 
 def _check(q, k, v, window, softcap):
@@ -64,13 +69,16 @@ def _check(q, k, v, window, softcap):
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when its last axis is contiguous and every row starts
-    on a 4-element boundary (the kernel's 16- or 8-byte loads), else a
-    contiguous copy."""
-    if (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:-1])
-            and t.data_ptr() % (4 * t.element_size()) == 0):
+    """``t`` itself when its last axis is contiguous and its base address
+    and the strides of its other axes are multiples of 16 bytes (the f32
+    body's float4 loads, the bf16 body's TMA maps; the stride of an axis
+    of extent 1 is never used), else a contiguous copy."""
+    size = t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s * size % 16 == 0
+                    for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1)):
         return t
-    return t.contiguous()
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -41,6 +41,12 @@ ATTN_CASES = [
     (1, 2, 2, 100, 100, 16, True, None, None),      # non-divisible lengths
     (1, 8, 2, 8, 72, 16, True, 24, None),           # decode-window combo
 ]
+# zamba2's head dim 80 (d_model 2560 over 32 heads), which the JAX file's
+# ATTN_CASES do not reach: causal GQA with Tq = Tk, non-causal with Tq < Tk
+D80_CASES = [
+    (1, 4, 2, 100, 100, 80, True, None, None),
+    (1, 2, 2, 40, 90, 80, False, None, None),
+]
 _NP = {"float32": np.float32, "bfloat16": ml_dtypes.bfloat16}
 
 
@@ -55,7 +61,7 @@ def _torch(a):
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal,window,softcap",
-                         ATTN_CASES)
+                         ATTN_CASES + D80_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_flash_matches_pallas_interpret(B, Hq, Hkv, Tq, Tk, D, causal,
                                               window, softcap, dtype):
@@ -127,6 +133,39 @@ def test_wrapper_refuses_grad_and_other_devices():
     m = torch.zeros((1, 2, 4, 16), device="meta")
     with pytest.raises(RuntimeError, match="CPU .plain version. or a CUDA"):
         flash_attention(m, m, m)
+
+
+def test_head_dims_cover_every_attention_config():
+    """Every config of the JAX zoo with an attention sublayer has a head
+    dim that both CUDA bodies are instantiated for (64, 80, 128, 256)."""
+    from repro.configs import ARCHS
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    kinds = {"attn", "local", "shared_attn"}
+    dims = {name: jax_get_config(name).hd for name in ARCHS
+            if kinds & set(jax_get_config(name).pattern)}
+    assert "zamba2_2p7b" in dims and "mamba2_1p3b" not in dims
+    assert {n: d for n, d in dims.items() if d not in HEAD_DIMS} == {}
+
+
+def test_aligned_keeps_16_byte_views_and_copies_others():
+    """The CUDA bodies read q, k and v in place when every stride but the
+    last and the base are multiples of 16 bytes (the f32 body's float4
+    loads, the bf16 body's TMA maps); otherwise the wrapper copies into
+    fresh, aligned memory. Strides of axes of extent 1 do not count."""
+    from repro_torch.kernels.flash_attention import _aligned
+    x = torch.zeros((2, 40, 6, 80), dtype=torch.bfloat16)     # [B, T, H, D]
+    view = x.transpose(1, 2)                                  # [B, H, T, D]
+    assert _aligned(view) is view
+    one = torch.zeros((1, 8, 4, 16), dtype=torch.bfloat16).as_strided(
+        (1, 8, 4, 16), (3, 64, 16, 1))                        # odd b stride
+    assert _aligned(one) is one
+    for bad in (torch.zeros((1, 2, 5, 20), dtype=torch.bfloat16)[..., :16],
+                torch.zeros(1 + 2 * 5 * 16, dtype=torch.bfloat16)[1:]
+                .view(1, 2, 5, 16),
+                torch.zeros((1, 2, 5, 16))[..., ::2]):
+        got = _aligned(bad)
+        assert got is not bad and torch.equal(got, bad)
+        assert got.data_ptr() % 16 == 0 and got.is_contiguous()
 
 
 def test_kernel_table_lists_ten_kernels():
@@ -221,13 +260,7 @@ def test_serving_limit_catches_a_window_off_by_one(window):
     thousands of keys: a window one key off passes 2e-2 and fails the
     serving limit (gemma2's serving shape: D 256, softcap 50, window
     4096, 5000 keys; two heads)."""
-    import importlib.util
-    import os
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(os.path.dirname(__file__), os.pardir,
-                                   "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _chip_smoke()
     rng = np.random.default_rng(5)
     q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(
         torch.bfloat16) for s in ((1, 2, 5000, 256), (1, 1, 5000, 256),
@@ -237,3 +270,71 @@ def test_serving_limit_catches_a_window_off_by_one(window):
     off = flash_attention_ref(q, k, v, window=window, **kw).float()
     assert torch.allclose(off, want, rtol=2e-2, atol=2e-2)
     assert not torch.allclose(off, want, **smoke.FLASH_SERVE_TOL)
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), os.pardir,
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _tiled_bf16_attention(q, k, v, *, causal, window, softcap, parts):
+    """A CPU model of the bf16 CUDA body's arithmetic: logits and the
+    online softmax over 64-key tiles in f32, and P V with V in bf16 and f32
+    sums, P rounded to bf16 once (``parts=1``) or split into ``bf16(P) +
+    bf16(P - bf16(P))`` (``parts=2``, the kernel's plan); output in bf16."""
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    kf, vf = (t.float().repeat_interleave(Hq // Hkv, 1) for t in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * D ** -0.5
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(Tq)[:, None] + Tk - Tq
+    kpos = torch.arange(Tk)[None]
+    mask = kpos <= qpos if causal else torch.ones(Tq, Tk, dtype=torch.bool)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    m = torch.full((B, Hq, Tq), -1e30)
+    l = torch.zeros((B, Hq, Tq))
+    o = torch.zeros((B, Hq, Tq, D))
+    for k0 in range(0, Tk, 64):
+        st, mk = s[..., k0:k0 + 64], mask[:, k0:k0 + 64]
+        vt = vf[:, :, k0:k0 + 64]
+        m_new = torch.maximum(m, torch.where(mk, st, -1e30).amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mk, torch.exp(st - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        hi = p.bfloat16().float()
+        pv = hi @ vt
+        if parts == 2:
+            pv = pv + (p - hi).bfloat16().float() @ vt
+        o = o * alpha[..., None] + pv
+        m = m_new
+    return (o / torch.where(l == 0, 1.0, l)[..., None]).bfloat16()
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal,window,softcap", [
+    (1, 4, 1, 300, 300, 64, True, None, None),      # granite, reduced
+    (1, 2, 1, 300, 300, 256, True, 200, 50.0),      # gemma2, reduced
+])
+def test_pv_precision_plan_holds_the_serving_limit(B, Hq, Hkv, Tq, Tk, D,
+                                                   causal, window, softcap):
+    """The bf16 body multiplies P into V as two bf16 parts. Modelled on the
+    CPU, that lands within ``FLASH_SERVE_TOL`` (rtol 2**-6 + atol 1e-5 of
+    each output, which ``chip_smoke.py`` holds the kernel to at the serving
+    shapes) of ``flash_attention_ref``; P rounded once to bf16 does not."""
+    tol = _chip_smoke().FLASH_SERVE_TOL
+    rng = np.random.default_rng(D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32)).bfloat16()
+               for s in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    want = flash_attention_ref(q, k, v, **kw).float()
+    split = _tiled_bf16_attention(q, k, v, parts=2, **kw).float()
+    once = _tiled_bf16_attention(q, k, v, parts=1, **kw).float()
+    torch.testing.assert_close(split, want, **tol)
+    assert not torch.allclose(once, want, **tol)

@@ -288,8 +288,10 @@ def test_cuda_multipass_trainer_step_matches_cpu(cuda_device):
 
 
 # B, Hq, Hkv, Tq, Tk, D, causal, window, softcap: tests/test_kernels.py's
-# ATTN_CASES, granite's prefill (32/8 heads, D 64) and gemma2's (8/4
-# heads, D 256, softcap 50, window 4096; a window that binds at 300)
+# ATTN_CASES, granite's prefill (32/8 heads, D 64), gemma2's (8/4 heads,
+# D 256, softcap 50, window 4096; a window that binds at 300), zamba2's
+# (32/32 heads, D 80) and a ragged D 80 case, and a window over Tq < Tk
+# with Tk not a multiple of the bf16 body's 64-key tile
 FLASH_CASES = [
     (1, 2, 2, 64, 64, 16, True, None, None),
     (2, 4, 2, 32, 32, 32, True, None, None),
@@ -304,6 +306,9 @@ FLASH_CASES = [
     (1, 8, 4, 1000, 1000, 256, True, 4096, 50.0),
     (1, 8, 4, 700, 700, 256, True, 300, 50.0),
     (2, 4, 2, 33, 70, 128, False, None, None),
+    (1, 32, 32, 1024, 1024, 80, True, None, None),
+    (1, 4, 2, 40, 90, 80, True, None, None),
+    (1, 4, 2, 70, 150, 64, True, 40, None),
 ]
 
 
@@ -328,6 +333,35 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
     qs = q.transpose(1, 2).contiguous().transpose(1, 2)
     torch.testing.assert_close(flash_attention(qs, k, v, **kw), got,
                                rtol=0, atol=0)
+
+
+def _serving_shapes():
+    """``chip_smoke.py``'s ``FLASH_SHAPES``: the bf16 prefills of granite,
+    gemma2 and zamba2."""
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), os.pardir,
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.FLASH_SHAPES
+
+
+def test_cuda_flash_attention_is_deterministic(cuda_device):
+    """Two calls at each bf16 serving shape give the same bits: a race
+    between the producer's loads and the consumers' reads of a ring slot
+    would show as a difference."""
+    for B, Hq, Hkv, Tq, Tk, D, causal, window, softcap in _serving_shapes():
+        rng = np.random.default_rng(Tq + D)
+        q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   .to(cuda_device, torch.bfloat16)
+                   for s in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D)))
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        first = flash_attention(q, k, v, **kw)
+        second = flash_attention(q, k, v, **kw)
+        assert torch.equal(first.view(torch.int16),
+                           second.view(torch.int16)), (B, Hq, Hkv, Tq, Tk, D)
 
 
 def test_cuda_flash_attention_refuses_grad_and_bad_dims(cuda_device):
