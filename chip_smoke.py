@@ -570,11 +570,13 @@ def check_flash(gen):
 #: the plain version's; the kernel's is 64)
 SSD_CASES = [(1, 32, 2, 8, 4, 8), (2, 64, 1, 16, 8, 16),
              (1, 100, 2, 8, 4, 32), (1, 16, 3, 4, 16, 16)]
-#: mamba2_1p3b's serving prefill (bf16, group-shared b/c, 64 heads of
-#: P 64, state 128) at these lengths; the first is the one the
-#: ``kernels`` line reports
-SSD_MAIN = 1024
-SSD_LENS = (SSD_MAIN, 77, 1000, 2048)
+#: the serving prefills' shapes (bf16, group-shared b/c), B, T, H, P, S:
+#: mamba2_1p3b (64 heads of P 64, state 128) at these lengths, the first
+#: the one the ``kernels`` line reports, and zamba2_2p7b's mamba2 blocks
+#: (80 heads of P 64, state 64)
+SSD_MAIN = (1, 1024, 64, 64, 128)
+SSD_SHAPES = [SSD_MAIN] + [(1, t, 64, 64, 128) for t in (77, 1000, 2048)] + [
+    (1, 1024, 80, 64, 64)]
 SSD_TOL = 2e-4
 #: the serving shapes' accuracy: the kernel's f32 result (the bf16 inputs
 #: upcast) within this share of max |y| of an f64 evaluation. The chunked
@@ -602,12 +604,13 @@ def _ssd_work(B, T, H, P, S, C=64):
 def check_ssd(gen):
     """``ssd_scan`` against its plain version on the card: every
     SSD_CASES shape in f32 with per-head and group-shared b/c (2e-4, the
-    tolerance of tests/test_kernels.py), and mamba2's serving prefills in
-    f32 (within ``SSD_F32_REL`` x max|y| of an f64 evaluation) and in
-    bf16 (within ``SSD_SERVE_RTOL`` of each output plus twice
-    ``SSD_F32_REL`` x max|y| of the plain version), each timed beside its
-    bound and its plain version (no single PyTorch call computes an SSD
-    scan)."""
+    tolerance of tests/test_kernels.py), and the serving prefills'
+    shapes (``SSD_SHAPES``) in f32 (within ``SSD_F32_REL`` x max|y| of an
+    f64 evaluation) and in bf16 (within ``SSD_SERVE_RTOL`` of each output
+    plus twice ``SSD_F32_REL`` x max|y| of the plain version), each timed
+    beside its bound and its plain version (no single PyTorch call
+    computes an SSD scan), by CUDA events around each call and by the
+    device time of its kernel in a profiler trace."""
     import torch
     from repro_torch.kernels import ref, ssd_scan
 
@@ -632,8 +635,8 @@ def check_ssd(gen):
                 fail(f"ssd_scan != plain at {(B, T, H, P, S)} shared={shared} "
                      f"f32 (max abs err {err})")
     timed = {}
-    for T in SSD_LENS:
-        B, H, P, S = 1, 64, 64, 128
+    for shape in SSD_SHAPES:
+        B, T, H, P, S = shape
         args = inputs(B, T, H, P, S, torch.bfloat16, True, "model")
         x, a, b, c = args
         exact = ref.ssd_chunked(*(t.double() for t in args))
@@ -643,7 +646,7 @@ def check_ssd(gen):
         f32_err, plain_err = (float((t.double() - exact).abs().max()) / scale
                               for t in (k32, p32))
         if not f32_err <= SSD_F32_REL:
-            fail(f"ssd_scan at T={T} (f32): max abs err {f32_err} x max|y| "
+            fail(f"ssd_scan at {shape} (f32): max abs err {f32_err} x max|y| "
                  f"against an f64 evaluation > {SSD_F32_REL}")
         del exact, k32, p32
         got, want = ssd_scan(*args), ref.ssd_chunked(*args)
@@ -655,9 +658,9 @@ def check_ssd(gen):
         rms = float(w.square().mean().sqrt())
         if got.dtype != torch.bfloat16 or not torch.isfinite(g).all() \
                 or share > 1:
-            fail(f"ssd_scan != plain at T={T} bf16 (max abs err {err}, worst "
+            fail(f"ssd_scan != plain at {shape} bf16 (max abs err {err}, worst "
                  f"element at {share:.3f} of its limit)")
-        log(f"kernels: ssd_scan T={T}: f32 max abs err against f64 "
+        log(f"kernels: ssd_scan {shape}: f32 max abs err against f64 "
             f"{f32_err:.2e} x max|y| {scale:.1f} (plain {plain_err:.2e}; "
             f"limit {SSD_F32_REL})")
         del got, want, g, w, limit
@@ -665,6 +668,7 @@ def check_ssd(gen):
         t_ops = flops / PEAK_FLOPS["bfloat16"]
         t_bytes = nbytes / HBM_BYTES_PER_S
         r = dict(ms=time_ms(lambda: ssd_scan(*args)),
+                 device_ms=device_ms(lambda: ssd_scan(*args)),
                  plain_ms=time_ms(lambda: ref.ssd_chunked(*args), warmup=1,
                                   reps=3),
                  library_ms=None, bound_ms=max(t_ops, t_bytes) * 1e3,
@@ -673,8 +677,9 @@ def check_ssd(gen):
                  shape=f"x [{B},{T},{H},{P}] bf16, a f32, b/c [{B},{T},{S}] "
                        f"group-shared, {flops / 1e9:.3f} GFLOP, "
                        f"{nbytes / 1e6:.2f} MB")
-        timed[T] = r
-        log(f"kernels: ssd_scan {r['shape']}: {r['ms']:.3f} ms (plain "
+        timed[shape] = r
+        log(f"kernels: ssd_scan {r['shape']}: {r['ms']:.3f} ms, device time "
+            f"(torch.profiler) {_ms_txt(r['device_ms'])} (plain "
             f"{r['plain_ms']:.3f} ms, library none: no single call computes "
             f"an SSD scan, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
             f"at 989 TFLOP/s / 3.35 TB/s), max abs err {err:.2e} (RMS of the "
@@ -684,7 +689,7 @@ def check_ssd(gen):
         torch.cuda.empty_cache()
     log(f"kernels: ssd_scan within {SSD_TOL} of plain at {len(SSD_CASES)} "
         f"SSD_CASES shapes x per-head/group-shared b/c (f32), and at "
-        f"{len(SSD_LENS)} serving shapes within {SSD_F32_REL} x max|y| of "
+        f"{len(SSD_SHAPES)} serving shapes within {SSD_F32_REL} x max|y| of "
         f"f64 (f32) and within rtol 2**-6 + {2 * SSD_F32_REL} x max|y| of "
         "plain (bf16)")
     return {"ssd_scan": timed[SSD_MAIN]}

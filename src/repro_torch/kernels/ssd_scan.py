@@ -13,7 +13,10 @@ an input that requires grad is refused.
 
 A tensor on the CPU goes to the plain version
 (:func:`repro_torch.kernels.ref.ssd_chunked`); a CUDA tensor launches the
-kernel or raises. ``ssd_scan.launches`` counts the launches.
+kernel or raises: bf16 takes the tensor-core body (wgmma fed by a TMA
+chunk ring, the f32 state in registers), f32 the CUDA-core body, and
+neither falls back to the other. ``ssd_scan.launches`` counts the
+launches.
 """
 
 from __future__ import annotations
@@ -68,6 +71,24 @@ def _bc_strides(t: torch.Tensor) -> tuple:
     return (t.stride(0), t.stride(1), 0 if t.dim() == 3 else t.stride(2))
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its last axis is contiguous and its base address
+    and the strides of its other axes are multiples of 16 bytes (the bf16
+    body's TMA maps; the stride of an axis of extent 1 is never used),
+    else a copy in a buffer whose last axis is zero-padded to a multiple
+    of 16 bytes, seen through a view of ``t``'s shape (the kernel never
+    reads the padding)."""
+    size = t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s * size % 16 == 0
+                    for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1)):
+        return t
+    n = t.shape[-1]
+    buf = t.new_zeros((*t.shape[:-1], -(-n * size // 16) * 16 // size))
+    buf[..., :n] = t
+    return buf[..., :n]
+
+
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
              c: torch.Tensor) -> torch.Tensor:
     """x ``[B, T, H, P]``, a ``[B, T, H]`` (log-decay), b and c ``[B, T,
@@ -87,7 +108,11 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     S = b.shape[-1]
     if S > MAX_STATE:
         raise ValueError(f"ssd_scan: state size {S} > {MAX_STATE}")
-    x, b, c = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, b, c))
+    if x.dtype == torch.bfloat16:
+        x, b, c = _aligned(x), _aligned(b), _aligned(c)
+    else:
+        x, b, c = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (x, b, c))
     y = torch.empty((B, T, H, P), dtype=x.dtype, device=x.device)
     strides = (ctypes.c_longlong * 12)(
         *x.stride()[:3], *a.stride(), *_bc_strides(b), *_bc_strides(c))

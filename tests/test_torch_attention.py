@@ -29,6 +29,8 @@ from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models import layers
 from repro_torch.weights import params_from_jax
 
+from chip_smoke_module import chip_smoke
+
 # the shapes of tests/test_kernels.py::ATTN_CASES:
 # B, Hq, Hkv, Tq, Tk, D, causal, window, softcap
 ATTN_CASES = [
@@ -260,7 +262,7 @@ def test_serving_limit_catches_a_window_off_by_one(window):
     thousands of keys: a window one key off passes 2e-2 and fails the
     serving limit (gemma2's serving shape: D 256, softcap 50, window
     4096, 5000 keys; two heads)."""
-    smoke = _chip_smoke()
+    smoke = chip_smoke()
     rng = np.random.default_rng(5)
     q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(
         torch.bfloat16) for s in ((1, 2, 5000, 256), (1, 1, 5000, 256),
@@ -270,17 +272,6 @@ def test_serving_limit_catches_a_window_off_by_one(window):
     off = flash_attention_ref(q, k, v, window=window, **kw).float()
     assert torch.allclose(off, want, rtol=2e-2, atol=2e-2)
     assert not torch.allclose(off, want, **smoke.FLASH_SERVE_TOL)
-
-
-def _chip_smoke():
-    import importlib.util
-    import os
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(os.path.dirname(__file__), os.pardir,
-                                   "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke
 
 
 def _tiled_bf16_attention(q, k, v, *, causal, window, softcap, parts):
@@ -328,7 +319,7 @@ def test_pv_precision_plan_holds_the_serving_limit(B, Hq, Hkv, Tq, Tk, D,
     CPU, that lands within ``FLASH_SERVE_TOL`` (rtol 2**-6 + atol 1e-5 of
     each output, which ``chip_smoke.py`` holds the kernel to at the serving
     shapes) of ``flash_attention_ref``; P rounded once to bf16 does not."""
-    tol = _chip_smoke().FLASH_SERVE_TOL
+    tol = chip_smoke().FLASH_SERVE_TOL
     rng = np.random.default_rng(D)
     q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32)).bfloat16()
                for s in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D)))

@@ -19,9 +19,10 @@ BLAS sum products in other orders, TF32 off), on both grad-sync lanes.
 version, the tolerances of ``tests/test_kernels.py`` (online softmax
 against the materialized one); ``ssd_scan`` within 2e-4 of its plain
 version in f32 (that file's tolerance: chunked sums in another order)
-and within two bf16 ulps of each output (rtol 2**-6, atol 1e-4) in bf16;
-the serving engine's tokens are bitwise the port's ``generate`` on the
-card.
+and within two bf16 ulps of each output (rtol 2**-6, atol 1e-4) in bf16,
+and at ``chip_smoke.py``'s bf16 serving shapes bitwise repeatable and
+within its serving limit (rtol 2**-6 + 2e-5 x max|y|); the serving
+engine's tokens are bitwise the port's ``generate`` on the card.
 """
 
 import numpy as np
@@ -43,6 +44,8 @@ from repro_torch.models import lm
 from repro_torch.runtime import MultiModelCAMRTrainer
 from repro_torch.runtime.serve import (DecodeEngine, Request, ServeStream,
                                        generate)
+
+from chip_smoke_module import chip_smoke
 
 pytestmark = pytest.mark.cuda
 
@@ -338,14 +341,7 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
 def _serving_shapes():
     """``chip_smoke.py``'s ``FLASH_SHAPES``: the bf16 prefills of granite,
     gemma2 and zamba2."""
-    import importlib.util
-    import os
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(os.path.dirname(__file__), os.pardir,
-                                   "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke.FLASH_SHAPES
+    return chip_smoke().FLASH_SHAPES
 
 
 def test_cuda_flash_attention_is_deterministic(cuda_device):
@@ -423,11 +419,14 @@ def test_cuda_decode_step_rows_do_not_depend_on_batch(cuda_device, dtype):
 
 
 # B, T, H, P, S: tests/test_kernels.py's SSD_CASES (its chunks are the
-# plain version's), a ragged T over two P tiles, and mamba2's serving
-# prefill (64 heads of P 64, S 128) at a ragged length
+# plain version's), a ragged T over two P tiles, mamba2's serving prefill
+# (64 heads of P 64, S 128) at a ragged length, at 1024 and at 2048
+# tokens, and zamba2's (80 heads of P 64, S 64)
 SSD_CASES = [(1, 32, 2, 8, 4, 8), (2, 64, 1, 16, 8, 16),
              (1, 100, 2, 8, 4, 32), (1, 16, 3, 4, 16, 16),
-             (2, 130, 3, 40, 24, 64), (1, 1000, 64, 64, 128, 64)]
+             (2, 130, 3, 40, 24, 64), (1, 1000, 64, 64, 128, 64),
+             (1, 1024, 64, 64, 128, 64), (1, 2048, 64, 64, 128, 64),
+             (1, 1024, 80, 64, 64, 64)]
 
 
 @pytest.mark.parametrize("case", SSD_CASES)
@@ -456,6 +455,47 @@ def test_cuda_ssd_scan_matches_plain(cuda_device, case, dtype, shared):
     bc = torch.cat([b, c], dim=-1)
     torch.testing.assert_close(ssd_scan(x, a, bc[..., :S], bc[..., S:]), got,
                                rtol=0, atol=0)
+
+
+def _ssd_serving_inputs(shape, device):
+    """bf16 x, b, c (group-shared) and the model's f32 log-decay
+    ``-softplus(.)`` at a serving shape of ``chip_smoke.SSD_SHAPES``."""
+    B, T, H, P, S = shape
+    rng = np.random.default_rng(T + H + S)
+    x, b, c = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               .to(device, torch.bfloat16)
+               for sh in ((B, T, H, P), (B, T, S), (B, T, S)))
+    a = -torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((B, T, H)).astype(np.float32))).to(device)
+    return x, a, b, c
+
+
+def test_cuda_ssd_scan_is_deterministic(cuda_device):
+    """Two calls at each bf16 serving shape give the same bits: a race
+    between the producer's loads and the consumers' reads of a ring slot,
+    or between the consumers' writes of an operand and the products that
+    read it, would show as a difference."""
+    for shape in chip_smoke().SSD_SHAPES:
+        args = _ssd_serving_inputs(shape, cuda_device)
+        first, second = ssd_scan(*args), ssd_scan(*args)
+        assert torch.equal(first.view(torch.int16),
+                           second.view(torch.int16)), shape
+
+
+def test_cuda_ssd_scan_holds_the_serving_limit(cuda_device):
+    """At each bf16 serving shape the kernel is within the chip smoke's
+    serving limit of the plain version: ``SSD_SERVE_RTOL`` of each output
+    plus twice ``SSD_F32_REL`` x max|y| (each rounds its f32 result once
+    to bf16; both f32 results are off by a few 1e-6 x max|y|)."""
+    smoke = chip_smoke()
+    for shape in smoke.SSD_SHAPES:
+        args = _ssd_serving_inputs(shape, cuda_device)
+        got = ssd_scan(*args).float()
+        want = ref.ssd_chunked(*args).float()
+        limit = (2 * smoke.SSD_F32_REL * float(want.abs().max())
+                 + smoke.SSD_SERVE_RTOL * want.abs())
+        assert torch.isfinite(got).all(), shape
+        assert float(((got - want).abs() / limit).max()) <= 1, shape
 
 
 def test_cuda_ssd_scan_refuses_grad_and_bad_inputs(cuda_device):

@@ -48,6 +48,8 @@ from repro_torch.runtime.serve import (DecodeEngine, Request, ServeStream,
                                        serve_legacy)
 from repro_torch.weights import params_from_jax
 
+from chip_smoke_module import chip_smoke
+
 SSD_TOL = dict(rtol=2e-4, atol=2e-4)
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -179,6 +181,100 @@ def test_ssd_wrapper_checks_raise():
     with pytest.raises(RuntimeError, match="CPU"):
         ssd_scan(*(v.to("meta") for v in (x.detach(), a, b, c)))
     assert ssd_scan.launches == 0
+
+
+def test_ssd_aligned_pads_with_zeros_and_keeps_values():
+    """The bf16 body's TMA maps need 16-byte-aligned bases and strides: the
+    wrapper passes an aligned tensor through and copies any other into a
+    buffer whose last axis is zero-padded to 16 bytes, seen through a view
+    with the same values."""
+    from repro_torch.kernels.ssd_scan import _aligned
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 5, 3, 12)).astype(np.float32)).bfloat16()
+    ok = torch.zeros((2, 5, 3, 16), dtype=torch.bfloat16)
+    assert _aligned(ok) is ok and _aligned(ok[..., :8]) is not ok
+    for t in (x, x[..., 4:], x[..., :5], x.transpose(1, 2)):
+        got = _aligned(t)
+        assert torch.equal(got, t) and got.stride(-1) == 1
+        assert all(s * 2 % 16 == 0 for s in got.stride()[:-1])
+        width = got.stride(-2)
+        full = got.as_strided((*got.shape[:-1], width), got.stride())
+        assert width % 8 == 0 and not full[..., t.shape[-1]:].any()
+
+
+def _parts(v, n):
+    """v as the sum of n bf16 parts, each the leading 8 significant bits
+    of what the parts before it left (the kernel's truncating split)."""
+    out, rest = torch.zeros_like(v), v
+    for _ in range(n):
+        part = (rest.view(torch.int32) & -65536).view(torch.float32)
+        out, rest = out + part, rest - part
+    return out
+
+
+def _tc_model(x, a, b, c, parts):
+    """The arithmetic of the bf16 ``ssd_scan`` body on the CPU, for
+    group-shared b/c: chunks of 64; c, b and x exact bf16 operands;
+    ``G = c b^T``, ``c h``, ``M x`` and ``b^T (w x)`` summed in f32; M, h
+    and ``w x`` (f32 values) as ``parts`` bf16 parts; y rounded once."""
+    B, T, H, P = x.shape
+    xf, bf, cf = x.float(), b.float(), c.float()
+    h = torch.zeros((B, H, b.shape[-1], P))
+    ys = []
+    for t0 in range(0, T, CHUNK):
+        xc, bc, cc = (v[:, t0:t0 + CHUNK] for v in (xf, bf, cf))
+        C = xc.shape[1]
+        cum = torch.cumsum(a[:, t0:t0 + CHUNK], dim=1)          # [B, C, H]
+        tri = torch.ones((C, C), dtype=torch.bool).tril()[None, :, :, None]
+        expo = torch.where(tri, cum[:, :, None] - cum[:, None], -torch.inf)
+        g = torch.einsum("bts,bus->btu", cc, bc)
+        m = _parts(g[..., None] * torch.exp(expo), parts)      # [B, C, C, H]
+        ys.append(torch.exp(cum)[..., None]
+                  * torch.einsum("bts,bhsp->bthp", cc, _parts(h, parts))
+                  + torch.einsum("btuh,buhp->bthp", m, xc))
+        w = torch.exp(cum[:, -1:] - cum)
+        wx = _parts(w[..., None] * xc, parts)
+        h = (torch.exp(cum[:, -1])[..., None, None] * h
+             + torch.einsum("bus,buhp->bhsp", bc, wx))
+    return torch.cat(ys, dim=1).bfloat16()
+
+
+def _share(got, want, rtol, atol):
+    """The worst element's share of its limit ``atol + rtol |want|``."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def test_ssd_precision_plan_holds_the_serving_limit():
+    """The bf16 body's precision plan, modelled on the CPU: M, h and w x in
+    three bf16 parts (all 24 bits of the f32 values) hold the chip smoke's
+    serving limit (64 heads of P 64, S 128, T 256, group-shared b/c, the
+    model's decay ``-softplus(.)``) and the card tests' bf16 limit (rtol
+    2**-6, atol 1e-4) at their mamba2 1024-token case. One part (8 bits)
+    misses the serving limit; two parts (16 bits) miss the card tests'."""
+    smoke = chip_smoke()
+    rtol, rel = smoke.SSD_SERVE_RTOL, 2 * smoke.SSD_F32_REL
+    B, T, H, P, S = 1, 256, 64, 64, 128
+    rng = np.random.default_rng(0)
+    x, b, c = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               .bfloat16() for sh in ((B, T, H, P), (B, T, S), (B, T, S)))
+    a = -torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((B, T, H)).astype(np.float32)))
+    want = ssd_chunked(x, a, b, c)
+    atol = rel * float(ssd_chunked(*(v.double() for v in (x, a, b, c)))
+                       .abs().max())
+    assert _share(_tc_model(x, a, b, c, 3), want, rtol, atol) <= 1
+    assert _share(_tc_model(x, a, b, c, 1), want, rtol, atol) > 1
+    # tests/test_torch_cuda.py's inputs at (1, 1024, 64, 64, 128), chunk 64
+    B, T = 1, 1024
+    rng = np.random.default_rng(T * 7 + S)
+    x, b, c = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               .bfloat16() for sh in ((B, T, H, P), (B, T, S), (B, T, S)))
+    a = torch.from_numpy(-np.abs(rng.standard_normal((B, T, H))).astype(
+        np.float32) * 0.5)
+    want = ssd_chunked(x, a, b, c)
+    assert _share(_tc_model(x, a, b, c, 3), want, 2 ** -6, 1e-4) <= 1
+    assert _share(_tc_model(x, a, b, c, 2), want, 2 ** -6, 1e-4) > 1
 
 
 # --------------------------------------------------------------------- #
