@@ -707,14 +707,24 @@ def phase_kernels(gen, tr):
     for pk in (1001, 1002, 4096):
         check_gathers(gen, K=3, P=7, row=pk, n=5, m=4)
     log("kernels: XOR gathers bitwise at ragged shapes (pk 1001/1002/4096)")
-    # 16-bit lanes: the 4-, 8- and 16-byte paths, rows of mixed 16-byte
-    # phases (1002, 2004), and the 2-byte path (a one-lane offset)
-    for lanes, offset in ((2, 0), (1002, 0), (2004, 0), (4096, 0),
-                          (4096, 1), (1002, 1)):
-        check_gathers(gen, K=3, P=7, row=lanes, n=5, m=4, half=True,
+    # 16-bit lanes: rows of 0, 2, 4 and 6 mod 8 lanes (16-byte phases
+    # stepping by 0, 4, 8 and 12 bytes a row), bases 0-7 lanes off a
+    # 16-byte boundary (odd: the 2-byte instantiation), 1 to 64 sources,
+    # rows of several 16-KB tiles, and masks wholly on and wholly off
+    for lanes, offset, m in ((2, 0, 4), (1002, 0, 4), (2004, 0, 4),
+                             (4096, 0, 4), (4096, 1, 4), (1002, 1, 4),
+                             (1002, 2, 1), (1002, 3, 3), (1002, 5, 64),
+                             (2004, 4, 3), (2004, 6, 1), (2004, 7, 64),
+                             (4094, 2, 64), (4094, 5, 3), (4094, 6, 1),
+                             (50002, 0, 3), (50002, 3, 3)):
+        check_gathers(gen, K=3, P=7, row=lanes, n=5, m=m, half=True,
                       offset=offset)
+    for p_valid in (0.0, 1.0):
+        check_gathers(gen, K=3, P=7, row=4094, n=5, m=3, half=True,
+                      offset=2, p_valid=p_valid)
     log("kernels: 16-bit XOR gathers bitwise at ragged lane counts "
-        "(2/1002/2004/4096, and 4096/1002 one lane off alignment)")
+        "(2 to 50002 lanes, 0/2/4/6 mod 8), bases 0-7 lanes off "
+        "alignment, m 1/3/4/64, masks wholly on and off")
 
     # the training step's shapes: stage 1 of (q, k) at the model's d_shard
     q, k, d_shard = tr.q, tr.k, tr.d_shard

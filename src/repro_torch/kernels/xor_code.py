@@ -77,9 +77,13 @@ def _check_grid(name, K, rows, m):
                          f"K={K} (max {_MAX_GRID_YZ}) out of range")
 
 
-#: per lane: the working view and the access widths (elements) it offers
+#: per lane: the working view and the widths (elements) ``_vec`` may pass:
+#: the u32 lane's access width; the 16-bit lane's alignment of every row
+#: start (2 lanes: the body's 4-byte instantiation, which the training
+#: step's tensors take; else 1, the 2-byte one), its accesses being 16
+#: bytes at any phase
 _WORD_LANE = (as_words, (4, 2))
-_HALF_LANE = (as_lanes, (8, 4, 2))
+_HALF_LANE = (as_lanes, (2,))
 
 
 def _encode(fn, lane, ref_fn, chunks, idx, mask):

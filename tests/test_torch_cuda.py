@@ -102,26 +102,41 @@ def test_cuda_aggregate_matches_plain(cuda_device, n, d, S, one):
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("lanes,offset", [(2, 0), (6, 0), (1002, 0),
-                                          (4096, 0), (4096, 1)])
-def test_cuda_gathers16_match_plain(cuda_device, lanes, offset):
-    """16-bit lanes: the 16-, 8-, 4- and 2-byte access paths (an offset
-    of one lane leaves only 2-byte alignment)."""
-    rng = np.random.default_rng(lanes + offset)
-    K, P, n, m = 3, 6, 5, 4
+#: (lanes, offset, m): rows of 0, 2, 4 and 6 mod 8 lanes (16-byte phases
+#: stepping by 0, 4, 8 and 12 bytes a row), bases 0-7 lanes off a 16-byte
+#: boundary (odd offsets: the 2-byte instantiation), 1 to 64 sources, and
+#: rows of several 16-KB tiles
+GATHER16_CASES = [(2, 0, 4), (6, 0, 4), (1002, 0, 4), (4096, 0, 4),
+                  (4096, 1, 4),
+                  (1002, 2, 1), (1002, 3, 3), (1002, 5, 64), (2004, 4, 3),
+                  (2004, 6, 1), (2004, 7, 64), (4094, 2, 64), (4094, 5, 3),
+                  (4094, 6, 1), (50002, 0, 3), (50002, 3, 3),
+                  (20004, 2, 64)]
 
-    def lanes_(shape):
+
+@pytest.mark.parametrize("lanes,offset,m", GATHER16_CASES)
+def test_cuda_gathers16_match_plain(cuda_device, lanes, offset, m):
+    """16-bit lanes: the phase-aware body at every 16-byte phase of the
+    rows and of the bases (4-byte instantiation at even offsets, 2-byte at
+    odd ones; recv at another offset than chunks), with a row that has no
+    valid source and one whose every source is valid."""
+    rng = np.random.default_rng(lanes + offset + m)
+    K, P, n = 3, 6, 5
+
+    def lanes_(shape, off):
         flat = torch.from_numpy(rng.integers(
-            0, 2**16, size=int(np.prod(shape)) + offset,
+            0, 2**16, size=int(np.prod(shape)) + off,
             dtype=np.uint16).view(np.int16)).to(cuda_device)
-        return flat[offset:].view(shape)
+        return flat[off:].view(shape)
 
-    c = lanes_((K, P, lanes))
+    c = lanes_((K, P, lanes), offset)
     mask = torch.from_numpy(rng.integers(0, 2, size=(K, n, m)).astype(bool))
+    mask[:, 0] = False
+    mask[:, 1] = True
     idx = torch.from_numpy(rng.integers(0, P, size=(K, n, m)).astype(np.int32))
     idx[~mask] = 0
     i, mk = idx.to(cuda_device), mask.to(cuda_device)
-    r = lanes_((K, n, lanes))
+    r = lanes_((K, n, lanes), (3 * offset + 1) % 8)
     s = torch.from_numpy(np.stack([rng.permutation(n) for _ in range(K)])
                          .astype(np.int32)).to(cuda_device)
     before = launch_counts()
@@ -133,6 +148,40 @@ def test_cuda_gathers16_match_plain(cuda_device, lanes, offset):
     assert after["xor_encode_gather16"] == before["xor_encode_gather16"] + 1
     assert after["xor_decode_gather16"] == before["xor_decode_gather16"] + 1
     assert after["xor_encode_gather"] == before["xor_encode_gather"]
+
+
+def test_cuda_gathers16_match_plain_at_the_step_tables(cuda_device):
+    """Stage 1's tables of ``make_plan(2, 3, d)`` (rows with two valid
+    sources and rows with none; decode rows with one) at a ``d`` whose
+    bf16 packet row is 12 mod 16 bytes, as at the training cell, and two
+    16-KB tiles long."""
+    from repro_torch.core.collective import _device_tables
+    from repro_torch.core.schedule import payload_words
+    q, k, d = 2, 3, 20012
+    lanes = 2 * (payload_words(d, 2, k) // (k - 1))
+    assert (2 * lanes) % 16 == 12 and 2 * lanes > 16 * 1024
+    plan = make_plan(q, k, d)
+    st = _device_tables(plan, cuda_device, "all_to_all")["stages"][1]
+    K, P = plan.K, plan.J_own * (k - 1) * plan.K * (k - 1)
+    rng = np.random.default_rng(d)
+
+    def lanes_(shape):
+        return torch.from_numpy(rng.integers(
+            0, 2**16, size=shape, dtype=np.uint16).view(np.int16)).to(
+                cuda_device)
+
+    c = lanes_((K, P, lanes))
+    r = lanes_((K, st["dec_recv"].shape[1], lanes))
+    eargs = (c, st["enc_src"], st["src_ok"])
+    dargs = (r, c, st["dec_recv"], st["dec_src"], st["dec_mask"])
+    before = launch_counts()
+    assert torch.equal(xor_encode_gather16(*eargs),
+                       ref.xor_encode_gather16_ref(*eargs))
+    assert torch.equal(xor_decode_gather16(*dargs),
+                       ref.xor_decode_gather16_ref(*dargs))
+    after = launch_counts()
+    assert after["xor_encode_gather16"] == before["xor_encode_gather16"] + 1
+    assert after["xor_decode_gather16"] == before["xor_decode_gather16"] + 1
 
 
 @pytest.mark.parametrize("n,d,S,one", [(4, 1000, 4, True), (6, 1001, 4, True),

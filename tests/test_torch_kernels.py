@@ -37,6 +37,7 @@ from repro.kernels.xor_code import xor_decode_gather16 as jax_decode_gather16
 from repro.kernels.xor_code import xor_encode_gather16 as jax_encode_gather16
 from repro_torch.kernels import (KERNELS, aggregate, aggregate_bf16,
                                  launch_counts, ops, ref, reset_launch_counts,
+                                 xor_code,
                                  xor_decode, xor_decode_gather,
                                  xor_decode_gather16, xor_encode,
                                  xor_encode_gather, xor_encode_gather16,
@@ -163,6 +164,227 @@ def test_gather16_is_the_word_gather_on_lane_pairs():
         ref.xor_decode_gather16_ref(r, c, s, i, mk).view(torch.int32),
         ref.xor_decode_gather_ref(r.view(torch.int32), c.view(torch.int32),
                                   s, i, mk))
+
+
+# --------------------------------------------------------------------- #
+# the 16-bit body of csrc/xor_gather.cu (gather16_kernel), modelled in
+# numpy over a byte-addressed memory: a warp at a time, the shuffle as a
+# roll over its 32 lanes. Garbage bytes fill the memory around the
+# tensors, so a byte read from outside its row would show in the output.
+# --------------------------------------------------------------------- #
+G16_THREADS, G16_UNITS = 256, 4        # kThreads, kUnits of the kernel
+G16_TILE = G16_THREADS * G16_UNITS
+STEP_LANES = 18_547_542                # a bf16 packet row at the smoke cell
+
+
+def _g16_window(a, b, delta):
+    """``window``: bytes ``[delta, delta + 16)`` of ``a:b`` (u32 words
+    ``[..., 4]`` each), cut as the kernel cuts them: the words from
+    ``delta >> 2``, funnel-shifted right by ``8 * (delta & 3)`` bits."""
+    w = np.concatenate([a, b], axis=-1).astype(np.uint64)
+    q, sh = delta >> 2, np.uint64(8 * (delta & 3))
+    return (((w[..., q + 1:q + 5] << np.uint64(32)) | w[..., q:q + 4])
+            >> sh).astype(np.uint32)
+
+
+class _G16Memory:
+    """Bytes of one address space: tensors placed at chosen byte
+    addresses, garbage elsewhere; 16-byte loads checked to hold a byte of
+    the row they were issued for."""
+
+    def __init__(self, size, rng):
+        self.mem = rng.integers(0, 256, size=size, dtype=np.uint8)
+
+    def put(self, addr, lanes16):
+        raw = np.ascontiguousarray(lanes16).view(np.uint8).reshape(-1)
+        self.mem[addr:addr + raw.size] = raw
+
+    def get(self, addr, nbytes):
+        return self.mem[addr:addr + nbytes]
+
+    def load16(self, addrs, row, row_bytes):
+        """``ldg16`` at 16-byte-aligned ``addrs`` (any shape)."""
+        assert (addrs % 16 == 0).all()
+        assert ((addrs + 16 > row) & (addrs < row + row_bytes)).all()
+        words = self.mem.view(np.uint32)
+        return words[(addrs // 4)[..., None] + np.arange(4)]
+
+    def store16(self, addrs, vals):
+        words = self.mem.view(np.uint32)
+        words[(addrs // 4)[..., None] + np.arange(4)] = vals
+
+
+def _g16_row(memory, srcs, orow, row_bytes, kalign, seen):
+    """One output row of ``gather16_kernel``: every block of the row's
+    tiles, each warp's kUnits units a lane, ``srcs`` the compacted valid
+    source rows (byte addresses, recv first)."""
+    head = min((16 - orow % 16) % 16, row_bytes)
+    nunits = (row_bytes - head) // 16
+    assert head % kalign == 0 and 16 * nunits + head <= row_bytes
+    seen.update((orow % 16, src % 16) for src in srcs)
+    lane = np.arange(32)
+    for tile in range(max(1, -(-(row_bytes // 16) // G16_TILE))):
+        for warp in range(G16_THREADS // 32):
+            u0 = tile * G16_TILE + warp * 32 * G16_UNITS + lane
+            units = u0 + 32 * np.arange(G16_UNITS)[:, None]     # [k, lane]
+            valid = units < nunits
+            if not valid.any():
+                continue
+            # the unit whose next aligned vector no neighbour lane loads
+            last = valid & ((units + 1 == nunits)
+                            | ((lane == 31)
+                               & (np.arange(G16_UNITS) == G16_UNITS - 1)
+                               [:, None]))
+            assert (last.sum(0) <= 1).all()
+            acc = np.zeros(units.shape + (4,), np.uint32)
+            for src in srcs:
+                delta = (src - orow) % 16
+                assert delta % kalign == 0
+                a = src + head - delta
+                v = np.where(valid[..., None],
+                             memory.load16(a + 16 * np.where(valid, units, 0),
+                                           src, row_bytes), 0)
+                if delta == 0:
+                    acc ^= v
+                    continue
+                send = v.copy()                  # lane 0 sends unit k+1
+                send[:-1, 0] = v[1:, 0]
+                nxt = np.roll(send, -1, axis=1)  # lane L reads lane L+1
+                ex = memory.load16(a + 16 * (units[last] + 1), src,
+                                   row_bytes)
+                nxt[last] = ex
+                acc ^= _g16_window(v, nxt, delta)
+            memory.store16(orow + head + 16 * units[valid], acc[valid])
+    # head and tail lanes, one u16 each
+    for b in [*range(0, head, 2), *range(head + 16 * nunits, row_bytes, 2)]:
+        x = np.uint16(0)
+        for src in srcs:
+            x ^= memory.get(src + b, 2).view(np.uint16)[0]
+        memory.put(orow + b, np.array([x], np.uint16))
+
+
+def _g16_model(chunks, idx, mask, recv=None, rsel=None, *, starts, seen):
+    """``gather16_kernel`` over the model memory: ``chunks``, ``recv`` and
+    the output placed ``starts`` lanes past a 16-byte boundary each; the
+    instantiation as the wrapper picks it from the base pointers."""
+    K, P, lanes = chunks.shape
+    n = idx.shape[1]
+    rb = 2 * lanes
+    tensors = [("chunks", K * P * rb), ("out", K * n * rb)]
+    if recv is not None:
+        tensors.append(("recv", recv.shape[0] * recv.shape[1] * rb))
+    base, at = 64, {}
+    for name, size in tensors:
+        at[name] = base + 2 * starts[name]
+        base = -(-(at[name] + size + 48) // 16) * 16
+    memory = _G16Memory(base + 64, np.random.default_rng(len(seen) + base))
+    memory.put(at["chunks"], chunks)
+    if recv is not None:
+        memory.put(at["recv"], recv)
+    kalign = 2 * _vec_model(lanes, [at[name] for name, _ in tensors])
+    for v in range(K):
+        for i in range(n):
+            srcs = [] if recv is None else [
+                at["recv"] + (v * recv.shape[1] + int(rsel[v, i])) * rb]
+            srcs += [at["chunks"] + (v * P + int(idx[v, i, j])) * rb
+                     for j in range(idx.shape[2]) if mask[v, i, j]]
+            _g16_row(memory, srcs, at["out"] + (v * n + i) * rb, rb, kalign,
+                     seen)
+    return memory.get(at["out"], K * n * rb).view(np.uint16).reshape(
+        K, n, lanes)
+
+
+def _vec_model(lanes, addrs):
+    """The wrapper's pick (``xor_code._vec`` over ``_HALF_LANE``'s widths)
+    for tensors at byte addresses ``addrs``."""
+    return xor_code._vec(lanes, xor_code._HALF_LANE[1],
+                         *(_AtAddress(a) for a in addrs))
+
+
+class _AtAddress:
+    """A stand-in tensor: 16-bit elements at a given byte address."""
+
+    def __init__(self, addr):
+        self.addr = addr
+
+    def element_size(self):
+        return 2
+
+    def data_ptr(self):
+        return self.addr
+
+
+G16_LANES = [2, 6, 1002, 2004, 4094, 4096]
+
+
+def _g16_cases(lanes, decode):
+    """Every pair of start offsets (0-7 lanes past a 16-byte boundary) of
+    the chunks and the output (recv at a third), at one row length."""
+    K, P, n, m = 2, 8, 6, 3
+    rng = np.random.default_rng(lanes + decode)
+    chunks = rng.integers(0, 2**16, size=(K, P, lanes), dtype=np.uint16)
+    chunks.reshape(-1)[:len(SPECIAL16)] = SPECIAL16[:chunks.size]
+    idx = rng.integers(0, P, size=(K, n, m)).astype(np.int32)
+    mask = rng.integers(0, 2, size=(K, n, m)).astype(bool)
+    mask[:, 0] = False                       # a row with no valid source
+    mask[:, 1] = True                        # and one with every source
+    idx[~mask] = 0
+    recv = rng.integers(0, 2**16, size=(K, n, lanes), dtype=np.uint16)
+    rsel = np.stack([rng.permutation(n) for _ in range(K)]).astype(np.int32)
+    for cs in range(8):
+        for os_ in range(8):
+            yield (chunks, idx, mask, recv, rsel,
+                   dict(chunks=cs, out=os_, recv=(3 * cs + os_) % 8))
+
+
+@pytest.mark.parametrize("lanes", G16_LANES)
+def test_gather16_body_model_encodes_at_every_phase(lanes):
+    """The 16-bit body's index arithmetic (16-byte output units from the
+    row's first boundary, head and tail lanes, each source's delta, the
+    neighbour-lane shuffle, the loads of the units no neighbour holds) is
+    the plain encode bit for bit, at every pair of output and source
+    16-byte phase."""
+    seen = set()
+    for chunks, idx, mask, _, _, starts in _g16_cases(lanes, False):
+        got = _g16_model(chunks, idx, mask, starts=starts, seen=seen)
+        want = ref.xor_encode_gather16_ref(_t(chunks), _t(idx), _t(mask))
+        np.testing.assert_array_equal(got, want.numpy().view(np.uint16))
+    assert seen == {(o, s) for o in range(0, 16, 2) for s in range(0, 16, 2)}
+
+
+@pytest.mark.parametrize("lanes", G16_LANES)
+def test_gather16_body_model_decodes_at_every_phase(lanes):
+    """As the encode case, with the recv row as one more source (at its
+    own phase)."""
+    seen = set()
+    for chunks, idx, mask, recv, rsel, starts in _g16_cases(lanes, True):
+        got = _g16_model(chunks, idx, mask, recv, rsel, starts=starts,
+                         seen=seen)
+        want = ref.xor_decode_gather16_ref(_t(recv), _t(chunks), _t(rsel),
+                                           _t(idx), _t(mask))
+        np.testing.assert_array_equal(got, want.numpy().view(np.uint16))
+    assert seen == {(o, s) for o in range(0, 16, 2) for s in range(0, 16, 2)}
+
+
+def test_step_rows_take_the_four_byte_body():
+    """The training step's 16-bit rows (18,547,542 lanes, 12 mod 16 bytes,
+    bases from the allocator) take the body's 4-byte instantiation, with
+    every source's delta and every head a multiple of 4 bytes; a tensor
+    one lane off its buffer takes the 2-byte one."""
+    assert (2 * STEP_LANES) % 16 == 12
+    flat = torch.empty(2 * 3 * STEP_LANES + 1, dtype=torch.int16)
+    rows = flat[:-1].view(2, 3, STEP_LANES)
+    off = flat[1:].view(2, 3, STEP_LANES)
+    assert rows.data_ptr() % 4 == 0
+    assert xor_code._vec(STEP_LANES, xor_code._HALF_LANE[1], rows, rows) == 2
+    assert xor_code._vec(STEP_LANES, xor_code._HALF_LANE[1], rows, off) == 1
+    rb = 2 * STEP_LANES
+    phases = {(p * rb) % 16 for p in range(48)}
+    assert phases == {0, 4, 8, 12}
+    for o in phases:
+        head = (16 - o) % 16
+        assert head % 4 == 0 and (rb - head) // 16 * 16 + head <= rb
+        assert {(s - o) % 16 for s in phases} == {0, 4, 8, 12}
 
 
 def _agg_inputs(n, d, S, seed, one_per_segment):
