@@ -18,7 +18,7 @@ result line) on any mismatch:
    the serving prefills' shapes (granite: 32/8 heads, D 64,
    Tq = Tk in {129, 1000, 1024, 2048}; gemma2: 8/4 heads, D 256, softcap
    50, window 4096, Tq = Tk in {1000, 5000}; zamba2: 32/32 heads, D 80,
-   Tq = Tk = 1024); timed with CUDA events
+   Tq = Tk in {77, 129, 1024}); timed with CUDA events
    beside its bound (bytes, or for ``flash_attention`` the FLOPs of the
    visible pairs at the bf16 tensor-core peak when larger), its plain
    version and, where one PyTorch call computes the same function, that
@@ -30,7 +30,8 @@ result line) on any mismatch:
    at every ``SSD_CASES`` shape of tests/test_kernels.py in f32, with
    per-head and with group-shared b/c, and at mamba2's serving prefills
    (bf16, group-shared b/c, 64 heads of P 64, state 128, T in {77, 1000,
-   1024, 2048}) within 1e-5 x max|y| of an f64 evaluation in f32 and
+   1024, 2048}) and zamba2's (80 heads of P 64, state 64, T in {77, 129,
+   1024}) within 1e-5 x max|y| of an f64 evaluation in f32 and
    within two bf16 ulps of each output (plus twice that f32 error) of
    its plain version in bf16, timed beside its bound (bytes), its plain
    version and no library call (none computes an SSD scan);
@@ -41,12 +42,15 @@ result line) on any mismatch:
    exchange bitwise equal to the fused batched shuffle (and each to its
    own plain-version run), the ``debug`` dict's output to the plain one,
    and in f32 the uncoded baseline close to the reference;
-3. **train** — the training path, in three runs: ``MultiModelCAMRTrainer``
+3. **train** — the training path, in four runs: ``MultiModelCAMRTrainer``
    on the cell of ``repro_torch.launch.cell`` (``granite_3_2b`` at full
    width, cut to 2 layers, q=2, k=3: K=6 virtual workers, J=4 models),
    2 steps of ``camr_spmd`` on ``ShardedTokenPipeline(seq_len=512,
    global_batch=1)``, with f32 grad sync, then with bf16, then with f32
-   through the multipass codec (each trainer freed before the next).
+   through the multipass codec, then the SSM family (``mamba2_1p3b`` at
+   full width cut to 2 layers) on the f32 lane, whose scans take the
+   plain differentiable form: no ``ssd_scan`` or ``flash_attention``
+   launch (each trainer freed before the next).
    Each run has its kernel launch counts (counters set to 0 just before
    it), step 1's synced gradient held bitwise on a column slice against
    the shuffle of the same contributions (the fused runs against the
@@ -56,30 +60,34 @@ result line) on any mismatch:
    before any sync), its wire bytes to exactly half and its peak memory
    below the f32 run's; the multipass run holds its step-1 losses to the
    f32 run's;
-4. **serve** — three models served through ``DecodeEngine(slots=4,
+4. **serve** — four models served through ``DecodeEngine(slots=4,
    page_size=16, max_ctx=1056)`` behind ``ServeStream(wave_len=8)``,
    each on random bf16 weights from seed 0: ``granite_3_2b`` at full
-   depth (40 layers) and ``mamba2_1p3b`` at full depth (48 SSM layers),
-   8 greedy requests each with prompts of {1000, 129, 257, 640, 1024, 77,
-   513, 900} tokens and 32 new tokens, and ``gemma2_2b`` cut to 4 layers,
-   4 requests. Each run has its own launch counts (counters set to 0
-   just before it): one ``flash_attention`` per attention layer and
-   prefill, one ``ssd_scan`` per SSM layer and prefill, no other kernel
-   (granite 320 / 0, gemma2 16 / 0, mamba2 0 / 384). Gates: every status
-   ``ok``, engine tokens bitwise the port's ``generate`` on the card (and
-   on a warm second run that builds or loads no kernel library), the
-   page pool's invariants, the prefill logits through the kernels within
-   5% of max |logit| of the same prefill through the plain versions
-   (mamba2's at 4 layers: the random bf16 model amplifies rounding with
-   depth as far between two plain evaluations, which it prints, so its
-   48 scans are also held one by one, at the model's own activations,
-   to the bf16 limit of phase 1). Reports prefill ms by prompt length,
-   decode tok/s, step p50/p99 and peak memory.
+   depth (40 layers), ``mamba2_1p3b`` at full depth (48 SSM layers) and
+   ``zamba2_2p7b`` at full depth (54 sublayers: 45 SSM layers and 9
+   occurrences of one shared attention block), 8 greedy requests each
+   with prompts of {1000, 129, 257, 640, 1024, 77, 513, 900} tokens and
+   32 new tokens, and ``gemma2_2b`` cut to 4 layers, 4 requests. Each run
+   has its own launch counts (counters set to 0 just before it): one
+   ``flash_attention`` per attention layer and prefill, one ``ssd_scan``
+   per SSM layer and prefill, no other kernel (granite 320 / 0, gemma2
+   16 / 0, mamba2 0 / 384, zamba2 72 / 360). Gates: every status ``ok``,
+   engine tokens bitwise the port's ``generate`` on the card (and on a
+   warm second run that builds or loads no kernel library), the page
+   pool's invariants, the prefill logits through the kernels within 5%
+   of max |logit| of the same prefill through the plain versions
+   (mamba2's at 4 layers and zamba2's at one pattern unit of 6: the
+   random bf16 models amplify rounding with depth as far between two
+   plain evaluations, which it prints, so each of a full-depth prefill's
+   kernel calls is also held, at the model's own activations, to the
+   bf16 limit of phase 1). Reports prefill ms by prompt length, decode
+   tok/s, step p50/p99 and peak memory.
 
 The last lines are the card's name and power limit, the ``kernels`` JSON
-line (eleven kernels, each with its main-path launches: the training
-runs' counts, ``flash_attention``'s summed over the granite and gemma2
-serving runs, ``ssd_scan``'s from the mamba2 run) and ``{"ok": true,
+line (eleven kernels, each with its main-path launches: the granite
+training runs' counts, ``flash_attention``'s summed over the granite,
+gemma2 and zamba2 serving runs, ``ssd_scan``'s over the mamba2 and
+zamba2 runs) and ``{"ok": true,
 "device": {...}}``. Needs one CUDA card, the CUDA toolkit (``nvcc``) and
 the rest of this checkout; imports nothing of JAX.
 """
@@ -452,13 +460,14 @@ ATTN_CASES = [
 ]
 #: the serving prefills' shapes (bf16): granite_3_2b (32/8 heads, D 64,
 #: causal), gemma2_2b (8/4 heads, D 256, softcap 50, window 4096) and
-#: zamba2_2p7b's shared attention block (32/32 heads, D 80, causal); the
-#: first is the one the ``kernels`` line reports
+#: zamba2_2p7b's shared attention block (32/32 heads, D 80, causal; at 77
+#: and 129 tokens a ragged last query tile and key tile); the first is
+#: the one the ``kernels`` line reports
 FLASH_MAIN = (1, 32, 8, 1024, 1024, 64, True, None, None)
 FLASH_SHAPES = [FLASH_MAIN] + [
     (1, 32, 8, t, t, 64, True, None, None) for t in (129, 1000, 2048)] + [
     (1, 8, 4, t, t, 256, True, 4096, 50.0) for t in (1000, 5000)] + [
-    (1, 32, 32, 1024, 1024, 80, True, None, None)]
+    (1, 32, 32, t, t, 80, True, None, None) for t in (77, 129, 1024)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: the serving shapes' limit, relative to each output: the kernel works
 #: in f32 like the plain version and rounds once to bf16, so an element
@@ -573,10 +582,10 @@ SSD_CASES = [(1, 32, 2, 8, 4, 8), (2, 64, 1, 16, 8, 16),
 #: the serving prefills' shapes (bf16, group-shared b/c), B, T, H, P, S:
 #: mamba2_1p3b (64 heads of P 64, state 128) at these lengths, the first
 #: the one the ``kernels`` line reports, and zamba2_2p7b's mamba2 blocks
-#: (80 heads of P 64, state 64)
+#: (80 heads of P 64, state 64; at 77 and 129 tokens a ragged last chunk)
 SSD_MAIN = (1, 1024, 64, 64, 128)
 SSD_SHAPES = [SSD_MAIN] + [(1, t, 64, 64, 128) for t in (77, 1000, 2048)] + [
-    (1, 1024, 80, 64, 64)]
+    (1, t, 80, 64, 64) for t in (77, 129, 1024)]
 SSD_TOL = 2e-4
 #: the serving shapes' accuracy: the kernel's f32 result (the bf16 inputs
 #: upcast) within this share of max |y| of an f64 evaluation. The chunked
@@ -833,17 +842,22 @@ def phase_shuffle():
 # phase 3: the slice's main path
 # --------------------------------------------------------------------- #
 def _tag(tr) -> str:
+    from repro_torch.configs import get_config
+    from repro_torch.launch.cell import ARCH
     codec = "" if tr.codec == "fused" else f"/{tr.codec}"
-    return f"train[{tr.grad_sync_dtype}{codec}]"
+    arch = ("" if tr.cfg.name == get_config(ARCH).name
+            else f"{tr.cfg.name}/")
+    return f"train[{arch}{tr.grad_sync_dtype}{codec}]"
 
 
-def build_cell(grad_sync_dtype, codec="fused"):
+def build_cell(grad_sync_dtype, codec="fused", **arch):
     """The slice's trainer and pipeline (``repro_torch.launch.cell``) on
-    one grad-sync lane and codec."""
+    one grad-sync lane and codec; ``arch`` (``arch=``, ``n_layers=``)
+    puts another config in the cell's place."""
     import torch
     from repro_torch.launch.cell import make_cell
     t0 = time.perf_counter()
-    tr, pipe = make_cell(DEVICE, grad_sync_dtype, codec)
+    tr, pipe = make_cell(DEVICE, grad_sync_dtype, codec, **arch)
     torch.cuda.synchronize()
     log(f"{_tag(tr)}: {tr.cfg.name} {tr.cfg.n_layers} layers, "
         f"D={tr.D} Dpad={tr.Dpad} d_shard={tr.d_shard}, K={tr.K} J={tr.J}, "
@@ -862,6 +876,13 @@ def lane_kernels(lane: str, K: int, codec: str = "fused") -> dict:
              ("float32", "multipass"): ("xor_fold", "xor_decode",
                                         "aggregate")}[lane, codec]
     return dict(zip(names, (2, 2, K)))
+
+
+#: the SSM-family training run: mamba2_1p3b at full width cut to 2 layers
+#: (D = 257,693,952, 1.16x the granite cell's), the cell's q, k and
+#: pipeline, the f32 fused lane. zamba2 at one pattern unit would be
+#: D ~ 468 M, past one card's 80 GB on this lane
+SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS = "mamba2_1p3b", 2
 
 
 def phase_train(tr, pipe, steps=2):
@@ -982,31 +1003,45 @@ def compare_codecs(rep32, peak32, rep_mp, peak_mp):
 # --------------------------------------------------------------------- #
 #: (arch, depth, prompt lengths): granite_3_2b at full width and full
 #: depth, gemma2_2b at full width cut to 4 layers (2 pattern units),
-#: mamba2_1p3b at full width and full depth (six of its lengths leave a
-#: ragged last SSD chunk of 64)
+#: mamba2_1p3b and zamba2_2p7b at full width and full depth (six of the
+#: lengths leave a ragged last SSD chunk of 64)
 _LENS = (1000, 129, 257, 640, 1024, 77, 513, 900)
 SERVE_RUNS = (("granite_3_2b", None, _LENS),
               ("gemma2_2b", 4, (1000, 300, 513, 64)),
-              ("mamba2_1p3b", None, _LENS))
+              ("mamba2_1p3b", None, _LENS),
+              ("zamba2_2p7b", None, _LENS))
 #: the prefill logits through the kernel and through its plain version
 #: (bf16 activations round differently once the attention outputs differ
 #: in their last bits): max abs difference <= this share of max |logit|
 LOGIT_SHARE = 0.05
-#: layers of the SSM model whose prefill logits are held to the plain
-#: version's under ``LOGIT_SHARE``. The random bf16 mamba2 amplifies
-#: rounding with depth: two plain evaluations (chunks of 64 and of 32)
-#: drift apart as far as the kernel and the plain version do, which
-#: ``check_ssm_prefill`` prints at this depth and at full depth; at full
-#: depth the scans are held layer by layer instead
+#: layers of an SSM or hybrid model whose prefill logits are held to the
+#: plain versions' under ``LOGIT_SHARE``, rounded down to whole pattern
+#: units (at least one: 4 for mamba2, 6 for zamba2; see ``gate_depth``).
+#: The random bf16 models amplify rounding with depth: two plain
+#: evaluations (SSD chunks of 64 and of 32) drift apart as far as the
+#: kernels and the plain versions do, which ``check_prefill_kernels``
+#: prints at this depth and at full depth; at full depth each kernel
+#: call is held to its plain version instead
 SSM_LOGIT_LAYERS = 4
 
 
+def gate_depth(cfg) -> int:
+    """Depth of the prefill logits gate: all layers of an attention-only
+    model; ``SSM_LOGIT_LAYERS`` rounded down to whole pattern units (at
+    least one) of a model with SSM sublayers."""
+    if "ssm" not in cfg.pattern:
+        return cfg.n_layers
+    unit = len(cfg.pattern)
+    return min(cfg.n_layers, unit * max(1, SSM_LOGIT_LAYERS // unit))
+
+
 @contextlib.contextmanager
-def plain_attention():
-    """Route prefill attention through the plain version (no launch)."""
+def plain_attention(attn=None):
+    """Route prefill attention through ``attn``, by default the plain
+    version (no launch)."""
     from repro_torch.kernels import ops, ref
     saved = ops.flash_attention
-    ops.flash_attention = ref.flash_attention_ref
+    ops.flash_attention = attn or ref.flash_attention_ref
     try:
         yield
     finally:
@@ -1026,48 +1061,66 @@ def plain_ssd(scan=None):
         ops.ssd_scan = saved
 
 
-def check_ssm_prefill(cfg, params, probe, tag):
-    """A full-depth SSM prefill's scans at the model's own activations:
-    every layer's ``ssd_scan`` launch recorded and held against the plain
-    version on the same inputs (the bf16 limit of ``check_ssd``); then the
-    logits' drift between two plain evaluations (chunks of 64 and of 32)
-    at ``SSM_LOGIT_LAYERS`` and at full depth, beside the kernel's."""
+def check_prefill_kernels(cfg, params, probe, tag):
+    """A full-depth prefill's kernel calls at the model's own activations:
+    every ``ssd_scan`` and ``flash_attention`` launch recorded and held
+    against its plain version on the same inputs (the bf16 limits of
+    ``check_ssd`` and ``check_flash``); then the logits' drift between two
+    plain evaluations (SSD chunks of 64 and of 32) at ``gate_depth`` and
+    at full depth, beside the kernels'."""
     import functools
     from repro_torch.kernels import ops, ref
     from repro_torch.models import lm
-    calls = []
-    kernel = ops.ssd_scan
+    kernels = {"ssd_scan": ops.ssd_scan,
+               "flash_attention": ops.flash_attention}
+    calls = {name: [] for name in kernels}
 
-    def record(*args):
-        y = kernel(*args)
-        calls.append((args, y))
-        return y
+    def recorder(name):
+        def record(*args, **kw):
+            y = kernels[name](*args, **kw)
+            calls[name].append((args, kw, y))
+            return y
+        return record
 
-    with plain_ssd(record):
+    with plain_ssd(recorder("ssd_scan")), \
+            plain_attention(recorder("flash_attention")):
         lg_kernel, _ = lm.prefill(cfg, params, probe)
-    worst = 0.0
-    for args, y in calls:
+    worst = dict.fromkeys(kernels, 0.0)
+    for args, kw, y in calls["ssd_scan"]:
         want = ref.ssd_chunked(*args).float()
         limit = (2 * SSD_F32_REL * float(want.abs().max())
                  + SSD_SERVE_RTOL * want.abs())
-        worst = max(worst, float(((y.float() - want).abs() / limit).max()))
-    n_ssm = cfg.repeats * cfg.pattern.count("ssm")
-    if len(calls) != n_ssm or worst > 1:
-        fail(f"{tag}: {len(calls)} of {n_ssm} prefill scans recorded, the "
-             f"worst element at {worst:.3f} of its limit")
+        worst["ssd_scan"] = max(worst["ssd_scan"], float(
+            ((y.float() - want).abs() / limit).max()))
+    for args, kw, y in calls["flash_attention"]:
+        want = ref.flash_attention_ref(*args, **kw).float()
+        limit = FLASH_SERVE_TOL["atol"] + FLASH_SERVE_TOL["rtol"] * want.abs()
+        worst["flash_attention"] = max(worst["flash_attention"], float(
+            ((y.float() - want).abs() / limit).max()))
+    want_n = {"ssd_scan": cfg.repeats * cfg.pattern.count("ssm"),
+              "flash_attention": cfg.repeats * sum(
+                  k != "ssm" for k in cfg.pattern)}
+    got_n = {name: len(c) for name, c in calls.items()}
+    if got_n != want_n or max(worst.values()) > 1:
+        fail(f"{tag}: prefill kernel calls recorded {got_n} (want {want_n}), "
+             f"the worst element at {worst} of its limit")
     del calls
-    log(f"{tag}: the {n_ssm} scans of a {probe['tokens'].shape[1]}-token "
-        f"prefill within the bf16 limit of their plain versions on the "
-        f"model's activations (worst element at {worst:.3f} of its limit)")
+    T = probe["tokens"].shape[1]
+    log(f"{tag}: the {want_n['ssd_scan']} scans and "
+        f"{want_n['flash_attention']} attention calls of a {T}-token "
+        f"prefill within the bf16 limits of their plain versions on the "
+        f"model's activations (worst element at "
+        + ", ".join(f"{worst[n]:.3f} ({n})" for n in kernels if want_n[n])
+        + " of its limit)")
     chunk32 = functools.partial(ref.ssd_chunked, chunk=32)
-    for depth in (min(SSM_LOGIT_LAYERS, cfg.n_layers), cfg.n_layers):
+    for depth in (gate_depth(cfg), cfg.n_layers):
         c = cfg.replace(n_layers=depth)
-        with plain_ssd():
+        with plain_attention(), plain_ssd():
             lp, _ = lm.prefill(c, params, probe)
-        with plain_ssd(chunk32):
+        with plain_attention(), plain_ssd(chunk32):
             lp32, _ = lm.prefill(c, params, probe)
         drift = float((lg_kernel - lp).abs().max())
-        kernel_txt = (f"kernel vs plain {drift:.4g}, "
+        kernel_txt = (f"kernels vs plain {drift:.4g}, "
                       if depth == cfg.n_layers else "")
         log(f"{tag}: prefill logits at {depth} layers: max |logit| "
             f"{float(lp.abs().max()):.4g}; {kernel_txt}plain (chunks of 64) "
@@ -1076,9 +1129,11 @@ def check_ssm_prefill(cfg, params, probe, tag):
 
 def serve_kernels(cfg, n_requests: int) -> dict:
     """Prefill launches of a serving run: one ``flash_attention`` per
-    attention sublayer and one ``ssd_scan`` per SSM sublayer, per
-    request; no other kernel."""
-    per = {"flash_attention": ("attn", "local"), "ssd_scan": ("ssm",)}
+    attention sublayer (a ``shared_attn`` block at each of its
+    occurrences) and one ``ssd_scan`` per SSM sublayer, per request; no
+    other kernel."""
+    per = {"flash_attention": ("attn", "local", "shared_attn"),
+           "ssd_scan": ("ssm",)}
     return {name: cfg.repeats * n_requests * sum(k in kinds
                                                  for k in cfg.pattern)
             for name, kinds in per.items()}
@@ -1112,9 +1167,19 @@ def phase_serve(arch, n_layers, lens, seed=0, max_new=32):
                        max_new_cap=max_new, name=arch, device=DEVICE)
     stream = ServeStream(eng, wave_len=8)
     torch.cuda.synchronize()
-    mixer = (f"{cfg.ssm_heads} SSM heads x {cfg.ssm_d_inner // cfg.ssm_heads}"
-             f", state {cfg.ssm_state}" if "ssm" in cfg.pattern else
-             f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.hd}")
+    mixers = []
+    if "ssm" in cfg.pattern:
+        mixers.append(f"{cfg.pattern.count('ssm') * cfg.repeats} SSM layers "
+                      f"of {cfg.ssm_heads} heads x "
+                      f"{cfg.ssm_d_inner // cfg.ssm_heads}, state "
+                      f"{cfg.ssm_state}")
+    n_attn = sum(k != "ssm" for k in cfg.pattern) * cfg.repeats
+    if n_attn:
+        shared = (" (one shared block)" if "shared_attn" in cfg.pattern
+                  else "")
+        mixers.append(f"{n_attn} attention layers{shared} of "
+                      f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.hd}")
+    mixer = " + ".join(mixers)
     log(f"{tag}: {cfg.n_layers} layers, d_model {cfg.d_model}, {mixer}, "
         f"{cfg.dtype}; {len(reqs)} greedy requests, prompts {list(lens)}, "
         f"max_new {max_new}; engine slots 4, page 16, max_ctx 1056, wave 8; "
@@ -1154,11 +1219,11 @@ def phase_serve(arch, n_layers, lens, seed=0, max_new=32):
         f"kernel builds/loads; pool invariants hold")
 
     # the prefill logits through the kernels and through the plain versions
-    # (an SSM model's at SSM_LOGIT_LAYERS, its scans layer by layer)
+    # (a model with SSM sublayers at gate_depth, its kernel calls one by
+    # one at full depth)
     probe = {"tokens": torch.from_numpy(reqs[0].prompt[None]).to(DEVICE)}
     ssm = "ssm" in cfg.pattern
-    gate = (cfg.replace(n_layers=min(SSM_LOGIT_LAYERS, cfg.n_layers)) if ssm
-            else cfg)
+    gate = cfg.replace(n_layers=gate_depth(cfg))
     lg_kernel, _ = lm.prefill(gate, params, probe)
     with plain_attention(), plain_ssd():
         lg_plain, _ = lm.prefill(gate, params, probe)
@@ -1168,7 +1233,7 @@ def phase_serve(arch, n_layers, lens, seed=0, max_new=32):
         fail(f"{tag}: prefill logits kernel vs plain differ by {diff} "
              f"(limit {LOGIT_SHARE} x max |logit| {scale})")
     if ssm:
-        check_ssm_prefill(cfg, params, probe, tag)
+        check_prefill_kernels(cfg, params, probe, tag)
     log(f"{tag}: prefill logits ({len(reqs[0].prompt)} tokens, "
         f"{gate.n_layers} layers) through the kernels vs the plain "
         f"versions: max abs diff {diff:.4g} <= "
@@ -1244,6 +1309,15 @@ def main() -> int:
     for name in lane_kernels("float32", tr.K, "multipass"):
         counts[name] = counts_mp[name]
     # xor_encode is on no training path: every run held its count to 0
+    del tr, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the SSM family on the f32 lane: its scans take the plain
+    # differentiable form, so the run launches the lane's codec kernels
+    # and neither prefill kernel (phase_train holds every other count to 0)
+    tr, pipe = build_cell("float32", arch=SSM_TRAIN_ARCH,
+                          n_layers=SSM_TRAIN_LAYERS)
+    phase_train(tr, pipe)
     del tr, pipe
     gc.collect()
     torch.cuda.empty_cache()

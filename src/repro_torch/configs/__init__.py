@@ -7,9 +7,11 @@ fields are the JAX package's; its XLA execution knobs (``use_pallas``,
 ``remat``, ``scan_unroll``, ``attn_block``, ``ssm_chunk``,
 ``microbatches``, ``grad_sync``, ``moe_shard_mode``) have no
 counterpart here (the SSD chunk is the ``ssd_scan`` kernel's constant,
-64, mamba2's ``ssm_chunk``). The port ships the dense ``granite_3_2b``
-and ``gemma2_2b`` configs and the SSM ``mamba2_1p3b``; the rest of the
-zoo is still to port (ROADMAP.md, Queue 1).
+64, mamba2's and zamba2's ``ssm_chunk``). The port ships the dense
+``granite_3_2b`` and ``gemma2_2b`` configs, the SSM ``mamba2_1p3b`` and
+the hybrid ``zamba2_2p7b``, each served and trained; the rest of the zoo
+(MoE, enc-dec, frontends) is still to port (ROADMAP.md, Queue 1 item
+8).
 """
 
 from __future__ import annotations
@@ -98,15 +100,15 @@ ARCHS = [
     "mamba2_1p3b", "seamless_m4t_large_v2",
 ]
 #: the configs this slice of the port ships
-PORTED_ARCHS = ["granite_3_2b", "gemma2_2b", "mamba2_1p3b"]
+PORTED_ARCHS = ["granite_3_2b", "gemma2_2b", "mamba2_1p3b", "zamba2_2p7b"]
 
 
 def get_config(name: str) -> ModelConfig:
     name = name.replace("-", "_")
     if name not in PORTED_ARCHS:
         raise NotImplementedError(
-            f"config {name!r} is not ported yet (ROADMAP.md, Queue 1: the "
-            f"model zoo); ported: {', '.join(PORTED_ARCHS)}")
+            f"config {name!r} is not ported yet (ROADMAP.md, Queue 1 item "
+            f"8: the rest of the zoo); ported: {', '.join(PORTED_ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.CONFIG
 

@@ -8,8 +8,10 @@ across chunks; output in x's dtype (f32 or bf16), ``a`` in f32. ``b``
 and ``c`` are group-shared ``[B, T, S]`` (the model's form, read with a
 head stride of 0) or per-head ``[B, T, H, S]`` (the Pallas kernel's).
 Forward only, as in the JAX package: every SSM prefill calls it
-(through :func:`repro_torch.kernels.ops.ssd`), training never does, so
-an input that requires grad is refused.
+(through :func:`repro_torch.kernels.ops.ssd`); training never does (it
+takes the plain chunked form, chosen by the mode in
+:func:`repro_torch.models.layers.ssm_block`), so an input that requires
+grad is refused.
 
 A tensor on the CPU goes to the plain version
 (:func:`repro_torch.kernels.ref.ssd_chunked`); a CUDA tensor launches the
@@ -61,8 +63,9 @@ def _check(x, a, b, c):
     for t in (x, a, b, c):
         if t.requires_grad:
             raise RuntimeError("ssd_scan has no backward (the JAX kernel has "
-                               "none either); SSM training is not ported "
-                               "(ROADMAP.md, Queue 1)")
+                               "none either); training takes the plain "
+                               "differentiable ref.ssd_chunked instead "
+                               "(models.layers.ssm_block(train=True))")
 
 
 def _bc_strides(t: torch.Tensor) -> tuple:

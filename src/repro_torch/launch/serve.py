@@ -27,13 +27,18 @@ the plain versions, best with ``--reduced``):
         --reduced --device cpu --legacy --requests 4
 
     # the SSM family (mamba2: the ssd_scan kernel on every prefill)
-    PYTHONPATH=src python -m repro_torch.launch.serve --archs mamba2_1p3b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --archs mamba2_1p3b \\
+        --reduced --device cpu
+
+    # the hybrid family (zamba2: ssd_scan and flash_attention on every
+    # prefill, one shared attention block)
+    PYTHONPATH=src python -m repro_torch.launch.serve --archs zamba2_2p7b \\
         --reduced --device cpu
 
 Parameters are the port's ``init_params`` from seed 0. The dense
-configs and ``mamba2_1p3b`` are ported (``repro_torch.configs.
-PORTED_ARCHS``); the hybrid, MoE, enc-dec and frontend archs raise with
-a pointer to ROADMAP.md.
+configs, ``mamba2_1p3b`` and ``zamba2_2p7b`` are ported
+(``repro_torch.configs.PORTED_ARCHS``); the MoE, enc-dec and frontend
+archs raise with a pointer to ROADMAP.md (Queue 1 item 8).
 """
 
 from __future__ import annotations

@@ -7,7 +7,15 @@
 
 runs ``MultiModelCAMRTrainer.train_steps(mode="camr_spmd")`` on the
 current CUDA device (``--device cpu`` runs the plain versions on the
-CPU, best with ``--reduced``); ``--grad-sync-dtype bfloat16`` syncs the
+CPU, best with ``--reduced``); ``--arch`` takes any ported config: the
+dense ones, ``mamba2_1p3b`` (SSM) and ``zamba2_2p7b`` (hybrid), e.g.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2_2p7b \\
+        --reduced --multi-model --grad-sync camr_spmd --steps 2 \\
+        --seq-len 8 --batch 2 --device cpu
+
+(training takes the plain differentiable SSD scan; no kernel has a
+backward); ``--grad-sync-dtype bfloat16`` syncs the
 gradients on the packed 16-bit wire lane, ``--codec multipass`` through
 the multipass XOR codec (the fused codec's oracle). Only ``--multi-model
 --grad-sync camr_spmd`` is ported; the single-model trainer and the

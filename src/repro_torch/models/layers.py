@@ -1,9 +1,10 @@
-"""Layer primitives of the dense and SSM decoders (plain functions on
-tensors).
+"""Layer primitives of the dense, SSM and hybrid decoders (plain
+functions on tensors).
 
 Counterparts of ``repro.models.layers``: ``dense``, ``rms_norm``,
 ``rope``, ``attention_block`` (training, contiguous KV cache and paged
-KV cache), ``mlp_block`` and the Mamba2 ``ssm_block`` (prefill through
+KV cache), ``mlp_block`` and the Mamba2 ``ssm_block`` (training through
+the plain differentiable ``ref.ssd_chunked``, prefill through
 ``ops.ssd``, the ``ssd_scan`` kernel on a card, and the single-step
 decode recurrence). Activations are ``x [B, T, D]``; attention
 works on ``[B, H, T, Dh]``. Products of two same-dtype tensors
@@ -14,7 +15,10 @@ Training attention is the plain materialized form of the JAX package's
 ``repro.kernels.ref.flash_attention_ref`` — the lane ``ops.attention``
 takes there when ``Tq*Tk <= 2**21`` (``seq_len <= 1448``); a gradient
 never passes through the kernel. A prefill over a cache goes through
-``ops.attention``: the ``flash_attention`` kernel on a card.
+``ops.attention``: the ``flash_attention`` kernel on a card. Training's
+SSD scan is likewise the plain chunked form (the JAX package's XLA
+lane, ``use_pallas=False``), chosen by the mode: no kernel has a
+backward.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from ..kernels.ref import flash_attention_ref
+from ..kernels.ref import flash_attention_ref, ssd_chunked
+from ..kernels.ssd_scan import CHUNK
 
 __all__ = ["dense", "rms_norm", "rope", "attention_ref", "attention_block",
            "mlp_block", "softplus", "ssm_block", "ATTN_MAX_SCORES"]
@@ -179,10 +184,16 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def ssm_block(p, x, cfg, *, state=None, rows=None, return_state=False):
+def ssm_block(p, x, cfg, *, state=None, rows=None, return_state=False,
+              train=False):
     """Mamba2 SSD block, the twin of ``repro.models.layers.ssm_block``;
     returns ``(out, new_state)``.
 
+    * ``train`` (no state; training under autograd): the plain chunked
+      scan :func:`repro_torch.kernels.ref.ssd_chunked` in chunks of
+      :data:`~repro_torch.kernels.ssd_scan.CHUNK` on any device — the
+      JAX package's XLA lane, which ``jax.grad`` differentiates; the
+      ``ssd_scan`` kernel has no backward and is never called.
     * ``state=None`` (prefill): the scan through
       :func:`repro_torch.kernels.ops.ssd` (the ``ssd_scan`` kernel on a
       card); with ``return_state`` also the final state ``[B, H, S, P]``
@@ -211,7 +222,8 @@ def ssm_block(p, x, cfg, *, state=None, rows=None, return_state=False):
     xin = u * dt[..., None].to(u.dtype)
 
     if state is None:
-        y = ops.ssd(xin, a, b, c)
+        y = (ssd_chunked(xin, a, b, c, chunk=CHUNK) if train
+             else ops.ssd(xin, a, b, c))
         new_state = None
         if return_state:
             cum = torch.cumsum(a, dim=1)                     # [B, T, H]

@@ -1,24 +1,27 @@
 """Decoder LMs of the port: init, forward, training loss and serving.
 
 Counterpart of ``repro.models.lm`` for the dense family (``attn`` and
-``local`` sublayers with an MLP) and, on the serving entry points, the
-SSM family (``ssm`` sublayers: Mamba2's SSD block, no MLP; training it
-needs a backward of ``ssd_scan`` and is not ported): ``init_params``
-(same shapes, dtypes and scales, drawn from a ``torch.Generator`` — the
-numbers differ from ``jax.random``; tests start both packages from the
-same exported weights, see :mod:`repro_torch.weights`), ``_embed``, the
-unit loop (a
-Python loop over the stacked ``repeats`` axis in place of ``lax.scan``),
-``_logits``, ``_chunked_loss`` and ``train_loss``; and the serving half
-(``init_cache``, ``init_paged_cache``, ``admit_prefill``, ``prefill``,
-``decode_step``, ``poisoned_rows``). Caches are updated in place (the
-JAX package returns new arrays): each entry point returns the cache it
-was given, written. An attention slot's cache entry is ``{"self": {"k",
-"v"[, "pages"]}}``, an SSM slot's ``{"state": f32[R, B|slots, H, S,
-P]}`` (recurrent: no sequence axis, no page table).
+``local`` sublayers with an MLP), the SSM family (``ssm`` sublayers:
+Mamba2's SSD block, no MLP) and the hybrid family (zamba2: ``ssm``
+sublayers and a ``shared_attn`` block, one attention + MLP parameter set
+reused at every occurrence): ``init_params`` (same shapes, dtypes and
+scales, drawn from a ``torch.Generator`` — the numbers differ from
+``jax.random``; tests start both packages from the same exported
+weights, see :mod:`repro_torch.weights`), ``_embed``, the unit loop (a
+Python loop over the stacked ``repeats`` axis in place of
+``lax.scan``), ``_logits``, ``_chunked_loss`` and ``train_loss``; and
+the serving half (``init_cache``, ``init_paged_cache``,
+``admit_prefill``, ``prefill``, ``decode_step``, ``poisoned_rows``).
+Caches are updated in place (the JAX package returns new arrays): each
+entry point returns the cache it was given, written. An attention
+slot's cache entry is ``{"self": {"k", "v"[, "pages"]}}``, stacked over
+``repeats`` (a ``shared_attn`` slot too: its weights are shared, each
+occurrence keeps its own keys), an SSM slot's ``{"state": f32[R,
+B|slots, H, S, P]}`` (recurrent: no sequence axis, no page table).
 
 Parameters are nested dicts of tensors; stacked-layer leaves keep their
-leading ``repeats`` axis, as in the JAX package, so the flat layout of
+leading ``repeats`` axis and the shared block lives once, unstacked, in
+``params["shared"]``, as in the JAX package, so the flat layout of
 :func:`repro_torch.weights.ravel` matches ``ravel_pytree``. There is no
 rematerialisation: at the slice's sizes activations are small beside
 the parameters.
@@ -36,33 +39,23 @@ __all__ = ["slot_names", "init_params", "train_loss", "init_cache",
            "init_paged_cache", "admit_prefill", "prefill", "decode_step",
            "poisoned_rows", "DECODE_ROWS"]
 
-_ATTN_KINDS = ("attn", "local")
-_SERVED_KINDS = _ATTN_KINDS + ("ssm",)
+_PORTED_KINDS = ("attn", "local", "shared_attn", "ssm")
 
 
 def slot_names(cfg: ModelConfig) -> list[str]:
     return [f"{i}_{kind}" for i, kind in enumerate(cfg.pattern)]
 
 
-def _check_served(cfg: ModelConfig) -> None:
-    """The families the port serves: dense decoders and the SSM family."""
-    bad = [k for k in cfg.pattern if k not in _SERVED_KINDS]
-    if (cfg.family not in ("dense", "ssm") or cfg.n_experts
+def _check_ported(cfg: ModelConfig) -> None:
+    """The families the port serves and trains: dense decoders, the SSM
+    family and the hybrid (zamba2) family."""
+    bad = [k for k in cfg.pattern if k not in _PORTED_KINDS]
+    if (cfg.family not in ("dense", "ssm", "hybrid") or cfg.n_experts
             or cfg.n_enc_layers or cfg.frontend or bad):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense decoder and the SSM (mamba2) paths "
-            "are ported; MoE, hybrid (zamba2's shared_attn), enc-dec and "
-            "frontend models wait for ROADMAP.md, Queue 1 item 2 (the "
-            "model zoo)")
-
-
-def _check_trainable(cfg: ModelConfig) -> None:
-    _check_served(cfg)
-    if "ssm" in cfg.pattern:
-        raise NotImplementedError(
-            f"{cfg.name}: training the SSM family needs a backward of the "
-            "ssd_scan kernel, which the JAX kernel lacks too (ROADMAP.md, "
-            "Queue 1 item 2)")
+            f"{cfg.name}: only the dense decoder, SSM (mamba2) and hybrid "
+            "(zamba2) paths are ported; MoE, enc-dec and frontend models "
+            "wait for ROADMAP.md, Queue 1 item 8 (the rest of the zoo)")
 
 
 def _normal(gen, shape, dtype, scale):
@@ -70,44 +63,52 @@ def _normal(gen, shape, dtype, scale):
     return x * scale
 
 
-def _init_slot(gen, cfg: ModelConfig, kind: str, R: int) -> dict:
+def _init_slot(gen, cfg: ModelConfig, kind: str, R: int | None) -> dict:
+    """One slot's parameters, stacked over a leading axis of ``R``
+    repeats (``None``: no leading axis, the shared block)."""
     d, f = cfg.d_model, cfg.d_ff
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt, sc = cfg.torch_dtype, d ** -0.5
+    lead = () if R is None else (R,)
 
     def z(*shape):
-        return torch.zeros((R, *(shape or (d,))), dtype=torch.float32,
+        return torch.zeros((*lead, *(shape or (d,))), dtype=torch.float32,
                            device=gen.device)
+
+    def w(rows, cols, scale):
+        return _normal(gen, (*lead, rows, cols), dt, scale)
 
     if kind == "ssm":
         di, H, S = cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_state
         return {
             "norm": z(),
-            "ssm": {"w_in": _normal(gen, (R, d, di), dt, sc),
-                    "w_gate": _normal(gen, (R, d, di), dt, sc),
+            "ssm": {"w_in": w(d, di, sc),
+                    "w_gate": w(d, di, sc),
                     # B/C group-shared across heads (n_groups=1)
-                    "w_bc": _normal(gen, (R, d, 2 * S), dt, sc),
-                    "w_dt": _normal(gen, (R, d, H), dt, sc),
+                    "w_bc": w(d, 2 * S, sc),
+                    "w_dt": w(d, H, sc),
                     "a_log": z(H),
                     "skip": z(H) + 0.1,          # D residual term
-                    "w_out": _normal(gen, (R, di, d), dt, di ** -0.5)},
+                    "w_out": w(di, d, di ** -0.5)},
         }
     return {
         "norm1": z(),
-        "attn": {"wq": _normal(gen, (R, d, hq * dh), dt, sc),
-                 "wk": _normal(gen, (R, d, hkv * dh), dt, sc),
-                 "wv": _normal(gen, (R, d, hkv * dh), dt, sc),
-                 "wo": _normal(gen, (R, hq * dh, d), dt, sc)},
+        "attn": {"wq": w(d, hq * dh, sc),
+                 "wk": w(d, hkv * dh, sc),
+                 "wv": w(d, hkv * dh, sc),
+                 "wo": w(hq * dh, d, sc)},
         "norm2": z(),
-        "mlp": {"w_gate": _normal(gen, (R, d, f), dt, sc),
-                "w_up": _normal(gen, (R, d, f), dt, sc),
-                "w_down": _normal(gen, (R, f, d), dt, f ** -0.5)},
+        "mlp": {"w_gate": w(d, f, sc),
+                "w_up": w(d, f, sc),
+                "w_down": w(f, d, f ** -0.5)},
     }
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
-    """Random parameters on the generator's device."""
-    _check_served(cfg)
+    """Random parameters on the generator's device; a ``shared_attn``
+    slot has no entry in ``params["blocks"]``: its one parameter set,
+    with no ``repeats`` axis, is ``params["shared"]``."""
+    _check_ported(cfg)
     d, V = cfg.d_model, cfg.vocab_padded
     params = {
         "embed": _normal(gen, (V, d), cfg.torch_dtype, d ** -0.5),
@@ -116,7 +117,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     if not cfg.tie_embeddings:
         params["out"] = _normal(gen, (d, V), cfg.torch_dtype, d ** -0.5)
     params["blocks"] = {name: _init_slot(gen, cfg, kind, cfg.repeats)
-                        for name, kind in zip(slot_names(cfg), cfg.pattern)}
+                        for name, kind in zip(slot_names(cfg), cfg.pattern)
+                        if kind != "shared_attn"}
+    if "shared_attn" in cfg.pattern:
+        params["shared"] = _init_slot(gen, cfg, "shared_attn", None)
     return params
 
 
@@ -125,15 +129,17 @@ def _apply_slot(cfg, kind, p, x, positions, *, cache=None,
     """One sublayer; returns ``(x, new_cache_entry)`` (None without a
     cache). ``mode``: ``train`` / ``prefill`` / ``decode``, or
     ``encoder`` (bidirectional). An ``ssm`` slot has no MLP: ``x +
-    ssm_block(rms_norm(x))``, its prefill writing the final state into
-    the cache and its decode step the live rows' states."""
+    ssm_block(rms_norm(x))``, its training pass through the plain
+    differentiable scan, its prefill writing the final state into the
+    cache and its decode step the live rows' states. A ``shared_attn``
+    slot is attention (window ``cfg.window``) + MLP, as ``attn``."""
     if kind == "ssm":
         h = L.rms_norm(x, p["norm"])
         if mode == "decode":
             h, _ = L.ssm_block(p["ssm"], h, cfg, state=cache["state"],
                                rows=cache_index)
         else:
-            h, st = L.ssm_block(p["ssm"], h, cfg,
+            h, st = L.ssm_block(p["ssm"], h, cfg, train=(mode == "train"),
                                 return_state=cache is not None)
             if cache is not None:
                 cache["state"].copy_(st)
@@ -161,12 +167,15 @@ def _units(cfg, params, x, positions, *, cache=None, cache_index=None,
            mode="train"):
     """The pattern repetitions in order (``lax.scan`` in the JAX package);
     ``cache`` (stacked over ``repeats``, as the params) is updated in
-    place, one layer's view at a time."""
+    place, one layer's view at a time. A ``shared_attn`` slot takes
+    ``params["shared"]`` as it is at every repeat (it has no ``repeats``
+    axis to index) and its own repeat's cache."""
     for r in range(cfg.repeats):
         for name, kind in zip(slot_names(cfg), cfg.pattern):
+            p = (params["shared"] if kind == "shared_attn"
+                 else _layer(params["blocks"][name], r))
             c = _layer(cache[name], r) if cache is not None else None
-            x, _ = _apply_slot(cfg, kind, _layer(params["blocks"][name], r),
-                               x, positions, cache=c,
+            x, _ = _apply_slot(cfg, kind, p, x, positions, cache=c,
                                cache_index=cache_index, mode=mode)
     return x
 
@@ -213,7 +222,7 @@ def _chunked_loss(cfg, params, x, labels):
 
 def train_loss(cfg: ModelConfig, params, batch):
     """batch: ``tokens``, ``labels`` int ``[B, T]`` -> (loss, metrics)."""
-    _check_trainable(cfg)
+    _check_ported(cfg)
     x = _embed(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     x = _units(cfg, params, x, positions)
@@ -236,7 +245,7 @@ def init_cache(cfg: ModelConfig, B: int, T: int, *, device) -> dict:
     """Zeroed contiguous decode cache: per attention slot ``{"self":
     {"k", "v": [R, B, Hkv, T, Dh]}}`` in the model dtype, per SSM slot
     ``{"state": f32[R, B, H, S, P]}``."""
-    _check_served(cfg)
+    _check_ported(cfg)
     R, hkv, hd = cfg.repeats, cfg.n_kv_heads, cfg.hd
 
     def z():
@@ -258,7 +267,7 @@ def init_paged_cache(cfg: ModelConfig, slots: int, n_pages: int,
     out. An SSM slot's state is recurrent (no sequence axis), so it is a
     per-slot row ``{"state": f32[R, slots, H, S, P]}``, overwritten at
     admission."""
-    _check_served(cfg)
+    _check_ported(cfg)
     R, hkv, hd = cfg.repeats, cfg.n_kv_heads, cfg.hd
 
     def z():
@@ -308,7 +317,7 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int | None = None):
     """Forward pass over the prompt ``batch["tokens"] [B, T]`` that also
     writes the KV cache (sized ``max_len``, default ``T``) -> (logits of
     the last position ``[B, 1, V]`` in f32, cache)."""
-    _check_served(cfg)
+    _check_ported(cfg)
     x = _embed(cfg, params, batch)
     B, T = x.shape[:2]
     positions = torch.arange(T, device=x.device)
@@ -342,7 +351,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, cache_index):
     recurrence runs at the same fixed width and a finished row writes no
     state (see :func:`repro_torch.models.layers.ssm_block`).
     """
-    _check_served(cfg)
+    _check_ported(cfg)
     B = tokens.shape[0]
     if B > DECODE_ROWS:
         raise ValueError(f"a decode step takes at most DECODE_ROWS = "

@@ -127,7 +127,7 @@ def _no_extras(extras) -> None:
     if extras:
         raise NotImplementedError(
             "frontend inputs (patches/frames) belong to the vlm/audio "
-            "configs, which are not ported yet (ROADMAP.md, Queue 1 item 2)")
+            "configs, which are not ported yet (ROADMAP.md, Queue 1 item 8)")
 
 
 # --------------------------------------------------------------------- #

@@ -22,7 +22,8 @@ version in f32 (that file's tolerance: chunked sums in another order)
 and within two bf16 ulps of each output (rtol 2**-6, atol 1e-4) in bf16,
 and at ``chip_smoke.py``'s bf16 serving shapes bitwise repeatable and
 within its serving limit (rtol 2**-6 + 2e-5 x max|y|); the serving
-engine's tokens are bitwise the port's ``generate`` on the card.
+engine's tokens (dense, SSM and hybrid models) are bitwise the port's
+``generate`` on the card.
 """
 
 import numpy as np
@@ -293,8 +294,8 @@ def test_cuda_modes_and_codecs_equal_fused(cuda_device, q, k, dtype, mode,
 
 
 def _trainer_step_on_card_and_cpu(cuda_device, grad_sync_dtype,
-                                  codec="fused"):
-    cfg = reduced(get_config("granite_3_2b")).replace(vocab=64, loss_chunk=8)
+                                  codec="fused", arch="granite_3_2b"):
+    cfg = reduced(get_config(arch)).replace(vocab=64, loss_chunk=8)
     pipe = ShardedTokenPipeline(vocab=64, seq_len=8, global_batch=2)
     cpu = MultiModelCAMRTrainer(cfg, q=2, k=3, device="cpu", seed=3,
                                 grad_sync_dtype=grad_sync_dtype, codec=codec)
@@ -339,11 +340,26 @@ def test_cuda_multipass_trainer_step_matches_cpu(cuda_device):
                     "flash_attention": 0, "ssd_scan": 0}
 
 
+@pytest.mark.parametrize("arch", ["mamba2_1p3b", "zamba2_2p7b"])
+def test_cuda_ssm_and_hybrid_trainer_step_matches_cpu(cuda_device, arch):
+    """The SSM and hybrid families train on the card through the plain
+    differentiable scan: the f32 lane's codec kernels run, neither
+    prefill kernel does."""
+    card, runs = _trainer_step_on_card_and_cpu(cuda_device, "float32",
+                                               arch=arch)
+    assert runs == {"xor_encode_gather": 2, "xor_decode_gather": 2,
+                    "aggregate": card.K, "xor_encode_gather16": 0,
+                    "xor_decode_gather16": 0, "aggregate_bf16": 0,
+                    "xor_fold": 0, "xor_decode": 0, "xor_encode": 0,
+                    "flash_attention": 0, "ssd_scan": 0}
+
+
 # B, Hq, Hkv, Tq, Tk, D, causal, window, softcap: tests/test_kernels.py's
 # ATTN_CASES, granite's prefill (32/8 heads, D 64), gemma2's (8/4 heads,
 # D 256, softcap 50, window 4096; a window that binds at 300), zamba2's
-# (32/32 heads, D 80) and a ragged D 80 case, and a window over Tq < Tk
-# with Tk not a multiple of the bf16 body's 64-key tile
+# (32/32 heads, D 80, at 77 and 129 tokens a ragged last query and key
+# tile) and a ragged D 80 case, and a window over Tq < Tk with Tk not a
+# multiple of the bf16 body's 64-key tile
 FLASH_CASES = [
     (1, 2, 2, 64, 64, 16, True, None, None),
     (2, 4, 2, 32, 32, 32, True, None, None),
@@ -359,6 +375,8 @@ FLASH_CASES = [
     (1, 8, 4, 700, 700, 256, True, 300, 50.0),
     (2, 4, 2, 33, 70, 128, False, None, None),
     (1, 32, 32, 1024, 1024, 80, True, None, None),
+    (1, 32, 32, 77, 77, 80, True, None, None),
+    (1, 32, 32, 129, 129, 80, True, None, None),
     (1, 4, 2, 40, 90, 80, True, None, None),
     (1, 4, 2, 70, 150, 64, True, 40, None),
 ]
@@ -470,12 +488,14 @@ def test_cuda_decode_step_rows_do_not_depend_on_batch(cuda_device, dtype):
 # B, T, H, P, S: tests/test_kernels.py's SSD_CASES (its chunks are the
 # plain version's), a ragged T over two P tiles, mamba2's serving prefill
 # (64 heads of P 64, S 128) at a ragged length, at 1024 and at 2048
-# tokens, and zamba2's (80 heads of P 64, S 64)
+# tokens, and zamba2's (80 heads of P 64, S 64) at 1024 tokens and at
+# 77 and 129 (a ragged last chunk)
 SSD_CASES = [(1, 32, 2, 8, 4, 8), (2, 64, 1, 16, 8, 16),
              (1, 100, 2, 8, 4, 32), (1, 16, 3, 4, 16, 16),
              (2, 130, 3, 40, 24, 64), (1, 1000, 64, 64, 128, 64),
              (1, 1024, 64, 64, 128, 64), (1, 2048, 64, 64, 128, 64),
-             (1, 1024, 80, 64, 64, 64)]
+             (1, 1024, 80, 64, 64, 64), (1, 77, 80, 64, 64, 64),
+             (1, 129, 80, 64, 64, 64)]
 
 
 @pytest.mark.parametrize("case", SSD_CASES)
@@ -580,6 +600,36 @@ def test_cuda_mamba_engine_tokens_equal_generate(cuda_device, dtype):
     after = launch_counts()
     assert after["ssd_scan"] - before["ssd_scan"] == cfg.n_layers * len(reqs)
     assert after["flash_attention"] == before["flash_attention"]
+    for req, r in zip(reqs, res):
+        want = generate(cfg, params, req.prompt[None], max_new=6,
+                        temperature=req.temperature, seed=req.seed,
+                        device=cuda_device).tokens[0, len(req.prompt):]
+        assert r.status == "ok" and np.array_equal(r.generated, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_hybrid_engine_tokens_equal_generate(cuda_device, dtype):
+    """zamba2 at full width (head dim 80, 80 SSM heads of P 64, state 64)
+    cut to two pattern units, served on the card: engine tokens bitwise
+    the port's ``generate``, one ``ssd_scan`` per SSM sublayer and one
+    ``flash_attention`` per occurrence of the shared block, per
+    prefill."""
+    cfg = get_config("zamba2_2p7b").replace(n_layers=12, dtype=dtype)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    params = lm.init_params(cfg, gen)
+    rng = np.random.default_rng(6)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, (t,)).astype(np.int32),
+                    max_new=6, temperature=0.7 * (i % 2), seed=i)
+            for i, t in enumerate([5, 77, 129, 64, 17])]
+    eng = DecodeEngine(cfg, params, slots=2, page_size=16, max_ctx=144,
+                       max_new_cap=6, device=cuda_device)
+    before = launch_counts()
+    res = ServeStream(eng, wave_len=3).run(reqs)
+    after = launch_counts()
+    assert after["ssd_scan"] - before["ssd_scan"] == 10 * len(reqs)
+    assert after["flash_attention"] - before["flash_attention"] == \
+        2 * len(reqs)
     for req, r in zip(reqs, res):
         want = generate(cfg, params, req.prompt[None], max_new=6,
                         temperature=req.temperature, seed=req.seed,

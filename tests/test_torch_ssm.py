@@ -431,11 +431,40 @@ def test_prefill_matches_jax_with_the_pallas_kernel(mamba_pair):
                                    np.asarray(jc[name]["state"]), **TOL)
 
 
-def test_training_the_ssm_family_is_refused(mamba):
+def test_training_the_ssm_family_is_refused(mamba, monkeypatch):
+    """What stays refused is the kernel's backward: ``ssd_scan`` refuses an
+    input that requires grad, so training takes the plain differentiable
+    scan by its mode. ``train_loss`` runs on the SSM family, its gradient
+    reaches every SSM leaf, and it never calls ``ops.ssd_scan`` (patched
+    to raise); a prefill calls it once per layer."""
     cfg, p = mamba
-    toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.train_loss(cfg, p, {"tokens": toks, "labels": toks})
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 128)).astype(np.int32))
+    x = torch.zeros((1, 8, 2, 4), requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_scan(x, torch.zeros((1, 8, 2)), torch.zeros((1, 8, 4)),
+                 torch.zeros((1, 8, 4)))
+
+    def refuse(*args, **kw):
+        raise AssertionError("ssd_scan called in training")
+
+    monkeypatch.setattr(ops, "ssd_scan", refuse)
+    blocks = {n: {"norm": e["norm"], "ssm": {
+        k: v.detach().clone().requires_grad_(True)
+        for k, v in e["ssm"].items()}} for n, e in p["blocks"].items()}
+    loss, _ = lm.train_loss(cfg, {**p, "blocks": blocks},
+                            {"tokens": toks, "labels": toks})
+    loss.backward()
+    assert torch.isfinite(loss)
+    for e in blocks.values():
+        for k, v in e["ssm"].items():
+            assert v.grad is not None and torch.isfinite(v.grad).all(), k
+            assert v.grad.abs().sum() > 0, k
+    calls = []
+    monkeypatch.setattr(ops, "ssd_scan",
+                        lambda *a: calls.append(1) or ssd_chunked(*a))
+    lm.prefill(cfg, p, {"tokens": toks})
+    assert len(calls) == cfg.n_layers
 
 
 # --------------------------------------------------------------------- #
