@@ -50,7 +50,9 @@ result line) on any mismatch:
    through the multipass codec, then the SSM family (``mamba2_1p3b`` at
    full width cut to 2 layers) on the f32 lane, whose scans take the
    plain differentiable form: no ``ssd_scan`` or ``flash_attention``
-   launch (each trainer freed before the next).
+   launch, then the hybrid family (``zamba2_2p7b`` at full width cut to
+   one pattern unit of 6 sublayers) on the bf16 lane, likewise (each
+   trainer freed before the next).
    Each run has its kernel launch counts (counters set to 0 just before
    it), step 1's synced gradient held bitwise on a column slice against
    the shuffle of the same contributions (the fused runs against the
@@ -59,7 +61,21 @@ result line) on any mismatch:
    1's losses to the f32 run's (same parameters and data, the map runs
    before any sync), its wire bytes to exactly half and its peak memory
    below the f32 run's; the multipass run holds its step-1 losses to the
-   f32 run's;
+   f32 run's. Then the granite cell at 2048 tokens on the f32 lane, past
+   the attention lanes' switch point of 1448: the same gates, the
+   chunked attention in every attention call of the map, one subfile's
+   loss and flat gradient through it held to the materialized attention
+   at the dense tolerances of tests/test_torch_train.py (an f32 model of
+   job 0's master row, TF32 off), and the memory one subfile's map and
+   one step take without the block checkpoint. Then the paper's
+   comparison: ``camr_spmd``, ``camr`` (the numpy engine) and
+   ``uncoded`` (the unicast baseline) trainers from one seed at a
+   reduced width (``MODES_CFG``), 2 steps each on the f32 and the bf16
+   lanes: parameters and losses bitwise equal across the modes of a
+   lane, the bf16 ``camr`` bytes exactly half the f32 ones, the lanes'
+   trajectories apart, the host modes launching no kernel; their loads
+   and bytes printed; and one ``uncoded`` step of the full granite cell
+   (its host time; step 1's losses those of the f32 run);
 4. **serve** — four models served through ``DecodeEngine(slots=4,
    page_size=16, max_ctx=1056)`` behind ``ServeStream(wave_len=8)``,
    each on random bf16 weights from seed 0: ``granite_3_2b`` at full
@@ -841,25 +857,28 @@ def phase_shuffle():
 # --------------------------------------------------------------------- #
 # phase 3: the slice's main path
 # --------------------------------------------------------------------- #
-def _tag(tr) -> str:
+def _tag(tr, pipe=None) -> str:
     from repro_torch.configs import get_config
-    from repro_torch.launch.cell import ARCH
+    from repro_torch.launch.cell import ARCH, SEQ_LEN
     codec = "" if tr.codec == "fused" else f"/{tr.codec}"
     arch = ("" if tr.cfg.name == get_config(ARCH).name
             else f"{tr.cfg.name}/")
-    return f"train[{arch}{tr.grad_sync_dtype}{codec}]"
+    seq = ("" if pipe is None or pipe.seq_len == SEQ_LEN
+           else f"@{pipe.seq_len}")
+    return f"train[{arch}{tr.grad_sync_dtype}{codec}{seq}]"
 
 
 def build_cell(grad_sync_dtype, codec="fused", **arch):
     """The slice's trainer and pipeline (``repro_torch.launch.cell``) on
-    one grad-sync lane and codec; ``arch`` (``arch=``, ``n_layers=``)
-    puts another config in the cell's place."""
+    one grad-sync lane and codec; ``arch`` (``arch=``, ``n_layers=``,
+    ``seq_len=``) puts another config or sequence length in the cell's
+    place."""
     import torch
     from repro_torch.launch.cell import make_cell
     t0 = time.perf_counter()
     tr, pipe = make_cell(DEVICE, grad_sync_dtype, codec, **arch)
     torch.cuda.synchronize()
-    log(f"{_tag(tr)}: {tr.cfg.name} {tr.cfg.n_layers} layers, "
+    log(f"{_tag(tr, pipe)}: {tr.cfg.name} {tr.cfg.n_layers} layers, "
         f"D={tr.D} Dpad={tr.Dpad} d_shard={tr.d_shard}, K={tr.K} J={tr.J}, "
         f"seq_len {pipe.seq_len}, init {time.perf_counter() - t0:.1f} s")
     return tr, pipe
@@ -880,9 +899,13 @@ def lane_kernels(lane: str, K: int, codec: str = "fused") -> dict:
 
 #: the SSM-family training run: mamba2_1p3b at full width cut to 2 layers
 #: (D = 257,693,952, 1.16x the granite cell's), the cell's q, k and
-#: pipeline, the f32 fused lane. zamba2 at one pattern unit would be
-#: D ~ 468 M, past one card's 80 GB on this lane
+#: pipeline, the f32 fused lane
 SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS = "mamba2_1p3b", 2
+#: the hybrid-family training run: zamba2_2p7b at full width cut to one
+#: pattern unit (6 sublayers: 5 SSM layers and the shared attention
+#: block), on the bf16 lane: its D of 467,989,280 would need about 109 GB
+#: on the f32 lane; on the bf16 one its peak is 78.7 GB of the card's 85.0
+HYBRID_TRAIN_ARCH, HYBRID_TRAIN_LAYERS = "zamba2_2p7b", 6
 
 
 def phase_train(tr, pipe, steps=2):
@@ -894,7 +917,7 @@ def phase_train(tr, pipe, steps=2):
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     q, k, lane = tr.q, tr.k, tr.grad_sync_dtype
-    tag = _tag(tr)
+    tag = _tag(tr, pipe)
 
     # step 1's synced gradient on a column slice (the codec is per value
     # column): one slice at the head, one across the packet boundary
@@ -996,6 +1019,241 @@ def compare_codecs(rep32, peak32, rep_mp, peak_mp):
         f"{rep_mp.losses == rep32.losses}); peak memory "
         f"{peak_mp / 1e9:.2f} GB against the fused run's "
         f"{peak32 / 1e9:.2f} GB")
+
+
+# --------------------------------------------------------------------- #
+# phase 3, continued: the chunked attention lane and the paper's modes
+# --------------------------------------------------------------------- #
+#: the chunked attention run: the granite cell at 2048 tokens, where
+#: Tq*Tk = 2**22 is past the 2**21 switch point of the attention lanes
+CHUNK_SEQ_LEN = 2048
+#: the dense tolerances of tests/test_torch_train.py: loss rtol, flat
+#: gradient rtol and atol
+DENSE_TOL = (1e-5, 1e-4, 1e-6)
+
+
+@contextlib.contextmanager
+def count_chunked():
+    """Count the calls of the chunked attention lane (a list of one)."""
+    from repro_torch.kernels import ops
+    saved, calls = ops.flash_attention_chunked, [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return saved(*a, **kw)
+    ops.flash_attention_chunked = counted
+    try:
+        yield calls
+    finally:
+        ops.flash_attention_chunked = saved
+
+
+@contextlib.contextmanager
+def no_block_checkpoint():
+    """The chunked lane with its block steps not checkpointed (autograd
+    keeps every block's scores): for the peak memory it saves."""
+    from repro_torch.kernels import ref
+    saved = ref.checkpoint
+    ref.checkpoint = lambda fn, *a, use_reentrant=False: fn(*a)
+    try:
+        yield
+    finally:
+        ref.checkpoint = saved
+
+
+def check_chunked_lane(tr, pipe):
+    """One subfile's loss and flat gradient through the chunked lane
+    against the materialized attention at the same tokens, on the card,
+    at the dense tolerances: job 0's f32 master row as an f32 model (so
+    both lanes compute in f32; TF32 off)."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.runtime.train_loop import _full_f32
+    from repro_torch.weights import unravel
+
+    cfg = tr.cfg.replace(dtype="float32")
+    spec = dataclasses.replace(tr._spec, dtypes=(torch.float32,)
+                               * len(tr._spec.dtypes))
+    batch = {key: torch.as_tensor(v, device=DEVICE)
+             for key, v in pipe.batch(0).items()}
+    out = {}
+    for lane, threshold in (("chunked", ops.CHUNK_THRESHOLD),
+                            ("materialized", float("inf"))):
+        saved, ops.CHUNK_THRESHOLD = ops.CHUNK_THRESHOLD, threshold
+        try:
+            with _full_f32(torch.device(DEVICE)), count_chunked() as calls:
+                row = tr.flat[0, :tr.D].clone().requires_grad_(True)
+                loss, _ = lm.train_loss(cfg, unravel(row, spec), batch)
+                grad, = torch.autograd.grad(loss, row)
+        finally:
+            ops.CHUNK_THRESHOLD = saved
+        if calls[0] != (cfg.n_layers if lane == "chunked" else 0):
+            fail(f"chunked lane: {lane} run took the chunked attention "
+                 f"{calls[0]} times")
+        out[lane] = (float(loss.detach()), grad)
+        del row
+    (l1, g1), (l2, g2) = out["chunked"], out["materialized"]
+    rtol_l, rtol_g, atol_g = DENSE_TOL
+    excess = float(((g1 - g2).abs() / (atol_g + rtol_g * g2.abs())).max())
+    log(f"chunked lane @{pipe.seq_len}: loss {l1!r} vs materialized "
+        f"{l2!r} (rel {abs(l1 - l2) / abs(l2):.3g}, rtol {rtol_l}); flat "
+        f"gradient worst |diff| / (atol + rtol |g|) = {excess:.3g} "
+        f"(rtol {rtol_g}, atol {atol_g}); max |g| "
+        f"{float(g2.abs().max()):.3g}")
+    if abs(l1 - l2) > rtol_l * abs(l2) or not excess <= 1.0:
+        fail("chunked lane: loss or flat gradient off the materialized "
+             "attention's beyond the dense tolerances")
+
+
+def phase_chunked():
+    """The granite cell at ``CHUNK_SEQ_LEN`` tokens on the f32 lane: the
+    main path's gates (launch counts, step 1's synced gradient bitwise
+    the plain shuffle, finite losses, peak memory), the chunked lane
+    taken in every attention call of the map, one subfile held to the
+    materialized attention, and the memory one subfile's map and one
+    more step take with the block steps not checkpointed."""
+    import torch
+    tr, pipe = build_cell("float32", seq_len=CHUNK_SEQ_LEN)
+    tag = _tag(tr, pipe)
+    with count_chunked() as calls:
+        _, _, peak = phase_train(tr, pipe)
+    want = tr.J * tr.N * tr.cfg.n_layers * 2
+    if calls[0] != want:
+        fail(f"{tag}: the map took the chunked attention {calls[0]} "
+             f"times, not {want}")
+    log(f"{tag}: chunked attention in all {calls[0]} attention calls of "
+        "the map")
+    check_chunked_lane(tr, pipe)
+    # what the block checkpoint saves: one subfile's map above the
+    # resident state, then a whole step, each without it
+    batch = pipe.batch(0)
+    tr._last_loss = [dict() for _ in range(tr.J)]
+    maps = []
+    for ctx in (contextlib.nullcontext, no_block_checkpoint):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with ctx():
+            row = tr._grad_vec(0, 0, batch)
+        torch.cuda.synchronize()
+        maps.append(torch.cuda.max_memory_allocated() - base)
+        del row
+    torch.cuda.reset_peak_memory_stats()
+    with no_block_checkpoint():
+        tr.train_steps(pipe, 1)
+    torch.cuda.synchronize()
+    peak_nockpt = torch.cuda.max_memory_allocated()
+    log(f"{tag}: one subfile's map {maps[0] / 1e9:.3f} GB above the "
+        f"resident state with the block steps checkpointed, "
+        f"{maps[1] / 1e9:.3f} GB without; step peak {peak / 1e9:.2f} GB "
+        f"with, {peak_nockpt / 1e9:.2f} GB for a step without")
+
+
+#: the paper's three modes at a reduced width (the host engine XORs bytes
+#: in Python, so a camr step at this D takes seconds of host time):
+#: granite_3_2b's layout (2 layers, heads of 64, GQA 4:1, SwiGLU at 4x,
+#: tied embeddings, bf16 weights) at d_model 256 and vocab 6144,
+#: D = 3,474,688
+MODES_CFG = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=1,
+                 head_dim=64, d_ff=1024, vocab=6144)
+MODES_SEQ_LEN = 64
+
+
+def phase_modes(rep32):
+    """The paper's comparison on the card: ``camr_spmd``, ``camr`` and
+    ``uncoded`` trainers from one seed, 2 steps each, on the f32 and the
+    bf16 lanes, at ``MODES_CFG``: parameters and losses bitwise equal
+    across the modes of a lane, the engine-measured bf16 ``camr`` bytes
+    exactly half the f32 run's, the two lanes' trajectories apart, each
+    run's launches its own (the host modes launch no kernel); then one
+    ``uncoded`` step of the full granite cell (step 1's losses those of
+    the f32 ``camr_spmd`` run ``rep32``). Prints the loads and bytes of
+    ``camr`` against ``uncoded``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import ShardedTokenPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.cell import ARCH, Q, K
+    from repro_torch.runtime import MultiModelCAMRTrainer
+
+    cfg = get_config(ARCH).replace(**MODES_CFG)
+    pipe = ShardedTokenPipeline(vocab=cfg.vocab, seq_len=MODES_SEQ_LEN,
+                                global_batch=1)
+    runs = {}
+    for lane in ("float32", "bfloat16"):
+        for mode in ("camr_spmd", "camr", "uncoded"):
+            tr = MultiModelCAMRTrainer(cfg, q=Q, k=K, seed=0, device=DEVICE,
+                                       grad_sync_dtype=lane)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rep = tr.train_steps(pipe, 2, mode=mode)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            want = dict.fromkeys(counts, 0)
+            if mode == "camr_spmd":
+                want.update({n: 2 * c for n, c in
+                             lane_kernels(lane, tr.K).items()})
+            tag = f"modes[{lane}/{mode}]"
+            if counts != want:
+                fail(f"{tag}: launch counts {counts} != expected {want}")
+            if not np.isfinite(np.asarray(rep.losses)).all():
+                fail(f"{tag}: losses not finite: {rep.losses}")
+            runs[lane, mode] = (tr.flat.cpu(), rep)
+            log(f"{tag}: D={tr.D}, 2 steps {wall:.2f} s wall; " + "; ".join(
+                f"step {i + 1} " + ", ".join(f"{p} {v:.1f}"
+                                             for p, v in ms.items())
+                for i, ms in enumerate(rep.phase_ms))
+                + f" ms; bytes {rep.bytes_total}, loads {rep.loads}")
+            del tr
+        flat0, rep0 = runs[lane, "camr_spmd"]
+        for mode in ("camr", "uncoded"):
+            flat, rep = runs[lane, mode]
+            if not bitwise_equal(flat, flat0) or rep.losses != rep0.losses:
+                fail(f"modes[{lane}]: {mode} parameters or losses != "
+                     "camr_spmd's (bitwise)")
+        log(f"modes[{lane}]: camr_spmd == camr == uncoded, parameters "
+            f"({flat0.numel()} f32) and losses bitwise, 2 steps")
+    b32, b16 = (runs[lane, "camr"][1].bytes_total
+                for lane in ("float32", "bfloat16"))
+    if 2 * b16 != b32:
+        fail(f"modes: bf16 camr bytes {b16} are not half of f32's {b32}")
+    f32, f16 = runs["float32", "camr"], runs["bfloat16", "camr"]
+    if bitwise_equal(f32[0], f16[0]) or f32[1].losses[1] == f16[1].losses[1]:
+        fail("modes: the bf16 lane's trajectory equals the f32 lane's")
+    for lane in ("float32", "bfloat16"):
+        c, u = runs[lane, "camr"][1], runs[lane, "uncoded"][1]
+        log(f"modes[{lane}]: paper load L_total_bus camr "
+            f"{c.loads['L_total_bus']:.4f} vs uncoded "
+            f"{u.loads['L_total_bus']:.4f}; bytes camr {c.bytes_total} vs "
+            f"uncoded {u.bytes_total} ({c.bytes_total / u.bytes_total:.4f})")
+    log(f"modes: bf16 camr bytes {b16} = f32's {b32} / 2 exactly; the "
+        "lanes' parameters and step-2 losses differ")
+
+    # one uncoded step of the full cell: host memory and host time
+    tr, pipe = build_cell("float32")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = tr.train_steps(pipe, 1, mode="uncoded")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if any(launch_counts().values()):
+        fail(f"modes[cell/uncoded]: kernel launches {launch_counts()}")
+    if not np.allclose(rep.losses[0], rep32.losses[0], rtol=1e-6, atol=0):
+        fail(f"modes[cell/uncoded]: step 1 losses {rep.losses[0]} != the "
+             f"camr_spmd run's {rep32.losses[0]}")
+    ms = rep.phase_ms[0]
+    log(f"modes[cell/uncoded]: D={tr.D}, step 1 {wall:.2f} s wall = "
+        + ", ".join(f"{p} {v:.1f}" for p, v in ms.items())
+        + f" ms; bytes {rep.bytes_total}, loads {rep.loads}; step 1 losses "
+        f"== camr_spmd's within rtol 1e-6 (bitwise: "
+        f"{rep.losses[0] == rep32.losses[0]})")
+    del tr, pipe
 
 
 # --------------------------------------------------------------------- #
@@ -1319,6 +1577,20 @@ def main() -> int:
                           n_layers=SSM_TRAIN_LAYERS)
     phase_train(tr, pipe)
     del tr, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the hybrid family on the bf16 lane, with the same gates
+    tr, pipe = build_cell("bfloat16", arch=HYBRID_TRAIN_ARCH,
+                          n_layers=HYBRID_TRAIN_LAYERS)
+    phase_train(tr, pipe)
+    del tr, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the chunked attention lane past 1448 tokens, then the paper's modes
+    phase_chunked()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_modes(rep32)
     gc.collect()
     torch.cuda.empty_cache()
     served = [phase_serve(arch, depth, lens)

@@ -1,2 +1,3 @@
-"""Core CAMR library of the port: the numpy schedule (copies of the JAX
-package's numpy-only modules) and the stacked-device shuffle executor."""
+"""Core CAMR library of the port: the numpy schedule and engines (copies
+of the JAX package's numpy-only modules) and the stacked-device shuffle
+executor."""

@@ -12,11 +12,32 @@ import torch
 
 from .aggregate import aggregate
 from .flash_attention import flash_attention
-from .ref import flash_attention_ref
+from .ref import flash_attention_chunked, flash_attention_ref
 from .ssd_scan import ssd_scan
 from .xor_code import xor_encode
 
-__all__ = ["attention", "ssd", "combine_aggregates", "xor_fold"]
+__all__ = ["attention", "plain_attention", "ssd", "combine_aggregates",
+           "xor_fold", "CHUNK_THRESHOLD"]
+
+#: Tq*Tk past which the plain lane switches from the materialized
+#: attention to the chunked one (the JAX package's ``_CHUNK_THRESHOLD``:
+#: from ``seq_len`` 1449 on)
+CHUNK_THRESHOLD = 2 ** 21
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """The JAX package's XLA attention lane with every key valid,
+    differentiable: the materialized :func:`~.ref.flash_attention_ref` up
+    to :data:`CHUNK_THRESHOLD` scores, the chunked
+    :func:`~.ref.flash_attention_chunked` past it (the training lane on
+    any device, and a CPU prefill past the switch point)."""
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if q.shape[2] * k.shape[2] > CHUNK_THRESHOLD:
+        return flash_attention_chunked(q, k, v, **kw)
+    return flash_attention_ref(q, k, v, **kw)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -26,13 +47,20 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention with the routing of ``repro.kernels.ops.attention``.
 
     ``valid_len is None`` (a prefill over its own fresh keys): the
-    ``flash_attention`` kernel for a CUDA tensor, its plain version on
-    the CPU. ``valid_len`` given (a decode step over a partly filled
+    ``flash_attention`` kernel for a CUDA tensor at any length; on the
+    CPU its plain version up to :data:`CHUNK_THRESHOLD` scores and the
+    chunked lane past it, as the JAX package's XLA lane routes.
+    ``valid_len`` given (a decode step over a partly filled
     cache, ``Tq`` ~ 1): the plain masked attention on any device, as
     the JAX package keeps that lane outside Pallas; its score matrix is
     only ``[B, H, Tq, Tk]``.
     """
     if valid_len is None:
+        if (q.device.type == "cpu"
+                and q.shape[2] * k.shape[2] > CHUNK_THRESHOLD):
+            return flash_attention_chunked(q, k, v, causal=causal,
+                                           window=window, softcap=softcap,
+                                           scale=scale)
         return flash_attention(q, k, v, causal=causal, window=window,
                                softcap=softcap, scale=scale)
     return flash_attention_ref(q, k, v, causal=causal, window=window,

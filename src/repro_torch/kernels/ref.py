@@ -8,7 +8,10 @@ CPU; the tests hold them against the JAX package's Pallas kernels, and
 
 ``flash_attention_ref`` is the materialized attention of the JAX
 package's ``repro.kernels.ref.flash_attention_ref``, the plain version
-of the ``flash_attention`` kernel (:mod:`.flash_attention`).
+of the ``flash_attention`` kernel (:mod:`.flash_attention`);
+``flash_attention_chunked`` is that package's chunked online-softmax
+lane (``repro.kernels.ref.flash_attention_chunked``), which its XLA lane
+takes for long sequences and the port's training lane takes with it.
 ``ssd_chunked`` is the chunked matmul form of the Mamba2 SSD scan
 (``repro.kernels.ref.ssd_chunked``), the plain version of the
 ``ssd_scan`` kernel (:mod:`.ssd_scan`); ``ssd_scan_ref``, the sequential
@@ -23,11 +26,13 @@ packed 16-bit lane works on ``torch.int16`` lanes the same way.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["xor_encode_ref", "xor_fold_ref", "xor_decode_ref",
            "xor_encode_gather_ref", "xor_decode_gather_ref",
            "xor_encode_gather16_ref", "xor_decode_gather16_ref",
-           "aggregate_ref", "flash_attention_ref", "ssd_chunked",
+           "aggregate_ref", "flash_attention_ref", "flash_attention_chunked",
+           "ssd_chunked",
            "ssd_scan_ref", "as_words", "as_lanes"]
 
 
@@ -207,6 +212,102 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
     return out.reshape(B, Hq, Tq, D).to(q.dtype)
+
+
+def _chunk_step(m, l, acc, qblk, kx, vx, start: int, qpos, end: int,
+                causal: bool, window, softcap):
+    """One K/V block of :func:`flash_attention_chunked`'s online softmax:
+    the running max ``m``, sum ``l`` and output ``acc`` ``[B, H, bq, 1|D]``
+    (f32) after the keys ``start .. start + bk``."""
+    s = torch.matmul(qblk.float(), kx.float().transpose(-1, -2))
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    kpos = start + torch.arange(kx.shape[2], device=kx.device)
+    mask = kpos[None, :] < end
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    if window is not None:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    s = torch.where(mask, s, -1e30)
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new)
+    l = l * alpha + p.sum(dim=-1, keepdim=True)
+    acc = acc * alpha + torch.matmul(p.to(vx.dtype).float(), vx.float())
+    return m_new, l, acc
+
+
+def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int | None = None,
+                            softcap: float | None = None,
+                            scale: float | None = None,
+                            valid_len: int | None = None,
+                            block_q: int = 1024,
+                            block_k: int = 1024) -> torch.Tensor:
+    """Chunked attention, differentiable: the JAX package's
+    ``flash_attention_chunked`` step for step (q ``[B, Hq, Tq, D]``, k/v
+    ``[B, Hkv, Tk, D]`` -> ``[B, Hq, Tq, D]`` in q's dtype).
+
+    Queries go in blocks of ``block_q`` (left-padded, keeping the right
+    alignment), keys in blocks of ``block_k`` (right-padded, masked); a
+    query block visits only the K blocks its causal and window masks
+    leave visible, and a block with none is 0. Within a query block an
+    online softmax (f32 max, sum and output) runs over the K blocks; K/V
+    are broadcast over the GQA group, masked scores are ``-1e30``, and
+    the output is ``acc / where(l == 0, 1, l)``. Each block step runs
+    under ``torch.utils.checkpoint``, as JAX's runs under
+    ``jax.checkpoint``: the backward pass recomputes a block's ``[bq,
+    bk]`` scores instead of keeping every block's probabilities.
+    """
+    B, Hq, Tq, D = q.shape
+    _, Hkv, Tk, _ = k.shape
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
+    rep = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    bq, bk = min(block_q, Tq), min(block_k, Tk)
+    tq_pad = -(-Tq // bq) * bq
+    tk_pad = -(-Tk // bk) * bk
+    end = Tk if valid_len is None else int(valid_len)
+    qp = torch.nn.functional.pad(q, (0, 0, tq_pad - Tq, 0))
+    kp = torch.nn.functional.pad(k, (0, 0, 0, tk_pad - Tk))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, tk_pad - Tk))
+    if rep > 1:
+        kp = kp[:, :, None].expand(B, Hkv, rep, tk_pad, D).reshape(
+            B, Hq, tk_pad, D)
+        vp = vp[:, :, None].expand(B, Hkv, rep, tk_pad, D).reshape(
+            B, Hq, tk_pad, D)
+    qg = qp * torch.tensor(scale, dtype=qp.dtype, device=qp.device)
+    dev = q.device
+    outs = []
+    for qi in range(tq_pad // bq):
+        qblk = qg[:, :, qi * bq:(qi + 1) * bq]
+        qpos = qi * bq + torch.arange(bq, device=dev) + (end - tq_pad)
+        # static block schedule (conservative: uses Tk, not valid_len)
+        q_last = qi * bq + bq - 1 + (Tk - tq_pad)
+        q_first = qi * bq + (Tk - tq_pad)
+        lo, hi = 0, tk_pad // bk
+        if causal:
+            hi = min(hi, q_last // bk + 1)
+        if window is not None:
+            lo = max(lo, (q_first - window + 1) // bk)
+        lo = max(min(lo, hi), 0)
+        if hi <= lo:
+            outs.append(torch.zeros((B, Hq, bq, D), dtype=torch.float32,
+                                    device=dev))
+            continue
+        m = torch.full((B, Hq, bq, 1), -1e30, device=dev)
+        l = torch.zeros((B, Hq, bq, 1), device=dev)
+        acc = torch.zeros((B, Hq, bq, D), device=dev)
+        for kb in range(lo, hi):
+            m, l, acc = checkpoint(
+                _chunk_step, m, l, acc, qblk, kp[:, :, kb * bk:(kb + 1) * bk],
+                vp[:, :, kb * bk:(kb + 1) * bk], kb * bk, qpos, end, causal,
+                window, softcap, use_reentrant=False)
+        outs.append(acc / torch.where(l == 0.0, 1.0, l))
+    out = torch.cat(outs, dim=2)
+    return out[:, :, tq_pad - Tq:].to(q.dtype)
 
 
 def _per_head(b: torch.Tensor, H: int, acc: torch.dtype) -> torch.Tensor:

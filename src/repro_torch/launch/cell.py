@@ -7,8 +7,9 @@ global_batch=1)`` from seed 0, on the f32 or the bf16 grad-sync lane,
 with the fused codec or the multipass oracle. ``arch`` and ``n_layers``
 put another ported config at full width in its place, at the same q, k
 and pipeline (``chip_smoke.py``'s SSM-family run: ``mamba2_1p3b`` at 2
-layers). ``chip_smoke.py`` and :mod:`repro_torch.launch.profile` both
-build it here.
+layers), and ``seq_len`` another sequence length (the smoke's chunked
+attention run: 2048 tokens). ``chip_smoke.py`` and
+:mod:`repro_torch.launch.profile` both build it here.
 """
 
 from __future__ import annotations
@@ -25,15 +26,15 @@ GLOBAL_BATCH = 1
 
 
 def make_cell(device=None, grad_sync_dtype="float32", codec="fused", *,
-              arch=ARCH, n_layers=N_LAYERS):
+              arch=ARCH, n_layers=N_LAYERS, seq_len=SEQ_LEN):
     """The cell's ``(trainer, pipeline)``; ``device=None`` is the current
     CUDA device, ``grad_sync_dtype`` the lane (``"float32"`` or
     ``"bfloat16"``), ``codec`` the shuffle's XOR codec (``"fused"`` or
     ``"multipass"``), ``arch`` at full width cut to ``n_layers``
-    sublayers."""
+    sublayers, on sequences of ``seq_len`` tokens."""
     cfg = get_config(arch).replace(n_layers=n_layers)
     tr = MultiModelCAMRTrainer(cfg, q=Q, k=K, seed=0, device=device,
                                grad_sync_dtype=grad_sync_dtype, codec=codec)
-    pipe = ShardedTokenPipeline(vocab=cfg.vocab, seq_len=SEQ_LEN,
+    pipe = ShardedTokenPipeline(vocab=cfg.vocab, seq_len=seq_len,
                                 global_batch=GLOBAL_BATCH)
     return tr, pipe

@@ -1,25 +1,38 @@
-"""Training launcher of the port: the paper's multi-model setting.
+"""Training launcher of the port.
+
+The paper's multi-model setting (``--multi-model``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite_3_2b \\
         --multi-model --grad-sync camr_spmd --q 2 --k 3 --steps 2 \\
         --n-layers 2 --seq-len 512 --batch 1 [--grad-sync-dtype bfloat16] \\
         [--codec multipass]
 
-runs ``MultiModelCAMRTrainer.train_steps(mode="camr_spmd")`` on the
-current CUDA device (``--device cpu`` runs the plain versions on the
-CPU, best with ``--reduced``); ``--arch`` takes any ported config: the
-dense ones, ``mamba2_1p3b`` (SSM) and ``zamba2_2p7b`` (hybrid), e.g.
+runs ``MultiModelCAMRTrainer.train_steps(mode=...)`` on the current CUDA
+device (``--device cpu`` runs the plain versions on the CPU, best with
+``--reduced``). ``--grad-sync camr_spmd`` is the stacked coded shuffle
+on the device, ``camr`` the numpy engine interpreter and ``uncoded`` the
+paper's unicast baseline (both on the host, fed from the device's map):
+all three give bitwise the same parameters. ``--arch`` takes any ported
+config: the dense ones, ``mamba2_1p3b`` (SSM) and ``zamba2_2p7b``
+(hybrid), e.g.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2_2p7b \\
-        --reduced --multi-model --grad-sync camr_spmd --steps 2 \\
+        --reduced --multi-model --grad-sync camr --steps 2 \\
         --seq-len 8 --batch 2 --device cpu
 
-(training takes the plain differentiable SSD scan; no kernel has a
-backward); ``--grad-sync-dtype bfloat16`` syncs the
-gradients on the packed 16-bit wire lane, ``--codec multipass`` through
-the multipass XOR codec (the fused codec's oracle). Only ``--multi-model
---grad-sync camr_spmd`` is ported; the single-model trainer and the
-camr/uncoded modes exit with a pointer to ROADMAP.md.
+(training takes the plain differentiable SSD scan, and past ``seq_len``
+1448 the chunked attention lane; no kernel has a backward);
+``--grad-sync-dtype bfloat16`` syncs the gradients on the packed 16-bit
+wire lane, ``--codec multipass`` through the multipass XOR codec (the
+fused codec's oracle). Without ``--multi-model`` the single-model
+``Trainer`` runs (``--microbatches`` for gradient accumulation):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite_3_2b \\
+        --reduced --steps 4 --seq-len 64 --batch 4 --microbatches 2 \\
+        --device cpu
+
+``--failed`` (the degraded schedule, ROADMAP.md Queue 1 items 5-6) and
+``--ckpt-dir`` / ``--resume`` (checkpointing, item 9) exit with a pointer.
 """
 
 from __future__ import annotations
@@ -28,11 +41,25 @@ import argparse
 import json
 import time
 
+import torch
+
 from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.data.pipeline import ShardedTokenPipeline
-from repro_torch.runtime import MultiModelCAMRTrainer
+from repro_torch.runtime import MultiModelCAMRTrainer, Trainer
 
-_LATER = "is not ported yet (ROADMAP.md, Queue 1 item 4)"
+
+def _run_single_model(cfg, pipe, args) -> None:
+    """The single-model loop: one model, one device (``--grad-sync``
+    allreduce or camr names the data-parallel wire of a multi-device
+    run; on one device there is none)."""
+    tr = Trainer(cfg, lr=args.lr, total_steps=args.steps, seed=args.seed,
+                 microbatches=args.microbatches, device=args.device)
+    t0 = time.time()
+    metrics = tr.run(pipe, steps=args.steps, log_every=1)
+    dt = time.time() - t0
+    for m in metrics:
+        print(json.dumps(m))
+    print(f"# {args.steps} steps in {dt:.1f}s on {tr.device}")
 
 
 def main(argv=None):
@@ -64,16 +91,33 @@ def main(argv=None):
                     default="fused",
                     help="the shuffle's XOR codec (multipass = the fused "
                          "codec's oracle)")
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="gradient accumulation groups (single-model)")
+    ap.add_argument("--failed", default=None,
+                    help="comma-separated failed worker ids (not ported)")
+    ap.add_argument("--ckpt-dir", default=None, help="(not ported)")
+    ap.add_argument("--resume", action="store_true", help="(not ported)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device)")
     args = ap.parse_args(argv)
 
-    if not args.multi_model:
-        raise SystemExit(f"the single-model Trainer {_LATER}; pass "
-                         "--multi-model --grad-sync camr_spmd")
-    if args.grad_sync != "camr_spmd":
-        raise SystemExit(f"--grad-sync {args.grad_sync} {_LATER}; the "
-                         "ported wire is camr_spmd")
+    if args.failed:
+        raise SystemExit("--failed: the degraded survivor-set schedule is "
+                         "not ported yet (ROADMAP.md, Queue 1 items 5-6)")
+    if args.ckpt_dir or args.resume:
+        raise SystemExit("--ckpt-dir/--resume: checkpointing is not ported "
+                         "yet (ROADMAP.md, Queue 1 item 9)")
+    if args.multi_model and args.grad_sync == "allreduce":
+        raise SystemExit("--multi-model needs --grad-sync "
+                         "camr|camr_spmd|uncoded (allreduce is the "
+                         "single-model data-parallel wire)")
+    if not args.multi_model and args.grad_sync in ("camr_spmd", "uncoded"):
+        raise SystemExit(f"--grad-sync {args.grad_sync} is a --multi-model "
+                         "wire; the single-model loop takes allreduce|camr")
+    if not args.multi_model and (args.grad_sync_dtype or
+                                 args.codec != "fused"):
+        raise SystemExit("--grad-sync-dtype and --codec are --multi-model "
+                         "options (the CAMR gradient shuffle)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -81,21 +125,27 @@ def main(argv=None):
         cfg = cfg.replace(n_layers=args.n_layers)
     pipe = ShardedTokenPipeline(vocab=cfg.vocab, seq_len=args.seq_len,
                                 global_batch=args.batch)
+    if not args.multi_model:
+        _run_single_model(cfg, pipe, args)
+        return
     tr = MultiModelCAMRTrainer(cfg, q=args.q, k=args.k, lr=args.lr,
                                seed=args.seed, router=args.router,
                                device=args.device,
                                grad_sync_dtype=args.grad_sync_dtype,
                                codec=args.codec)
     t0 = time.time()
-    rep = tr.train_steps(pipe, args.steps, mode="camr_spmd")
+    rep = tr.train_steps(pipe, args.steps, mode=args.grad_sync)
     dt = time.time() - t0
     for step, (losses, ms) in enumerate(zip(rep.losses, rep.phase_ms)):
         print(json.dumps({"step": step + 1, "losses": losses,
                           "phase_ms": ms}))
+    peak = (torch.cuda.max_memory_allocated(tr.device)
+            if tr.device.type == "cuda" else None)
     print(json.dumps({"mode": rep.mode, "bytes_total": rep.bytes_total,
                       "grad_sync_dtype": rep.grad_sync_dtype,
                       "loads": rep.loads, "sync": rep.sync,
-                      "device": str(tr.device)}))
+                      "device": str(tr.device),
+                      "peak_memory_bytes": peak}))
     print(f"# {args.steps} steps x {tr.J} models in {dt:.1f}s")
 
 

@@ -11,14 +11,15 @@ works on ``[B, H, T, Dh]``. Products of two same-dtype tensors
 accumulate in f32 inside ``torch.matmul``; mixed dtypes go through f32
 explicitly.
 
-Training attention is the plain materialized form of the JAX package's
-``repro.kernels.ref.flash_attention_ref`` — the lane ``ops.attention``
-takes there when ``Tq*Tk <= 2**21`` (``seq_len <= 1448``); a gradient
-never passes through the kernel. A prefill over a cache goes through
-``ops.attention``: the ``flash_attention`` kernel on a card. Training's
-SSD scan is likewise the plain chunked form (the JAX package's XLA
-lane, ``use_pallas=False``), chosen by the mode: no kernel has a
-backward.
+Training attention is the JAX package's XLA lane
+(:func:`repro_torch.kernels.ops.plain_attention`): the materialized
+``flash_attention_ref`` up to ``Tq*Tk = 2**21`` (``seq_len`` 1448), the
+chunked ``flash_attention_chunked`` past it; a gradient never passes
+through the kernel. A prefill over a cache goes through
+``ops.attention``: the ``flash_attention`` kernel on a card at any
+length. Training's SSD scan is likewise the plain chunked form (the JAX
+package's XLA lane, ``use_pallas=False``), chosen by the mode: no
+kernel has a backward.
 """
 
 from __future__ import annotations
@@ -27,15 +28,11 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from ..kernels.ref import flash_attention_ref, ssd_chunked
+from ..kernels.ref import ssd_chunked
 from ..kernels.ssd_scan import CHUNK
 
-__all__ = ["dense", "rms_norm", "rope", "attention_ref", "attention_block",
-           "mlp_block", "softplus", "ssm_block", "ATTN_MAX_SCORES"]
-
-#: Tq*Tk above which the JAX package switches to its chunked attention
-#: lane, not ported yet
-ATTN_MAX_SCORES = 2 ** 21
+__all__ = ["dense", "rms_norm", "rope", "attention_block", "mlp_block",
+           "softplus", "ssm_block"]
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -65,23 +62,6 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
-
-
-def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
-                  scale=None):
-    """Materialized attention of the training lane: the plain
-    ``flash_attention`` (:func:`repro_torch.kernels.ref.
-    flash_attention_ref`, differentiable) with every key valid."""
-    return flash_attention_ref(q, k, v, causal=causal, window=window,
-                               softcap=softcap, scale=scale)
-
-
-def _check_materialized(T: int, where: str) -> None:
-    if T * T > ATTN_MAX_SCORES:
-        raise NotImplementedError(
-            f"seq_len {T}: Tq*Tk > 2**21 takes the chunked attention lane "
-            f"in the JAX package, which is not ported yet ({where}; "
-            "ROADMAP.md, Queue 1: the chunked training-attention lane)")
 
 
 def _decode_attention(q, k, v, cache, rows, **kw):
@@ -118,14 +98,14 @@ def attention_block(p, x, positions, cfg, *, window=None, softcap=None,
                     causal=True, cache=None, cache_index=None):
     """Self-attention with GQA and RoPE; returns ``(out, new_cache)``.
 
-    * ``cache=None`` (training): the plain materialized attention, up to
-      ``seq_len`` 1448; ``new_cache`` is None.
+    * ``cache=None`` (training): the plain attention (materialized up to
+      ``seq_len`` 1448, chunked past it); ``new_cache`` is None.
     * contiguous cache ``{"k", "v": [B, Hkv, Tmax, Dh]}``, prefill (``T >
       1``): the k/v are written at ``cache_index`` (an int) and the step
       attends over its fresh ``(k, v)`` through
       :func:`repro_torch.kernels.ops.attention` (the ``flash_attention``
-      kernel on a card, at any length; the plain version on the CPU, up
-      to 1448).
+      kernel on a card, at any length; on the CPU the plain version up to
+      1448 tokens and the chunked lane past it).
     * decode (``T == 1``), over the contiguous cache or the paged one
       ``{"k", "v": [P, Hkv, page, Dh], "pages": i32[B, npp]}``:
       ``cache_index`` is an int (every row at one position) or host ints,
@@ -146,8 +126,7 @@ def attention_block(p, x, positions, cfg, *, window=None, softcap=None,
     kw = dict(causal=causal, window=window, softcap=softcap)
 
     if cache is None:
-        _check_materialized(T, "training")
-        out = attention_ref(q, k, v, **kw)
+        out = ops.plain_attention(q, k, v, **kw)
     elif T == 1:
         rows = (cache_index if isinstance(cache_index, list)
                 else [int(cache_index)] * cache["k"].shape[0])
@@ -158,8 +137,6 @@ def attention_block(p, x, positions, cfg, *, window=None, softcap=None,
         i = int(cache_index)
         cache["k"][:, :, i:i + T] = k
         cache["v"][:, :, i:i + T] = v
-        if x.device.type == "cpu":
-            _check_materialized(T, "prefill on the CPU")
         out = ops.attention(q, k, v, **kw)
     out = out.transpose(1, 2).reshape(B, T, hq * dh)
     return dense(out, p["wo"]), cache

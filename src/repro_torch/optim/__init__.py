@@ -1,5 +1,6 @@
 """Optimiser of the port."""
 
 from .adamw import AdamWState, adamw_update
+from .schedule import cosine_schedule, linear_warmup
 
-__all__ = ["AdamWState", "adamw_update"]
+__all__ = ["AdamWState", "adamw_update", "cosine_schedule", "linear_warmup"]

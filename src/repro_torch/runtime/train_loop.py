@@ -1,8 +1,14 @@
-"""The paper's multi-model trainer on one card: J = q^(k-1) models whose
-per-batch gradients are aggregated through the CAMR coded shuffle.
+"""Training loops of the port.
 
-Counterpart of ``repro.runtime.train_loop.MultiModelCAMRTrainer`` with
-``mode="camr_spmd"``, on the f32 or the bf16 grad-sync lane. Per step:
+* :class:`Trainer` — the single-model loop, the twin of
+  ``repro.runtime.train_loop.Trainer``: microbatch gradient accumulation,
+  the cosine schedule and AdamW (global-norm clip), on the trainer's
+  device. Checkpointing is not ported yet (ROADMAP.md, Queue 1 item 9).
+* :class:`MultiModelCAMRTrainer` — the paper's setting: J = q^(k-1)
+  models whose per-batch gradients are aggregated through the CAMR
+  coded shuffle, on the f32 or the bf16 grad-sync lane.
+
+The multi-model step, in ``mode="camr_spmd"``:
 
 1. **map** — every (job, subfile) batch is mapped once to the gradient of
    its model's loss w.r.t. the flat f32 parameter row (computation
@@ -24,9 +30,24 @@ Counterpart of ``repro.runtime.train_loop.MultiModelCAMRTrainer`` with
    worker-sharded AdamW update of the flat f32 ``[J, Dpad]`` master,
    moments updated in place.
 
-Everything stays on the card: the JAX trainer's host round trip of each
-gradient is not carried over. Float32 products run in full f32: while
-``train_steps`` runs on a card, TF32 and reduced-precision bf16
+The paper's two host wires run the same map on the device and send
+each memo row to the host once: ``mode="camr"`` drives the numpy
+:class:`~repro_torch.core.engine.CAMREngine` through a
+:class:`~repro_torch.runtime.jobstream.JobStream` wave (byte-exact
+accounting), ``mode="uncoded"`` the unicast baseline
+:class:`~repro_torch.core.baselines.UncodedAggregatedEngine`. Their
+``[K, J, d]`` result goes back to the device into the same update. On
+the bf16 lane the engines see the rows as ``uint16`` bit patterns and
+combine them with :func:`bf16_add` (numpy has no bf16). All three modes
+give bitwise the same parameters on each lane: the XOR transport is
+lossless and every executor folds in the engine's canonical order. In
+the host modes, ``phase_ms``'s "aggregate" is the copy of the memo to
+the host and "shuffle" the engine's run (its per-batch combine, the
+shuffle and the reduce) with the copy back.
+
+The camr_spmd step stays on the card: the JAX trainer's host round trip
+of each gradient is not carried over there. Float32 products run in full
+f32: while a trainer runs on a card, TF32 and reduced-precision bf16
 reductions are switched off, and the caller's settings are restored when
 it returns. The synced gradient of the same per-subfile gradients is
 bitwise the JAX trainer's, on both lanes; parameters match it within
@@ -44,16 +65,23 @@ import torch
 
 from ..configs import ModelConfig
 from ..core import loads as Lo
+from ..core.baselines import UncodedAggregatedEngine
 from ..core.collective import (CODECS, ShuffleStream, camr_collective_bytes,
                                make_plan)
+from ..core.engine import CAMRConfig
 from ..data.pipeline import ShardedTokenPipeline, make_camr_job_datasets
 from ..device import resolve_device
 from ..kernels.aggregate import aggregate
 from ..models import lm
-from ..optim import AdamWState, adamw_update
+from ..optim import AdamWState, adamw_update, cosine_schedule
 from ..weights import flat_spec, ravel, split, tree, unravel
+from .jobstream import JobSpec, JobStream
 
-__all__ = ["CAMRTrainReport", "MultiModelCAMRTrainer", "PHASES"]
+__all__ = ["CAMRTrainReport", "MultiModelCAMRTrainer", "PHASES", "Trainer",
+           "bf16_add"]
+
+#: the multi-model trainer's grad-sync wires
+MODES = ("camr", "camr_spmd", "uncoded")
 
 #: the step's phases, in order, as timed in ``CAMRTrainReport.phase_ms``
 PHASES = ("map", "aggregate", "shuffle", "update")
@@ -77,6 +105,23 @@ def _mean_losses(per_job: list) -> list[float]:
     grad-sync mode averages in the same order; an empty map is NaN)."""
     return [float(np.mean([d[n] for n in sorted(d)])) if d
             else float("nan") for d in per_job]
+
+
+def _bf16_bits(x: np.ndarray) -> np.ndarray:
+    """f32 -> bf16 bit patterns (``uint16``), rounded to nearest even."""
+    u = x.view(np.uint32)
+    return ((u + ((u >> 16) & 1) + 0x7FFF) >> 16).astype(np.uint16)
+
+
+def bf16_add(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The engines' combiner on the bf16 lane: ``a`` and ``b`` are bf16
+    bit patterns (``uint16``); their sum is taken in f32 and rounded to
+    nearest even, as ``np.add`` on ``ml_dtypes.bfloat16`` arrays (the JAX
+    trainer's combiner) rounds it. One module-level function, so that
+    :meth:`JobSpec.shape_key`, which keys on the combiner, sees one
+    object."""
+    f = lambda h: (np.asarray(h).astype(np.uint32) << 16).view(np.float32)
+    return _bf16_bits(f(a) + f(b))
 
 
 @contextlib.contextmanager
@@ -137,6 +182,10 @@ class MultiModelCAMRTrainer:
     kernels) or ``"multipass"`` (the oracle that materializes the chunk
     and cancellation tables; the same synced gradient, bitwise).
 
+    ``failed`` (and :meth:`set_failed`) takes a failed-worker set; only
+    the healthy cluster (``None`` or empty) is ported, a failed set is
+    refused (ROADMAP.md, Queue 1 items 5-6).
+
     ``grad_sync_dtype`` is the shuffle payload dtype: ``"float32"`` or
     ``"bfloat16"`` (mixed-precision grad sync: gradients rounded to bf16
     once at the map memo, synced on the packed 16-bit wire lane at half
@@ -152,7 +201,8 @@ class MultiModelCAMRTrainer:
     def __init__(self, cfg: ModelConfig, *, q: int, k: int,
                  lr: float = 1e-3, seed: int = 0, params=None,
                  codec: str = "fused", router: str = "all_to_all",
-                 device=None, grad_sync_dtype: str | None = None):
+                 device=None, grad_sync_dtype: str | None = None,
+                 failed=None):
         gsd = (cfg.grad_sync_dtype if grad_sync_dtype is None
                else grad_sync_dtype)
         name = str(gsd).removeprefix("torch.")
@@ -168,9 +218,15 @@ class MultiModelCAMRTrainer:
                              f"bfloat16, got {name}")
         if codec not in CODECS:
             raise ValueError(f"unknown codec {codec!r}")
+        self.set_failed(failed)
         self.device = resolve_device(device)
         self.grad_sync_dtype = name
         self._sync_dtype = getattr(torch, name)
+        #: the host engines' value dtype: f32, or the bf16 bit patterns
+        self._sync_np = np.dtype(np.float32 if name == "float32"
+                                 else np.uint16)
+        self._combine = np.add if name == "float32" else bf16_add
+        self.camr = CAMRConfig(q=q, k=k, gamma=1)
         self.cfg, self.q, self.k = cfg, q, k
         self.K, self.J, self.N = q * k, q ** (k - 1), k   # gamma = 1
         J, K = self.J, self.K
@@ -283,6 +339,67 @@ class MultiModelCAMRTrainer:
         report.sync = stream.stats()
         return out
 
+    # -- the host wires ------------------------------------------------ #
+    def _host_row(self, row: torch.Tensor) -> np.ndarray:
+        """A memo row ``[Dpad]`` -> the engines' map value ``[K, d]`` on
+        the host (f32, or bf16 bit patterns as ``uint16``)."""
+        row = row.view(self.K, self.d_shard)
+        if row.dtype == torch.bfloat16:
+            return row.view(torch.int16).cpu().numpy().view(np.uint16)
+        return row.cpu().numpy()
+
+    def _device_sync(self, gs: np.ndarray) -> torch.Tensor:
+        """The host wires' ``[K, J, d]`` back on the device, in the sync
+        dtype."""
+        if gs.dtype == np.uint16:
+            return torch.from_numpy(gs.view(np.int16)).view(
+                torch.bfloat16).to(self.device)
+        return torch.from_numpy(gs).to(self.device)
+
+    def _assemble(self, results) -> np.ndarray:
+        """Engine result dicts -> gsync ``[K, J, d]`` (pure data
+        movement)."""
+        J, K = self.J, self.K
+        gs = np.empty((K, J, self.d_shard), self._sync_np)
+        for s in range(K):
+            for j in range(J):
+                gs[s, j] = results[s][(j, s)]
+        return gs
+
+    def _sync_interpreter(self, map_fn, datasets, report) -> np.ndarray:
+        """``mode="camr"``: one healthy :class:`JobStream` wave over the
+        numpy :class:`~repro_torch.core.engine.CAMREngine`."""
+        stream = JobStream(pipeline=False)
+        spec = JobSpec(self.camr, map_fn, datasets, combine=self._combine,
+                       name=f"train-step{self.step}",
+                       value_dtype=self._sync_np)
+        results = stream.run([spec])[0]
+        eng = stream.last_engines[0]
+        report.loads = eng.measured_loads()
+        report.bytes_total += eng.trace.total_bytes()
+        return self._assemble(results)
+
+    def _sync_uncoded(self, map_fn, datasets, report) -> np.ndarray:
+        """``mode="uncoded"``: the paper's unicast baseline."""
+        eng = UncodedAggregatedEngine(self.q, self.k, 1, map_fn,
+                                      combine=self._combine)
+        results = eng.run(datasets)
+        report.loads = {"L_total_bus": eng.measured_load()}
+        report.bytes_total += eng.trace.total_bytes()
+        return self._assemble(results)
+
+    def set_failed(self, failed) -> None:
+        """Membership between steps. Only the healthy cluster is ported:
+        a non-empty failed set raises (the degraded executor and the
+        elastic runtime are ROADMAP.md, Queue 1 items 5-6)."""
+        if failed:
+            raise NotImplementedError(
+                f"failed workers {sorted(failed)}: the degraded survivor-"
+                "set schedule and the elastic runtime are not ported yet "
+                "(ROADMAP.md, Queue 1 items 5-6); only the healthy "
+                "cluster trains")
+        self.failed = None
+
     def _apply(self, gsync: torch.Tensor) -> None:
         """The worker-sharded AdamW update from ``gsync [K, J, d]`` (worker
         s holds shard s of every job's summed gradient; consumed). The
@@ -298,25 +415,21 @@ class MultiModelCAMRTrainer:
     # ------------------------------------------------------------------ #
     def train_steps(self, pipeline: ShardedTokenPipeline, steps: int,
                     mode: str = "camr_spmd") -> CAMRTrainReport:
-        """Run ``steps`` training steps; ``self.step`` advances, so
-        consecutive calls continue the same data stream."""
-        if mode in ("camr", "uncoded"):
-            raise NotImplementedError(
-                f"mode={mode!r} is not ported yet (ROADMAP.md, Queue 1 "
-                "item 4: the camr/uncoded grad-sync modes and the engine "
-                "twins); use mode='camr_spmd'")
-        if mode != "camr_spmd":
+        """Run ``steps`` training steps over the grad-sync wire ``mode``
+        (``"camr_spmd"``, ``"camr"`` or ``"uncoded"``); ``self.step``
+        advances, so consecutive calls continue the same data stream."""
+        if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; choose from "
-                             "['camr', 'camr_spmd', 'uncoded']")
+                             f"{list(MODES)}")
         report = CAMRTrainReport(mode=mode,
                                  grad_sync_dtype=self.grad_sync_dtype)
         with _full_f32(self.device):
             for _ in range(steps):
-                self._step(pipeline, report)
+                self._step(pipeline, report, mode)
         return report
 
-    def _step(self, pipeline: ShardedTokenPipeline,
-              report: CAMRTrainReport) -> None:
+    def _step(self, pipeline: ShardedTokenPipeline, report: CAMRTrainReport,
+              mode: str) -> None:
         J, N = self.J, self.N
         clock = _PhaseClock(self.device)
         clock.mark()
@@ -337,11 +450,21 @@ class MultiModelCAMRTrainer:
             for n in range(N):
                 map_fn(j, datasets[j][n])
         clock.mark()
-        contribs = self._build_contribs(map_fn, datasets)
-        cache.clear()                     # drop the memo: contribs hold it
-        clock.mark()
-        gsync = self._sync_spmd(contribs, report)
-        del contribs
+        if mode == "camr_spmd":
+            contribs = self._build_contribs(map_fn, datasets)
+            cache.clear()                 # drop the memo: contribs hold it
+            clock.mark()
+            gsync = self._sync_spmd(contribs, report)
+            del contribs
+        else:
+            host = {key: self._host_row(row) for key, row in cache.items()}
+            cache.clear()                 # each row went to the host once
+            clock.mark()
+            sync = (self._sync_interpreter if mode == "camr"
+                    else self._sync_uncoded)
+            gsync = self._device_sync(sync(
+                lambda j, subfile: host[(j, subfile[0])], datasets, report))
+            del host
         clock.mark()
         self._apply(gsync)
         del gsync
@@ -350,3 +473,119 @@ class MultiModelCAMRTrainer:
         report.losses.append(_mean_losses(
             [{n: float(v) for n, v in d.items()} for d in self._last_loss]))
         self.step += 1
+
+
+class Trainer:
+    """The single-model loop: the twin of ``repro.runtime.train_loop
+    .Trainer``. A step maps the pipeline's batch in ``microbatches``
+    equal groups (the loss and gradient averaged over them, summed in
+    f32), clips by the global norm, and applies AdamW at the cosine
+    schedule's rate of the step.
+
+    ``params`` gives the initial tree (e.g. the JAX ``init_params``
+    through :func:`repro_torch.weights.params_from_jax`); else it is
+    drawn from a ``torch.Generator`` seeded with ``seed``. The state is
+    the flat f32 row of ``ravel(params)`` with its moments; after each
+    update every leaf is rounded back to its own dtype, as the JAX loop
+    keeps its parameters in theirs. ``device=None`` is the current CUDA
+    device. ``ckpt_dir`` and :meth:`resume` are refused: checkpointing is
+    ROADMAP.md, Queue 1 item 9.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, lr: float = 3e-4,
+                 warmup: int = 20, total_steps: int = 1000,
+                 ckpt_dir: str | None = None, seed: int = 0, params=None,
+                 microbatches: int = 1, device=None):
+        if ckpt_dir is not None:
+            raise NotImplementedError(_NO_CKPT)
+        if microbatches < 1:
+            raise ValueError(f"microbatches must be >= 1, got "
+                             f"{microbatches}")
+        self.device = resolve_device(device)
+        self.cfg, self.microbatches = cfg, microbatches
+        self.lr, self.warmup, self.total = lr, warmup, total_steps
+        if params is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(int(np.random.SeedSequence([seed])
+                                .generate_state(1)[0]))
+            params = lm.init_params(cfg, gen)
+        self._spec = flat_spec(params)
+        self._all_f32 = all(dt == torch.float32 for dt in self._spec.dtypes)
+        self.flat = ravel(params).to(self.device, torch.float32)[None]
+        self.opt = AdamWState(
+            step=torch.zeros((1,), dtype=torch.int32, device=self.device),
+            mu=torch.zeros_like(self.flat), nu=torch.zeros_like(self.flat))
+        self.step = 0
+
+    @property
+    def params(self) -> dict:
+        return unravel(self.flat[0], self._spec)
+
+    def _loss_grad(self, batch: dict):
+        """Loss and the flat f32 gradient of one microbatch."""
+        ps = [t.detach().requires_grad_(True)
+              for t in split(self.flat[0], self._spec)]
+        loss, _ = lm.train_loss(self.cfg, tree(self._spec, ps), batch)
+        grads = torch.autograd.grad(loss, ps)
+        return loss.detach(), torch.cat([g.reshape(-1).float()
+                                         for g in grads])
+
+    def _round_leaves(self, flat: torch.Tensor) -> torch.Tensor:
+        """Each leaf's segment of ``flat`` rounded to the leaf's dtype."""
+        return torch.cat([t.reshape(-1).float()
+                          for t in split(flat, self._spec)])
+
+    def _train_step(self, batch: dict) -> dict:
+        nmb = self.microbatches
+        if nmb == 1:
+            loss, g = self._loss_grad(batch)
+        else:
+            B = batch["tokens"].shape[0]
+            if B % nmb:
+                raise ValueError(f"batch {B} must divide by microbatches "
+                                 f"{nmb}")
+            loss = torch.zeros((), device=self.device)
+            g = torch.zeros(self._spec.size, device=self.device)
+            for i in range(nmb):
+                mb = {key: v[i * (B // nmb):(i + 1) * (B // nmb)]
+                      for key, v in batch.items()}
+                ml, mg = self._loss_grad(mb)
+                loss, g = loss + ml, g + mg
+            loss, g = loss / nmb, g / nmb
+        # the global-norm clip, in each gradient leaf's dtype (a single
+        # microbatch's gradient leaves are in the parameters' dtypes)
+        gnorm = torch.sqrt(torch.sum(torch.square(g)))
+        g = g * torch.clamp(1.0 / torch.clamp(gnorm, min=1e-9), max=1.0)
+        if nmb == 1 and not self._all_f32:
+            g = self._round_leaves(g)
+        lr = cosine_schedule(self.step, peak=self.lr,
+                             warmup_steps=self.warmup,
+                             total_steps=self.total).to(self.device)
+        adamw_update(self.flat, g[None], self.opt, lr=lr,
+                     max_grad_norm=None)
+        if not self._all_f32:
+            self.flat[0] = self._round_leaves(self.flat[0])
+        return {"loss": loss, "gnorm": gnorm, "lr": lr}
+
+    def run(self, pipeline: ShardedTokenPipeline, steps: int,
+            log_every: int = 10) -> list:
+        """``steps`` steps; returns the metrics of step 1 and of every
+        ``log_every``-th step."""
+        metrics = []
+        with _full_f32(self.device):
+            for _ in range(steps):
+                batch = {key: torch.as_tensor(v, device=self.device)
+                         for key, v in pipeline.batch(self.step).items()}
+                m = self._train_step(batch)
+                self.step += 1
+                if self.step % log_every == 0 or self.step == 1:
+                    metrics.append({key: float(v) for key, v in m.items()}
+                                   | {"step": self.step})
+        return metrics
+
+    def resume(self):
+        raise NotImplementedError(_NO_CKPT)
+
+
+_NO_CKPT = ("checkpointing (ckpt_dir=, resume()) is not ported yet "
+            "(ROADMAP.md, Queue 1 item 9: checkpoint/ckpt.py)")

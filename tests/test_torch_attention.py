@@ -8,7 +8,12 @@ Tolerances, and why: against the Pallas kernel 2e-5 in f32 and 2e-2 in
 bf16, those of ``tests/test_kernels.py`` (the online softmax sums in
 another order than the materialized one; bf16 rounds the output);
 against the JAX reference 1e-5 (the same materialized f32 math, summed
-by XLA and by PyTorch in other orders).
+by XLA and by PyTorch in other orders). The chunked lane past 1448
+tokens against JAX's ``flash_attention_chunked`` at 1e-5 in f32 (the
+same block schedule and online softmax) and 2e-2 in bf16 (the
+probabilities rounded to bf16 before P V on both sides, summed in
+other orders); prefill logits past 1448 tokens at 1e-4, as
+``tests/test_torch_serve.py`` holds them.
 """
 
 import ml_dtypes
@@ -16,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.configs import get_config as jax_get_config
@@ -23,10 +29,11 @@ from repro.configs import reduced as jax_reduced
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.models import layers as jlayers
+from repro.models import lm as jlm
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import KERNELS, flash_attention, launch_counts, ops
-from repro_torch.kernels.ref import flash_attention_ref
-from repro_torch.models import layers
+from repro_torch.kernels.ref import flash_attention_chunked, flash_attention_ref
+from repro_torch.models import layers, lm
 from repro_torch.weights import params_from_jax
 
 from chip_smoke_module import chip_smoke
@@ -236,22 +243,113 @@ def test_attention_block_prefill_then_decode_matches_jax(arch):
 
 
 def test_materialized_lanes_keep_the_1448_limit():
-    """Training and a CPU prefill past ``seq_len`` 1448 take the JAX
-    package's chunked lane, not ported: they raise with a pointer."""
+    """Training and a CPU prefill keep the materialized attention up to
+    ``seq_len`` 1448 (``Tq*Tk <= 2**21``) and take the chunked lane past
+    it, with the same outputs as the materialized attention there."""
     cfg = reduced(get_config("granite_3_2b"))
     d = cfg.d_model
-    p = {"wq": torch.zeros((d, cfg.n_heads * cfg.hd)),
-         "wk": torch.zeros((d, cfg.n_kv_heads * cfg.hd)),
-         "wv": torch.zeros((d, cfg.n_kv_heads * cfg.hd)),
-         "wo": torch.zeros((cfg.n_heads * cfg.hd, d))}
-    x = torch.zeros((1, 1449, d))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layers.attention_block(p, x, torch.arange(1449), cfg)
-    cache = {"k": torch.zeros((1, cfg.n_kv_heads, 1449, cfg.hd)),
-             "v": torch.zeros((1, cfg.n_kv_heads, 1449, cfg.hd))}
-    with pytest.raises(NotImplementedError, match="prefill on the CPU"):
-        layers.attention_block(p, x, torch.arange(1449), cfg, cache=cache,
-                               cache_index=0)
+    gen = torch.Generator().manual_seed(0)
+    p = {name: torch.randn(shape, generator=gen) * d ** -0.5
+         for name, shape in (("wq", (d, cfg.n_heads * cfg.hd)),
+                             ("wk", (d, cfg.n_kv_heads * cfg.hd)),
+                             ("wv", (d, cfg.n_kv_heads * cfg.hd)),
+                             ("wo", (cfg.n_heads * cfg.hd, d)))}
+    assert 1448 ** 2 <= ops.CHUNK_THRESHOLD < 1449 ** 2
+    calls = []
+    real = ops.flash_attention_chunked
+
+    def counted(*a, **kw):
+        calls.append(a[0].shape[2])
+        return real(*a, **kw)
+
+    def run(T, cached):
+        x = torch.randn((1, T, d), generator=torch.Generator().manual_seed(T))
+        cache = ({"k": torch.zeros((1, cfg.n_kv_heads, T, cfg.hd)),
+                  "v": torch.zeros((1, cfg.n_kv_heads, T, cfg.hd))}
+                 if cached else None)
+        out, _ = layers.attention_block(p, x, torch.arange(T), cfg,
+                                        cache=cache, cache_index=0)
+        return out
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(ops, "flash_attention_chunked", counted)
+    try:
+        for cached in (False, True):
+            run(1448, cached)
+            assert calls == []
+            got = run(1449, cached)
+            assert calls == [1449]
+            calls.clear()
+            mp.setattr(ops, "CHUNK_THRESHOLD", float("inf"))
+            want = run(1449, cached)
+            mp.setattr(ops, "CHUNK_THRESHOLD", 2 ** 21)
+            assert calls == []
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    finally:
+        mp.undo()
+
+
+# B, Hq, Hkv, T, D, causal, window, softcap, block_q, block_k: past 1448
+# tokens at the JAX package's blocks of 1024, and smaller blocks that
+# give several query and key blocks (skipped blocks, a padded last one)
+CHUNKED_CASES = [
+    (1, 4, 2, 1500, 16, True, None, None, 1024, 1024),     # GQA, causal
+    (1, 2, 1, 1600, 16, True, 300, None, 512, 256),        # window
+    (1, 2, 2, 1500, 16, True, None, 30.0, 1024, 1024),     # softcap
+    (2, 4, 1, 700, 16, False, None, None, 256, 192),       # bidirectional
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,T,D,causal,window,softcap,bq,bk",
+                         CHUNKED_CASES)
+def test_chunked_lane_matches_jax(B, Hq, Hkv, T, D, causal, window, softcap,
+                                  bq, bk):
+    q, k, v = _inputs(B, Hq, Hkv, T, T, D, "float32", seed=T)
+    kw = dict(causal=causal, window=window, softcap=softcap, block_q=bq,
+              block_k=bk)
+    want = jref.flash_attention_chunked(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), **kw)
+    got = flash_attention_chunked(_torch(q), _torch(k), _torch(v), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    if bq == bk == 1024:     # the materialized attention of the same call
+        np.testing.assert_allclose(
+            got.numpy(), flash_attention_ref(
+                _torch(q), _torch(k), _torch(v), causal=causal,
+                window=window, softcap=softcap).numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_chunked_lane_bf16_matches_jax():
+    q, k, v = _inputs(1, 4, 2, 1500, 1500, 16, "bfloat16", seed=11)
+    want = jref.flash_attention_chunked(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), window=700)
+    got = flash_attention_chunked(_torch(q), _torch(k), _torch(v),
+                                  window=700)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want).astype(np.float32),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_cpu_prefill_past_1448_matches_jax():
+    """A 1456-token prefill of reduced granite on the CPU (the chunked
+    lane in both packages) against JAX's logits and cache."""
+    jcfg = jax_reduced(jax_get_config("granite_3_2b"))
+    cfg = reduced(get_config("granite_3_2b"))
+    jp = jlm.init_params(jcfg, jax.random.PRNGKey(2))
+    p = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (1, 1456)) \
+        .astype(np.int32)
+    jl, jc = jlm.prefill(jcfg, jp, {"tokens": jnp.asarray(toks)},
+                         max_len=1460)
+    tl, tc = lm.prefill(cfg, p, {"tokens": torch.from_numpy(toks)},
+                        max_len=1460)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                               atol=1e-4)
+    for name in lm.slot_names(cfg):
+        np.testing.assert_allclose(tc[name]["self"]["k"].numpy(),
+                                   np.asarray(jc[name]["self"]["k"]),
+                                   rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("window", [4095, 4097])

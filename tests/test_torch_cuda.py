@@ -354,6 +354,73 @@ def test_cuda_ssm_and_hybrid_trainer_step_matches_cpu(cuda_device, arch):
                     "flash_attention": 0, "ssd_scan": 0}
 
 
+def test_cuda_chunked_lane_matches_materialized(cuda_device):
+    """``chip_smoke.py``'s chunked-lane gate at a reduced width: one
+    subfile's loss and flat gradient at 2048 tokens through the chunked
+    attention (taken once per layer) against the materialized one on the
+    card, f32 with TF32 off, at the dense tolerances of
+    tests/test_torch_train.py (loss rtol 1e-5, gradient rtol 1e-4 /
+    atol 1e-6)."""
+    from repro_torch.runtime.train_loop import _full_f32
+    from repro_torch.weights import flat_spec, ravel, unravel
+    cfg = reduced(get_config("granite_3_2b")).replace(loss_chunk=512)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = lm.init_params(cfg, gen)
+    spec = flat_spec(params)
+    batch = {k: torch.as_tensor(v, device=cuda_device) for k, v in
+             ShardedTokenPipeline(vocab=cfg.vocab, seq_len=2048,
+                                  global_batch=1).batch(0).items()}
+    out = []
+    real = ops.flash_attention_chunked
+    for threshold in (ops.CHUNK_THRESHOLD, float("inf")):
+        calls = []
+        mp = pytest.MonkeyPatch()
+        mp.setattr(ops, "CHUNK_THRESHOLD", threshold)
+        mp.setattr(ops, "flash_attention_chunked",
+                   lambda *a, **kw: calls.append(1) or real(*a, **kw))
+        try:
+            with _full_f32(cuda_device):
+                row = ravel(params).requires_grad_(True)
+                loss, _ = lm.train_loss(cfg, unravel(row, spec), batch)
+                grad, = torch.autograd.grad(loss, row)
+        finally:
+            mp.undo()
+        assert len(calls) == (cfg.n_layers if threshold < 2 ** 22 else 0)
+        out.append((float(loss.detach()), grad.cpu().numpy()))
+    (l1, g1), (l2, g2) = out
+    np.testing.assert_allclose(l1, l2, rtol=1e-5)
+    np.testing.assert_allclose(g1, g2, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("lane", ["float32", "bfloat16"])
+def test_cuda_three_modes_are_bitwise_equal(cuda_device, lane):
+    """``chip_smoke.py``'s three-mode gate at a tiny size: camr_spmd, camr
+    and uncoded trainers from one seed on the card give bitwise the same
+    parameters and losses after 2 steps; only camr_spmd launches the
+    lane's codec kernels."""
+    cfg = reduced(get_config("granite_3_2b")).replace(vocab=64, loss_chunk=8)
+    pipe = ShardedTokenPipeline(vocab=64, seq_len=8, global_batch=2)
+    runs = {}
+    for mode in ("camr_spmd", "camr", "uncoded"):
+        tr = MultiModelCAMRTrainer(cfg, q=2, k=3, device=cuda_device, seed=2,
+                                   grad_sync_dtype=lane)
+        before = launch_counts()
+        rep = tr.train_steps(pipe, 2, mode=mode)
+        after = launch_counts()
+        runs[mode] = (tr.flat.cpu(), rep,
+                      sum(after[n] - before[n] for n in after))
+    flat0, rep0, n0 = runs["camr_spmd"]
+    assert n0 == 2 * (2 + 2 + 6)
+    for mode in ("camr", "uncoded"):
+        flat, rep, n = runs[mode]
+        assert n == 0
+        assert torch.equal(flat.view(torch.int32), flat0.view(torch.int32))
+        assert rep.losses == rep0.losses
+    # 2 steps of the paper's load 1: J * Q values of d_shard each
+    d_shard = flat0.shape[1] // 6
+    width = {"float32": 4, "bfloat16": 2}[lane]
+    assert runs["camr"][1].bytes_total == 2 * 4 * 6 * d_shard * width
+
 # B, Hq, Hkv, Tq, Tk, D, causal, window, softcap: tests/test_kernels.py's
 # ATTN_CASES, granite's prefill (32/8 heads, D 64), gemma2's (8/4 heads,
 # D 256, softcap 50, window 4096; a window that binds at 300), zamba2's

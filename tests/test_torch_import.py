@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: ``import repro_torch`` (and every module
-of it) never loads jax, no port file imports jax or the JAX package, and
-the numpy modules the port keeps its own copies of stay source-identical
-to their originals apart from import lines."""
+of it) never loads jax or ``ml_dtypes``, no port file imports jax, the
+JAX package or ``ml_dtypes`` (the card's machine has none: the bf16 grad-
+sync lane hands the numpy engines bit patterns), and the numpy modules
+the port keeps its own copies of stay source-identical to their
+originals apart from import lines."""
 
 import ast
 import os
@@ -25,7 +27,7 @@ _IMPORT_ALL = textwrap.dedent("""
     assert len(names) >= 20, names
     assert "repro_torch.kernels.ops" in names, names
     bad = sorted(m for m in sys.modules
-                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+                 if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
     assert not bad, bad
     print("OK", len(names))
 """)
@@ -91,9 +93,20 @@ def _strip_imports(path):
     return out
 
 
+def test_no_port_file_imports_ml_dtypes():
+    """numpy has no bf16 without ``ml_dtypes``; the port and the smoke
+    carry bf16 as torch tensors or as ``uint16`` bit patterns."""
+    bad = [os.path.relpath(path, ROOT) for path in _port_files()
+           if "ml_dtypes" in set(_imported_roots(path))]
+    assert not bad, bad
+
+
 @pytest.mark.parametrize("rel", ["core/designs.py", "core/placement.py",
                                  "core/schedule.py", "core/loads.py",
-                                 "data/pipeline.py"])
+                                 "data/pipeline.py", "core/shuffle.py",
+                                 "core/engine.py", "core/baselines.py",
+                                 "runtime/jobstream.py",
+                                 "configs/paper_wordcount.py"])
 def test_numpy_copies_source_identical(rel):
     assert _strip_imports(os.path.join(PORT, rel)) == \
         _strip_imports(os.path.join(REF, rel))

@@ -34,7 +34,17 @@ Tolerances, and why:
   bitwise the fused codec trainer's (same map, bitwise the same synced
   gradient), and its synced gradient is bitwise that of the JAX trainer
   with ``codec="multipass"`` on a 6-device mesh, given its per-subfile
-  gradients.
+  gradients;
+* the chunked attention lane (``seq_len`` 1536, past the switch point of
+  1448): loss and flat gradient at the dense tolerances above;
+* the paper's ``camr`` and ``uncoded`` wires: parameters and losses
+  bitwise ``camr_spmd``'s on both lanes (one map, a lossless transport,
+  one canonical combine order, one update), and given the JAX trainer's
+  per-subfile gradients the port's host engines give its ``camr``
+  synced gradient, bitwise, with the same wire bytes;
+* the single-model ``Trainer``: 2 steps against JAX's, losses rtol 1e-5
+  at step 1 (the same parameters) and 1e-4 at step 2, the learning rate
+  bitwise (the same f32 schedule), parameters atol 2e-5 (as above).
 """
 
 import json
@@ -64,7 +74,7 @@ from repro_torch.core.collective import (ShuffleStream, camr_collective_bytes,
 from repro_torch.launch import cell
 from repro_torch.launch import train as launch_train
 from repro_torch.models import lm
-from repro_torch.runtime import MultiModelCAMRTrainer
+from repro_torch.runtime import MultiModelCAMRTrainer, Trainer
 from repro_torch.runtime.train_loop import CAMRTrainReport, _full_f32
 from repro_torch.weights import flat_spec, params_from_jax, ravel, unravel
 
@@ -362,9 +372,12 @@ def test_trainer_needs_a_card_or_an_explicit_cpu(monkeypatch, jax_run):
         MultiModelCAMRTrainer(cfg, q=2, k=3)
     tr = _port_trainer(jax_run)
     pipe = ShardedTokenPipeline(vocab=64, seq_len=8, global_batch=2)
-    for mode in ("camr", "uncoded"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tr.train_steps(pipe, 1, mode=mode)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MultiModelCAMRTrainer(cfg, q=2, k=3, device="cpu", failed={1})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tr.set_failed({2})
+    tr.set_failed(set())
+    assert tr.failed is None
     with pytest.raises(ValueError, match="mode"):
         tr.train_steps(pipe, 1, mode="nope")
     with pytest.raises(ValueError, match="loss scaling"):
@@ -410,7 +423,8 @@ def test_trainer_own_init_runs_and_launcher_points_at_roadmap(capsys):
                        "--grad-sync", "camr_spmd", "--steps", "1",
                        "--seq-len", "8", "--batch", "2", "--device", "cpu"])
     assert '"mode": "camr_spmd"' in capsys.readouterr().out
-    for argv in (["--grad-sync", "camr", "--multi-model"], []):
+    for argv in (["--grad-sync", "camr", "--multi-model", "--failed", "1"],
+                 ["--ckpt-dir", "ckpt"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             launch_train.main(["--arch", "granite_3_2b", *argv])
 
@@ -529,13 +543,212 @@ def test_multipass_synced_gradient_bitwise_equals_jax_mesh(tmp_path):
 
 
 def test_unported_modes_point_at_their_roadmap_item(jax_run):
-    """After this slice the pointers name what is still unported: the
-    camr/uncoded modes and the single-model trainer (Queue 1 item 4)."""
-    for argv in (["--multi-model", "--grad-sync", "uncoded"], []):
-        with pytest.raises(SystemExit, match="Queue 1 item 4"):
+    """After this slice the pointers name what is still unported: failed
+    workers (the degraded executor and the elastic runtime, Queue 1 items
+    5-6) and checkpointing (item 9)."""
+    for argv, item in ((["--multi-model", "--grad-sync", "camr", "--failed",
+                         "1,2"], "items 5-6"),
+                       (["--resume"], "item 9"),
+                       (["--ckpt-dir", "ckpt"], "item 9")):
+        with pytest.raises(SystemExit, match=f"Queue 1 {item}"):
             launch_train.main(["--arch", "granite_3_2b", *argv])
     tr = _port_trainer(jax_run)
+    with pytest.raises(NotImplementedError, match="Queue 1 items 5-6"):
+        tr.set_failed({0})
+    with pytest.raises(NotImplementedError, match="Queue 1 items 5-6"):
+        _port_trainer(jax_run, failed=[3])
+    cfg = jax_run["cfg"]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        Trainer(cfg, device="cpu", ckpt_dir="ckpt")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        Trainer(cfg, device="cpu").resume()
+
+
+def test_chunked_lane_loss_and_flat_gradient_match_jax():
+    """Reduced granite at ``seq_len`` 1536, past the 1448 switch point:
+    both packages train through their chunked attention lane (the port's
+    counted here); loss and flat gradient at the dense tolerances."""
+    from repro_torch.kernels import ops
+    jcfg, cfg = _cfgs(**dict(TINY, loss_chunk=512))
+    p = jlm.init_params(jcfg, jax.random.PRNGKey(5))
+    flat, junravel = ravel_pytree(p)
+    batch = ShardedTokenPipeline(vocab=64, seq_len=1536,
+                                 global_batch=1).batch(2)
+    jloss, jgrad = jax.value_and_grad(
+        lambda fl: jlm.train_loss(jcfg, junravel(fl),
+                                  {k: jnp.asarray(v) for k, v in
+                                   batch.items()})[0])(flat)
+    tp = params_from_jax(_np_tree(p), "cpu")
+    row = ravel(tp).requires_grad_(True)
+    calls = []
+    real = ops.flash_attention_chunked
+    mp = pytest.MonkeyPatch()
+    mp.setattr(ops, "flash_attention_chunked",
+               lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    try:
+        loss, _ = lm.train_loss(cfg, unravel(row, flat_spec(tp)),
+                                {k: torch.from_numpy(v) for k, v in
+                                 batch.items()})
+    finally:
+        mp.undo()
+    assert len(calls) == cfg.n_layers
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(row.grad.numpy(), np.asarray(jgrad),
+                               rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("lane", ["float32", "bfloat16"])
+def test_camr_spmd_camr_and_uncoded_are_bitwise_equal(lane):
+    """The paper's three wires from one seed, 2 steps: parameters and
+    losses bitwise equal on each grad-sync lane (the twin of
+    tests/test_train_loop.py's cross-mode identity); the engines' bytes
+    are the paper's loads (camr 1.0, uncoded 1.5), the bf16 camr bytes
+    exactly half the f32 ones."""
+    _, cfg = _cfgs(**TINY)
     pipe = ShardedTokenPipeline(vocab=64, seq_len=8, global_batch=2)
+    runs = {}
+    for mode in ("camr_spmd", "camr", "uncoded"):
+        tr = MultiModelCAMRTrainer(cfg, q=2, k=3, device="cpu", seed=6,
+                                   grad_sync_dtype=lane)
+        rep = tr.train_steps(pipe, 2, mode=mode)
+        assert rep.mode == mode and tr.map_calls == 2 * tr.J * tr.N
+        runs[mode] = (tr, rep)
+    tr0, rep0 = runs["camr_spmd"]
     for mode in ("camr", "uncoded"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            tr.train_steps(pipe, 1, mode=mode)
+        tr, rep = runs[mode]
+        assert torch.equal(tr.flat.view(torch.int32),
+                           tr0.flat.view(torch.int32)), mode
+        assert rep.losses == rep0.losses, mode
+        assert [list(ms) for ms in rep.phase_ms] == \
+            [["map", "aggregate", "shuffle", "update"]] * 2
+    camr, unc = runs["camr"][1], runs["uncoded"][1]
+    assert camr.loads["L_total_bus"] == pytest.approx(1.0)
+    assert unc.loads["L_total_bus"] == pytest.approx(1.5)
+    assert 3 * camr.bytes_total == 2 * unc.bytes_total
+    width = {"float32": 4, "bfloat16": 2}[lane]
+    # bus bytes of a step: L * J * Q * B, B = d_shard values of the lane
+    assert camr.bytes_total == 2 * tr0.J * tr0.K * tr0.d_shard * width
+
+
+def _host_grads(jax_run, step):
+    """The JAX trainer's per-subfile gradients of one step as the port's
+    host engines take them: f32, or the bf16 bit patterns."""
+    out = {}
+    for (st, j, n), g in jax_run["grads"].items():
+        if st == step:
+            g = np.ascontiguousarray(g)
+            out[(j, n)] = g.view(np.uint16) if g.dtype.itemsize == 2 else g
+    return out
+
+
+@pytest.mark.parametrize("lane", ["float32", "bfloat16"])
+def test_camr_mode_synced_gradient_bitwise_equals_jax(lane, request):
+    """Given the JAX trainer's per-subfile gradients (its ``camr`` run),
+    the port's JobStream wave and its uncoded engine give its synced
+    gradient of every step bitwise, and the camr wave its wire bytes."""
+    jax_run = request.getfixturevalue(
+        {"float32": "jax_run", "bfloat16": "jax_run_bf16"}[lane])
+    tr = _port_trainer(jax_run, grad_sync_dtype=lane)
+    jtr = jax_run["trainer"]
+    datasets = [[(n, None) for n in range(tr.N)] for _ in range(tr.J)]
+    for step in range(len(jax_run["gsync"])):
+        g = _host_grads(jax_run, step)
+        want = _bits(jax_run["gsync"][step])
+        for sync in (tr._sync_interpreter, tr._sync_uncoded):
+            report = CAMRTrainReport()
+            out = sync(lambda j, sf: g[(j, sf[0])], datasets, report)
+            assert out.dtype == {"float32": np.float32,
+                                 "bfloat16": np.uint16}[lane]
+            np.testing.assert_array_equal(_bits(out), want,
+                                          err_msg=f"step {step}")
+            if sync == tr._sync_interpreter:
+                assert report.bytes_total == _jax_camr_step_bytes(jtr, lane)
+        back = tr._device_sync(out)
+        assert back.dtype == getattr(torch, lane)
+        np.testing.assert_array_equal(_torch_bits(back), want)
+
+
+def _jax_camr_step_bytes(jtr, lane):
+    """The wire bytes of one step of the JAX trainer's camr wave (they
+    depend on the shapes only)."""
+    from repro.core.engine import CAMRConfig as JCfg
+    from repro.runtime.jobstream import JobSpec as JSpec
+    from repro.runtime.jobstream import JobStream as JStream
+    dt = np.float32 if lane == "float32" else ml_dtypes.bfloat16
+    row = np.zeros((jtr.K, jtr.d_shard), dt)
+    spec = JSpec(JCfg(q=2, k=3, gamma=1), lambda j, sf: row,
+                 [[None] * 3 for _ in range(4)], value_dtype=dt)
+    stream = JStream(pipeline=False)
+    stream.run([spec])
+    return stream.last_engines[0].trace.total_bytes()
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_single_model_trainer_matches_jax(microbatches):
+    """2 steps of the single-model loop against JAX's ``Trainer`` from
+    its initial parameters, with and without gradient accumulation."""
+    from repro.runtime.train_loop import Trainer as JaxSingleTrainer
+    jcfg, cfg = _cfgs(**TINY)
+    jcfg = jcfg.replace(microbatches=microbatches)
+    kw = dict(lr=1e-3, warmup=1, total_steps=4)
+    jtr = JaxSingleTrainer(jcfg, seed=3, **kw)
+    tr = Trainer(cfg, params=params_from_jax(_np_tree(jtr.params), "cpu"),
+                 microbatches=microbatches, device="cpu", **kw)
+    pipe = ShardedTokenPipeline(vocab=64, seq_len=8, global_batch=4)
+    want = jtr.run(pipe, 2, log_every=1)
+    got = tr.run(pipe, 2, log_every=1)
+    assert [m["step"] for m in got] == [m["step"] for m in want] == [1, 2]
+    for g, w, rtol in zip(got, want, (1e-5, 1e-4)):
+        assert g["lr"] == w["lr"]
+        np.testing.assert_allclose(g["loss"], w["loss"], rtol=rtol)
+        np.testing.assert_allclose(g["gnorm"], w["gnorm"], rtol=1e-4)
+    jflat = np.asarray(ravel_pytree(jtr.params)[0])
+    np.testing.assert_allclose(tr.flat[0].numpy(), jflat, rtol=0, atol=2e-5)
+    assert tr.step == jtr.step == 2
+
+
+def test_single_model_trainer_keeps_each_leaf_in_its_dtype():
+    """With bf16 weights the loop keeps them bf16 values after an update
+    (its f32 state rounded per leaf, as the JAX loop casts each leaf
+    back), its norms f32; the launcher runs it."""
+    _, cfg = _cfgs(**dict(TINY, dtype="bfloat16"))
+    tr = Trainer(cfg, device="cpu", seed=1, lr=1e-2, warmup=1)
+    before = tr.flat.clone()
+    tr.run(ShardedTokenPipeline(vocab=64, seq_len=8, global_batch=2), 1)
+    assert not torch.equal(tr.flat, before)
+    leaves = dict(zip(tr._spec.paths, _leaves(tr.params)))
+    assert leaves[("embed",)].dtype == torch.bfloat16
+    assert leaves[("norm_f",)].dtype == torch.float32
+    assert torch.equal(ravel(tr.params), tr.flat[0])
+
+
+def _leaves(params):
+    from repro_torch.weights import leaves
+    return [leaf for _, leaf in leaves(params)]
+
+
+def test_launcher_runs_the_host_wires_and_the_single_model_loop(capsys,
+                                                                monkeypatch):
+    for mode in ("camr", "uncoded"):
+        launch_train.main(["--arch", "granite_3_2b", "--reduced",
+                           "--multi-model", "--grad-sync", mode, "--steps",
+                           "1", "--seq-len", "8", "--batch", "2",
+                           "--device", "cpu"])
+        last = json.loads(capsys.readouterr().out.splitlines()[-2])
+        assert last["mode"] == mode and last["peak_memory_bytes"] is None
+        assert last["loads"]["L_total_bus"] == {"camr": 1.0,
+                                                "uncoded": 1.5}[mode]
+    launch_train.main(["--arch", "granite_3_2b", "--reduced", "--steps", "2",
+                       "--seq-len", "16", "--batch", "4", "--microbatches",
+                       "2", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert [json.loads(x)["step"] for x in lines[:2]] == [1, 2]
+    for argv in (["--grad-sync", "uncoded"], ["--multi-model"],
+                 ["--grad-sync-dtype", "bfloat16"]):
+        with pytest.raises(SystemExit):
+            launch_train.main(["--arch", "granite_3_2b", *argv])
+    monkeypatch.setattr(cell, "get_config",
+                        lambda name: reduced(get_config(name)))
+    tr, pipe = cell.make_cell("cpu", seq_len=2048)
+    assert pipe.seq_len == 2048 and tr.cfg.n_layers == cell.N_LAYERS
