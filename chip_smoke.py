@@ -41,7 +41,15 @@ result line) on any mismatch:
    packed 16-bit lane in bf16 and f16; the multipass codec and the looped
    exchange bitwise equal to the fused batched shuffle (and each to its
    own plain-version run), the ``debug`` dict's output to the plain one,
-   and in f32 the uncoded baseline close to the reference;
+   and in f32 the uncoded baseline close to the reference; then
+   ``ShuffleStream`` waves at (2, 3) and d = ``WAVE_D`` (about a quarter
+   of the cell's d_shard), f32 and bf16: four waves through ``run_waves``
+   at ``wave_batch=2, depth=2``, each bitwise the ``sync`` of its wave;
+   the same waves with worker ``FAILED`` failed for the second stacked
+   dispatch, bitwise the healthy ones (``compiles`` flat, ``swaps`` 2);
+   the degraded executor bitwise the host interpreter
+   ``degraded_shuffle_host`` on two column slices and timed beside its
+   byte bound; no build at a degrade after ``warm_degraded_execs``;
 3. **train** — the training path, in four runs: ``MultiModelCAMRTrainer``
    on the cell of ``repro_torch.launch.cell`` (``granite_3_2b`` at full
    width, cut to 2 layers, q=2, k=3: K=6 virtual workers, J=4 models),
@@ -61,7 +69,15 @@ result line) on any mismatch:
    1's losses to the f32 run's (same parameters and data, the map runs
    before any sync), its wire bytes to exactly half and its peak memory
    below the f32 run's; the multipass run holds its step-1 losses to the
-   f32 run's. Then the granite cell at 2048 tokens on the f32 lane, past
+   f32 run's. After the f32 run, a kill/rejoin run of the same cell
+   (``phase_churn``): step 1 healthy, step 2 with worker ``FAILED``
+   failed (the stream's degraded executor in place of the coded
+   shuffle: no gather launch, ``aggregate`` 6), step 3 restored; the
+   degraded step's synced gradient bitwise the healthy shuffle of its
+   contributions, the parameters after step 2 bitwise the f32 run's on
+   column slices, the losses its losses, the stream's ``compiles`` 1
+   and ``swaps`` 2; its phase split and peak memory are printed. Then
+   the granite cell at 2048 tokens on the f32 lane, past
    the attention lanes' switch point of 1448: the same gates, the
    chunked attention in every attention call of the map, one subfile's
    loss and flat gradient through it held to the materialized attention
@@ -74,7 +90,10 @@ result line) on any mismatch:
    lanes: parameters and losses bitwise equal across the modes of a
    lane, the bf16 ``camr`` bytes exactly half the f32 ones, the lanes'
    trajectories apart, the host modes launching no kernel; their loads
-   and bytes printed; and one ``uncoded`` step of the full granite cell
+   and bytes printed; ``camr_spmd`` (both lanes) and ``camr`` (f32)
+   again with worker ``FAILED`` failed in step 2, parameters and losses
+   bitwise that mode's healthy run; and one ``uncoded`` step of the full
+   granite cell
    (its host time; step 1's losses those of the f32 run);
 4. **serve** — four models served through ``DecodeEngine(slots=4,
    page_size=16, max_ctx=1056)`` behind ``ServeStream(wave_len=8)``,
@@ -854,6 +873,137 @@ def phase_shuffle():
             "runs); debug out == plain; uncoded allclose to the reference")
 
 
+#: the waves' value width: about a quarter of the cell's d_shard
+#: (37,095,084), a multiple of k-1; one f32 wave of contributions
+#: [6, 2, 2, 6, d] is 5.34 GB
+WAVE_D = 9_273_770
+#: the worker failed in the degraded runs (every single failure of
+#: q=2, k=3 has the same plan shape: R 24, G 2, E 2, 48 real elements)
+FAILED = 2
+
+
+def _device_waves(gen, plan, dtype, n):
+    """``n`` random waves ``[K, J_own, k-1, K, d]`` made on the card from
+    per-batch gradients ``[J, k, K, d]`` (every holder of a batch stores
+    the same values, as the placement says), about one value in 997 a
+    ``-0.0``, no NaN."""
+    import torch
+    jobs = torch.as_tensor(plan.owned_jobs[:, :, None].repeat(plan.k - 1, 2)
+                           .astype("int64"), device=DEVICE)
+    bats = torch.as_tensor(plan.stored_batches.astype("int64"),
+                           device=DEVICE)
+    out = []
+    for _ in range(n):
+        bg = torch.randn((plan.J, plan.k, plan.K, plan.d), generator=gen,
+                         device=DEVICE).to(dtype)
+        bg.view(-1)[::997] = -0.0
+        out.append(bg[jobs, bats])
+        del bg
+    return out
+
+
+def phase_waves(gen):
+    """``ShuffleStream`` waves and its degraded lane at (q, k) = (2, 3),
+    d = ``WAVE_D``, on the f32 and bf16 lanes: four waves through
+    ``run_waves`` at ``wave_batch=2, depth=2``, each output bitwise the
+    ``sync`` of its wave; the same waves with worker ``FAILED`` failed for
+    the second stacked dispatch, bitwise the healthy outputs with
+    ``compiles`` flat and ``swaps`` 2; the degraded executor bitwise the
+    fault runtime's host interpreter on two column slices; no build at a
+    degrade after ``warm_degraded_execs``. Logs ``wave_times`` and the
+    degraded executor's ms beside its byte bound."""
+    import numpy as np
+    import torch
+    from repro_torch.core.collective import ShuffleStream, make_plan
+    from repro_torch.core.schedule import EXEC_CACHE, SCHEDULE_CACHE
+    from repro_torch.runtime.fault import (degraded_dense_plan,
+                                           degraded_shuffle_host)
+    from repro_torch.runtime.train_loop import bf16_add
+    q, k, d = 2, 3, WAVE_D
+    plan = make_plan(q, k, d)
+    a_idx, _, g_mask = degraded_dense_plan(plan.program, {FAILED})
+    rows = len(a_idx)
+    cols = column_slices(d, k)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = f"waves[{str(dtype).removeprefix('torch.')}]"
+        waves = _device_waves(gen, plan, dtype, 4)
+        ref = ShuffleStream(q, k, d, device=DEVICE)
+        want = [ref.sync(w).cpu() for w in waves]
+        sync_ms = time_ms(lambda: ref.sync(waves[0]), warmup=1, reps=3)
+        del ref
+        s = ShuffleStream(q, k, d, device=DEVICE, wave_batch=2, depth=2)
+        got = s.run_waves(waves)
+        if len(got) != 4 or not all(bitwise_equal(g, w)
+                                    for g, w in zip(got, want)):
+            fail(f"{tag}: run_waves (wave_batch 2, depth 2) != sync")
+        st0 = dict(s.stats())
+        for i, w in enumerate(waves):
+            if i == 2:
+                s.degrade({FAILED})
+            s.submit(w)
+            if i == 3:
+                s.restore()
+        got = s.drain()
+        st = s.stats()
+        if not all(bitwise_equal(g, w) for g, w in zip(got, want)):
+            fail(f"{tag}: degraded waves != healthy waves")
+        if st["compiles"] != st0["compiles"] or st["swaps"] != 2:
+            fail(f"{tag}: compiles {st0['compiles']} -> {st['compiles']}, "
+                 f"swaps {st['swaps']} (want flat, 2)")
+        log(f"{tag}: d={d}, 4 waves at wave_batch 2, depth 2 bitwise == "
+            f"sync; with worker {FAILED} failed for waves 3-4 bitwise == "
+            f"healthy, compiles {st['compiles']}, swaps {st['swaps']}, "
+            f"degraded_compiles {st['degraded_compiles']}; wave_times ms "
+            + ", ".join(f"{t * 1e3:.1f}" for t in s.wave_times))
+        del got, s
+
+        # the degraded executor (W = 1) against the host interpreter
+        dev = ShuffleStream(q, k, d, device=DEVICE)
+        dev.degrade({FAILED})
+        out = dev.sync(waves[0])
+        if not bitwise_equal(out.cpu(), want[0]):
+            fail(f"{tag}: degraded sync != healthy sync")
+        part = waves[0].index_select(4, cols).cpu()
+        if dtype == torch.bfloat16:
+            bits = part.view(torch.int16).numpy().view(np.uint16)
+            host = degraded_shuffle_host(plan.program, {FAILED}, bits,
+                                         combine=bf16_add)
+            host = torch.from_numpy(host.view(np.int16)).view(dtype)
+        else:
+            host = torch.from_numpy(degraded_shuffle_host(
+                plan.program, {FAILED}, part.numpy()))
+        if not bitwise_equal(out.index_select(2, cols).cpu(), host):
+            fail(f"{tag}: degraded executor != host interpreter")
+        ms = time_ms(lambda: dev.sync(waves[0]), warmup=1, reps=5)
+        nbytes = (2 * rows + int(g_mask.sum())) * d * dtype.itemsize
+        log(f"{tag}: degraded executor bitwise == degraded_shuffle_host on "
+            f"{cols.numel()} of {d} columns; {ms:.3f} ms (CUDA events) "
+            f"against a byte bound of {nbytes / HBM_BYTES_PER_S * 1e3:.3f} "
+            f"ms ({nbytes} bytes: {rows} rows of A, "
+            f"{int(g_mask.sum())} folded, {rows} written); the healthy "
+            f"sync {sync_ms:.3f} ms")
+        del out, dev, waves, want
+        torch.cuda.empty_cache()
+
+    # the warm gate: every single-failure executor built before the
+    # failure, so the degrade builds nothing
+    EXEC_CACHE.clear()
+    SCHEDULE_CACHE.warm_survivors(plan.program)
+    s = ShuffleStream(q, k, d, device=DEVICE)
+    n = s.warm_degraded_execs(max_failures=1)
+    built = s.stats()["degraded_compiles"]
+    (w,) = _device_waves(gen, plan, torch.float32, 1)
+    s.degrade({FAILED})
+    s.sync(w)
+    if n != q * k or built != n or s.stats()["degraded_compiles"] != built:
+        fail(f"waves: warm_degraded_execs {n}, built {built}, then "
+             f"{s.stats()['degraded_compiles']} after a degrade")
+    log(f"waves: warm_degraded_execs built {built} executors; the degrade "
+        "and its sync built none")
+    del s, w
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------- #
 # phase 3: the slice's main path
 # --------------------------------------------------------------------- #
@@ -908,6 +1058,26 @@ SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS = "mamba2_1p3b", 2
 HYBRID_TRAIN_ARCH, HYBRID_TRAIN_LAYERS = "zamba2_2p7b", 6
 
 
+def column_slices(d, k):
+    """Value columns of a shard of width ``d`` to hold on the host: one
+    slice at the head and one across the boundary of the first packet
+    (every step of the codec and of the degraded fold is per column)."""
+    import torch
+    pk = d // (k - 1)
+    w = min(1 << 16, pk // 2) // (k - 1) * (k - 1)    # (k-1) | 3w
+    return torch.cat([torch.arange(0, w), torch.arange(pk - w, pk + w)]
+                     ).to(DEVICE)
+
+
+def param_slices(tr):
+    """The trainer's f32 master ``[J, Dpad]`` on :func:`column_slices` of
+    every worker's shard, copied to the host."""
+    import torch
+    cols = column_slices(tr.d_shard, tr.k)
+    idx = torch.cat([s * tr.d_shard + cols for s in range(tr.K)])
+    return tr.flat.index_select(1, idx).cpu()
+
+
 def phase_train(tr, pipe, steps=2):
     """``steps`` steps of the main path on the trainer's lane, with the
     launch counts of that run alone; returns (counts, report, peak)."""
@@ -921,10 +1091,7 @@ def phase_train(tr, pipe, steps=2):
 
     # step 1's synced gradient on a column slice (the codec is per value
     # column): one slice at the head, one across the packet boundary
-    pk = tr.d_shard // (k - 1)
-    w = min(1 << 16, pk // 2) // (k - 1) * (k - 1)    # (k-1) | 3w
-    cols = torch.cat([torch.arange(0, w), torch.arange(pk - w, pk + w)]
-                     ).to(DEVICE)
+    cols = column_slices(tr.d_shard, k)
     captured = {}
     sync = tr._sync_spmd
 
@@ -983,6 +1150,90 @@ def phase_train(tr, pipe, steps=2):
     log(f"{tag}: step 1 synced gradient ({lane}) bitwise == {what} shuffle "
         f"on {cols.numel()} of {tr.d_shard} columns per shard")
     return counts, rep, peak
+
+
+def phase_churn(p32, rep32):
+    """A kill/rejoin run of the f32 cell: the cell's seed and pipeline,
+    step 1 healthy, step 2 with worker ``FAILED`` failed (the stream's
+    degraded executor in place of the coded shuffle), step 3 restored.
+    The parameters after step 2 are bitwise the phase-3 f32 run's
+    (``p32``, :func:`param_slices`) and the losses its losses (``rep32``);
+    the stream built its healthy executor once and swapped twice; step
+    2 launches no gather and the combiner once a worker."""
+    import numpy as np
+    import torch
+    from repro_torch.core.collective import camr_shuffle, make_plan
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    tr, pipe = build_cell("float32")
+    tag = "churn[float32]"
+    cols = column_slices(tr.d_shard, tr.k)
+    captured = {}
+    sync = tr._sync_spmd
+
+    def capture(contribs, report):     # the degraded step's, on the slices
+        out = sync(contribs, report)
+        if tr.failed:
+            captured["contribs"] = contribs.index_select(4, cols)
+            captured["out"] = out.index_select(2, cols)
+        return out
+
+    tr._sync_spmd = capture
+    steps = []
+    try:
+        for failed in (None, {FAILED}, None):
+            tr.set_failed(failed)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            rep = tr.train_steps(pipe, 1, mode="camr_spmd")
+            torch.cuda.synchronize()
+            steps.append((launch_counts(), rep,
+                          torch.cuda.max_memory_allocated()))
+            if failed:
+                after2 = param_slices(tr)
+    finally:
+        del tr._sync_spmd
+    healthy = lane_kernels("float32", tr.K)
+    for i, (counts, rep, _) in enumerate(steps):
+        want = dict.fromkeys(counts, 0)
+        want.update(healthy if i != 1 else
+                    {n: c for n, c in healthy.items()
+                     if n.startswith("aggregate")})
+        if counts != want:
+            fail(f"{tag}: step {i + 1} launches {counts} != {want}")
+    # the degraded sync against the healthy shuffle of the same
+    # contributions (the executor alone, whatever the map gave)
+    plan = make_plan(tr.q, tr.k, cols.numel())
+    if not bitwise_equal(captured["out"],
+                         camr_shuffle(plan, captured["contribs"])):
+        fail(f"{tag}: the degraded step's synced gradient != the healthy "
+             "shuffle of its contributions")
+    if not bitwise_equal(after2, p32):
+        fail(f"{tag}: parameters after the degraded step 2 != the f32 "
+             "run's after its step 2")
+    losses = [rep.losses[0] for _, rep, _ in steps]
+    if losses[:2] != rep32.losses:
+        fail(f"{tag}: losses {losses[:2]} != the f32 run's {rep32.losses}")
+    st = tr._stream.stats()
+    if st["compiles"] != 1 or st["swaps"] != 2 or st["failed"] != ():
+        fail(f"{tag}: stream stats {st} (want compiles 1, swaps 2)")
+    if not np.isfinite(losses[2]).all():
+        fail(f"{tag}: step 3 losses not finite: {losses[2]}")
+    ms = steps[1][1].phase_ms[0]
+    log(f"{tag}: steps healthy / worker {FAILED} failed / restored: "
+        f"parameters after step 2 bitwise == the f32 run's on "
+        f"{after2.numel() // tr.J} columns a job, losses bitwise; stream "
+        f"compiles {st['compiles']}, swaps {st['swaps']}, "
+        f"degraded_compiles {st['degraded_compiles']}")
+    log(f"{tag}: degraded step's synced gradient bitwise == the healthy "
+        f"shuffle of its contributions on {cols.numel()} of {tr.d_shard} "
+        "columns; launches by step "
+        + " / ".join(str({n: c[n] for n in healthy}) for c, _, _ in steps))
+    log(f"{tag}: degraded step 2 {sum(ms.values()):.1f} ms = "
+        + ", ".join(f"{p} {v:.1f}" for p, v in ms.items())
+        + f"; peak memory {steps[1][2] / 1e9:.2f} GB (healthy steps "
+        f"{steps[0][2] / 1e9:.2f} / {steps[2][2] / 1e9:.2f} GB)")
+    del tr, pipe
 
 
 def compare_lanes(rep32, peak32, rep16, peak16):
@@ -1165,7 +1416,9 @@ def phase_modes(rep32):
     """The paper's comparison on the card: ``camr_spmd``, ``camr`` and
     ``uncoded`` trainers from one seed, 2 steps each, on the f32 and the
     bf16 lanes, at ``MODES_CFG``: parameters and losses bitwise equal
-    across the modes of a lane, the engine-measured bf16 ``camr`` bytes
+    across the modes of a lane, and after a step 2 with worker
+    ``FAILED`` failed bitwise the healthy run's (``camr_spmd`` on both
+    lanes, ``camr`` on f32), the engine-measured bf16 ``camr`` bytes
     exactly half the f32 run's, the two lanes' trajectories apart, each
     run's launches its own (the host modes launch no kernel); then one
     ``uncoded`` step of the full granite cell (step 1's losses those of
@@ -1218,6 +1471,36 @@ def phase_modes(rep32):
                      "camr_spmd's (bitwise)")
         log(f"modes[{lane}]: camr_spmd == camr == uncoded, parameters "
             f"({flat0.numel()} f32) and losses bitwise, 2 steps")
+        # the churn: step 2 with worker FAILED failed (camr's engine is
+        # the Python XOR, seconds a step: f32 only)
+        for mode in ("camr_spmd", "camr")[:2 if lane == "float32" else 1]:
+            tr = MultiModelCAMRTrainer(cfg, q=Q, k=K, seed=0, device=DEVICE,
+                                       grad_sync_dtype=lane)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rep = tr.train_steps(pipe, 1, mode=mode)
+            tr.set_failed({FAILED})
+            rep.losses += tr.train_steps(pipe, 1, mode=mode).losses
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            want = dict.fromkeys(counts, 0)
+            if mode == "camr_spmd":
+                # step 1's codec kernels, both steps' combiner launches
+                want.update({n: 2 * c if n.startswith("aggregate") else c
+                             for n, c in lane_kernels(lane, tr.K).items()})
+            tag = f"modes[{lane}/{mode}/churn]"
+            if counts != want:
+                fail(f"{tag}: launch counts {counts} != expected {want}")
+            flat, rep0 = runs[lane, mode]
+            if not bitwise_equal(tr.flat.cpu(), flat) or \
+                    rep.losses != rep0.losses:
+                fail(f"{tag}: parameters or losses after the degraded step "
+                     "2 != the healthy run's (bitwise)")
+            log(f"{tag}: worker {FAILED} failed in step 2: parameters and "
+                f"losses bitwise == the healthy {mode} run; 2 steps "
+                f"{wall:.2f} s wall")
+            del tr
     b32, b16 = (runs[lane, "camr"][1].bytes_total
                 for lane in ("float32", "bfloat16"))
     if 2 * b16 != b32:
@@ -1549,8 +1832,13 @@ def main() -> int:
     tr, pipe = build_cell("float32")   # its d_shard sets the kernels' shapes
     results = phase_kernels(gen, tr)
     phase_shuffle()
+    phase_waves(gen)
     counts, rep32, peak32 = phase_train(tr, pipe)
+    p32 = param_slices(tr)
     del tr, pipe                       # the bf16 cell's peak is its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_churn(p32, rep32)
     gc.collect()
     torch.cuda.empty_cache()
     tr, pipe = build_cell("bfloat16")

@@ -41,7 +41,10 @@ assembly at native width.
 
 from __future__ import annotations
 
+import time
+from collections import deque
 from dataclasses import dataclass, field
+from itertools import combinations
 
 import numpy as np
 import torch
@@ -50,8 +53,8 @@ from ..device import resolve_device
 from ..kernels.xor_code import (xor_decode, xor_decode_gather,
                                 xor_decode_gather16, xor_encode_gather,
                                 xor_encode_gather16, xor_fold)
-from .schedule import (SCHEDULE_CACHE, ShuffleProgram, StageTables,
-                       payload_words)
+from .schedule import (EXEC_CACHE, SCHEDULE_CACHE, ShuffleProgram,
+                       StageTables, payload_words, resolve_topology)
 
 __all__ = ["CAMRPlan", "make_plan", "camr_shuffle", "scatter_contributions",
            "camr_shuffle_reference", "uncoded_reduce_scatter",
@@ -646,49 +649,213 @@ def camr_collective_bytes(plan: CAMRPlan, itemsize: int = 4,
 
 
 # --------------------------------------------------------------------- #
-# multi-step reuse (the training grad-sync path)
+# multi-wave streaming and the degraded lane (the training grad-sync path)
 # --------------------------------------------------------------------- #
-class ShuffleStream:
-    """Reusable runner of :func:`camr_shuffle` for the training path.
+#: where the arguments of the JAX stream that are not ported yet point
+_ITEM7 = ("is not ported yet (ROADMAP.md, Queue 1 item 7: the two-level "
+          "topology, gateway failover and verify_wire)")
 
-    One lowered plan and one set of device index tables, reused by
-    every :meth:`sync` in the stream's ``mode``, ``router`` and
-    ``codec``; ``compiles`` counts executor builds (plan lowering +
-    tables), ``dispatches`` the shuffles run. This is the flat, healthy
-    stream with ``sync``; wave submission, degrade/restore and the
-    two-level topology are still to port (ROADMAP.md, Queue 1).
+
+class ShuffleStream:
+    """Multi-wave, double-buffered runner of :func:`camr_shuffle`, with a
+    degraded lane for a failed-worker set: the JAX stream's flat,
+    unverified lanes.
+
+    * **sync** — one wave ``[K, J_own, k-1, K, d]`` through the stream's
+      executor, output left on the device: the training grad-sync path.
+    * **wave batching** — :meth:`submit` stacks ``wave_batch`` waves
+      along the value axis (``torch.cat`` on the device) and runs them
+      as ONE shuffle of width ``W*d``. Every step of the codec is
+      elementwise per value column, so the split outputs are bitwise the
+      per-wave outputs.
+    * **depth** — each dispatch records a CUDA event after its kernels;
+      once more than ``depth`` dispatches are in flight the oldest one's
+      event is waited on and its output copied to the host, so the host
+      prepares wave ``t+1`` while the card runs wave ``t``.
+      :meth:`drain` returns host tensors ``[K, J, d]`` in submission
+      order (tensors, not numpy arrays: numpy has no bf16). On the CPU
+      the same code runs without events.
+    * **degraded lane** — :meth:`degrade` swaps later dispatches to the
+      survivor-set executor of :func:`repro_torch.runtime.fault
+      .build_degraded_executor` (``degraded_lane="device"``, served from
+      the process-wide :data:`~repro_torch.core.schedule.EXEC_CACHE`;
+      zero builds after :meth:`warm_degraded_execs`), or to the fault
+      runtime's host interpreter ``degraded_shuffle_host``
+      (``degraded_lane="host"``, the oracle the device lane is held to;
+      it runs only when asked for). Both fold in the engine's canonical
+      order, so their output is bitwise the healthy shuffle of the same
+      contributions. :meth:`restore` returns to the healthy executors,
+      which stay built.
+
+    ``compiles`` counts healthy executor builds (one plan and one set of
+    device tables per stacked width), ``degraded_compiles`` degraded
+    executor builds, ``dispatches`` the shuffles run and ``swaps`` the
+    degrade/restore events. The two-level ``topology``,
+    ``gateway_avoid``, ``verify_wire`` and ``max_replays`` are refused
+    (ROADMAP.md, Queue 1 item 7).
     """
 
     def __init__(self, q: int, k: int, d: int, *, device=None,
+                 depth: int = 2, wave_batch: int = 1,
                  mode: str = "batched", router: str = "all_to_all",
-                 codec: str = "fused"):
+                 codec: str = "fused", degraded_lane: str = "device",
+                 topology=None, gateway_avoid=frozenset(),
+                 verify_wire: bool = False, max_replays: int = 2):
         if k < 3:
             raise ValueError("the coded collective path requires k >= 3")
         if d % (k - 1):
+            # every stacked width W*d inherits divisibility from d, so a
+            # stream never fails mid-flight on a partial trailing batch
             raise ValueError(f"shard width d={d} must be divisible by "
                              f"k-1={k - 1}")
+        if depth < 1:
+            raise ValueError("depth must be >= 1")
+        if wave_batch < 1:
+            raise ValueError("wave_batch must be >= 1")
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}")
         if router not in ("all_to_all", "ppermute"):
             raise ValueError(f"unknown router {router!r}")
         if codec not in CODECS:
             raise ValueError(f"unknown codec {codec!r}")
+        if degraded_lane not in ("device", "host"):
+            raise ValueError(f"unknown degraded_lane {degraded_lane!r}")
+        if resolve_topology(topology, q, k) is not None:
+            raise NotImplementedError(f"topology={topology!r} {_ITEM7}")
+        if gateway_avoid:
+            raise NotImplementedError(f"gateway_avoid {_ITEM7}")
+        if verify_wire:
+            raise NotImplementedError(f"verify_wire {_ITEM7}")
+        if max_replays != 2:
+            raise NotImplementedError(f"max_replays (of verify_wire) "
+                                      f"{_ITEM7}")
         self.q, self.k, self.d = q, k, d
         self.K = q * k
         self.device = resolve_device(device)
+        self.depth, self.wave_batch = depth, wave_batch
         self.mode, self.router, self.codec = mode, router, codec
-        self._plan: CAMRPlan | None = None
+        self.degraded_lane = degraded_lane
+        self._plans: dict = {}                 # stacked width W -> plan
+        self._pending: list = []               # waves awaiting dispatch
+        self._in_flight: deque = deque()       # (out, W, t0, event)
+        self._done: list = []                  # host [K, J, d] outputs
+        self._failed: frozenset = frozenset()  # current survivor-set gap
         self.dispatches = 0
         self.compiles = 0
+        self.degraded_compiles = 0
+        self.swaps = 0
+        self.wave_times: list[float] = []      # dispatch -> collect, s
 
-    def _executor(self) -> CAMRPlan:
-        if self._plan is None:
-            plan = make_plan(self.q, self.k, self.d)
+    # -- healthy executor per stacked width ----------------------------- #
+    def _executor(self, W: int = 1) -> CAMRPlan:
+        plan = self._plans.get(W)
+        if plan is None:
+            plan = make_plan(self.q, self.k, W * self.d)
             _device_tables(plan, self.device, self.router, self.codec,
                            self.mode)
-            self._plan = plan
+            self._plans[W] = plan
             self.compiles += 1
-        return self._plan
+        return plan
+
+    def _run(self, buf: torch.Tensor, W: int) -> torch.Tensor:
+        if self._failed:
+            return self._degraded_exec(buf, W)
+        return camr_shuffle(self._executor(W), buf, mode=self.mode,
+                            router=self.router, codec=self.codec)
+
+    # -- live elasticity ------------------------------------------------ #
+    @property
+    def failed(self) -> frozenset:
+        return self._failed
+
+    def _program(self, W: int = 1):
+        return SCHEDULE_CACHE.program(self.q, self.k, Q=self.K,
+                                      d=W * self.d)
+
+    def degrade(self, failed) -> None:
+        """Swap later dispatches to the survivor set ``failed``.
+        Unrecoverable sets raise ``ValueError`` here, as
+        ``lower_degraded`` does; the re-lowering comes from the warm
+        :data:`SCHEDULE_CACHE`. Waves already in flight complete as they
+        were dispatched."""
+        failed = frozenset(int(s) for s in failed)
+        if not failed:
+            self.restore()
+            return
+        SCHEDULE_CACHE.degraded(self._program(), set(failed))
+        if failed != self._failed:
+            self._failed = failed
+            self.swaps += 1
+
+    def restore(self) -> None:
+        """Re-admit everyone: later dispatches run the healthy executors
+        again, which stayed built (``compiles`` flat)."""
+        if self._failed:
+            self._failed = frozenset()
+            self.swaps += 1
+
+    def _degraded_fn(self, W: int, dtype: torch.dtype, failed=None):
+        """The degraded executor for stack width ``W``, value ``dtype``
+        and the survivor set, from the process-wide EXEC_CACHE: a later
+        stream of the same shape, or a :meth:`warm_degraded_execs` before
+        any failure, makes a mid-stream degrade build-free."""
+        from ..runtime.fault import build_degraded_executor
+        failed = self._failed if failed is None else failed
+        key = ("spmd_degraded", self.q, self.k, self.K, W * self.d,
+               _dtype_name(dtype), tuple(sorted(failed)), None,
+               str(self.device))
+
+        def build():
+            self.degraded_compiles += 1
+            return build_degraded_executor(self._program(W), failed,
+                                           W * self.d, dtype, self.device)
+
+        return EXEC_CACHE.get(key, build)
+
+    def warm_degraded_execs(self, *, max_failures: int = 1, widths=(1,),
+                            dtype=torch.float32) -> int:
+        """Build the degraded executor of every recoverable survivor set
+        with up to ``max_failures`` failures (x stack ``widths`` x
+        ``dtype``) after the schedule warm-up of
+        ``ScheduleCache.warm_survivors``: a later :meth:`degrade` then
+        builds nothing. Returns the number of executors now resident."""
+        prog = self._program()
+        SCHEDULE_CACHE.warm_survivors(prog, max_failures=max_failures)
+        warmed = 0
+        for r in range(1, max_failures + 1):
+            for combo in combinations(range(self.K), r):
+                fs = frozenset(combo)
+                try:
+                    SCHEDULE_CACHE.degraded(prog, set(fs))
+                except ValueError:
+                    continue                   # unrecoverable: skip
+                for W in widths:
+                    self._degraded_fn(W, dtype, failed=fs)
+                    warmed += 1
+        return warmed
+
+    def _degraded_exec(self, buf: torch.Tensor, W: int) -> torch.Tensor:
+        """A degraded wave over the stacked ``[K, J_own, k-1, K, W*d]``
+        tensor, in logical slots, on the stream's device.
+        ``degraded_lane="device"`` runs the device executor;
+        ``"host"`` copies the wave to the host and interprets the
+        re-lowering there (bf16 as ``uint16`` bits combined with
+        ``bf16_add``, u32 as ``uint32`` words), then copies the result
+        back."""
+        if self.degraded_lane == "device":
+            return self._degraded_fn(W, buf.dtype)(buf)
+        from ..runtime.fault import degraded_shuffle_host
+        from ..runtime.train_loop import bf16_add
+        # bf16 (no numpy dtype) and u32 (no numpy bridge) cross as bits
+        word, host, combine = {
+            torch.bfloat16: (torch.int16, np.uint16, bf16_add),
+            torch.uint32: (torch.int32, np.uint32, np.add),
+        }.get(buf.dtype, (buf.dtype, None, np.add))
+        x = buf.view(word).cpu().numpy()
+        out = degraded_shuffle_host(self._program(W), self._failed,
+                                    x.view(host or x.dtype), combine=combine)
+        return torch.from_numpy(out.view(x.dtype)).view(buf.dtype).to(
+            self.device)
 
     def _check_wave(self, contribs) -> None:
         shape = (self.K, self.q ** (self.k - 2), self.k - 1, self.K,
@@ -703,16 +870,82 @@ class ShuffleStream:
 
     def sync(self, contribs: torch.Tensor) -> torch.Tensor:
         """Run ONE wave ``[K, J_own, k-1, K, d]`` through the stream's
-        executor; returns the ``[K, J, d]`` output on the stream's device
-        (no host copy)."""
+        executor (the degraded one while workers are failed); returns the
+        ``[K, J, d]`` output on the stream's device (no host copy).
+        Independent of the submit/drain window."""
         self._check_wave(contribs)
         self.dispatches += 1
-        return camr_shuffle(self._executor(), contribs, mode=self.mode,
-                            router=self.router, codec=self.codec)
+        return self._run(contribs, 1)
+
+    # -- streaming ------------------------------------------------------ #
+    def submit(self, contribs: torch.Tensor) -> None:
+        """Queue one wave ``[K, J_own, k-1, K, d]``; dispatches as soon as
+        ``wave_batch`` waves are pending. Blocks only when more than
+        ``depth`` dispatches are in flight."""
+        self._check_wave(contribs)
+        if self._pending and contribs.dtype != self._pending[0].dtype:
+            raise ValueError(f"wave dtype {contribs.dtype} != the pending "
+                             f"waves' {self._pending[0].dtype}: stacked "
+                             "waves share one dtype")
+        self._pending.append(contribs)
+        if len(self._pending) >= self.wave_batch:
+            self._dispatch()
+
+    def _dispatch(self) -> None:
+        waves, self._pending = self._pending, []
+        if not waves:
+            return
+        W = len(waves)
+        buf = waves[0] if W == 1 else torch.cat(waves, dim=-1)
+        del waves
+        t0 = time.perf_counter()
+        out = self._run(buf, W)
+        del buf
+        event = None
+        if out.is_cuda:
+            event = torch.cuda.Event()
+            event.record()
+        self.dispatches += 1
+        self._in_flight.append((out, W, t0, event))
+        while len(self._in_flight) > self.depth:
+            self._collect_oldest()
+
+    def _collect_oldest(self) -> None:
+        out, W, t0, event = self._in_flight.popleft()
+        if event is not None:
+            event.synchronize()
+        host = out.cpu()                                  # [K, J, W*d]
+        self.wave_times.append(time.perf_counter() - t0)
+        if W == 1:
+            self._done.append(host)
+        else:
+            self._done.extend(host[..., w * self.d:(w + 1) * self.d]
+                              for w in range(W))
+
+    def drain(self) -> list[torch.Tensor]:
+        """Flush pending waves, wait for everything in flight, and return
+        every completed ``[K, J, d]`` output (on the host) in submission
+        order."""
+        self._dispatch()
+        while self._in_flight:
+            self._collect_oldest()
+        done, self._done = self._done, []
+        return done
+
+    def run_waves(self, waves) -> list[torch.Tensor]:
+        """Submit every wave, then drain."""
+        for w in waves:
+            self.submit(w)
+        return self.drain()
 
     def stats(self) -> dict:
         """Executor-reuse counters (``compiles`` stays flat while
-        ``dispatches`` grows on a steady-state stream)."""
+        ``dispatches`` grows on a steady-state stream, across
+        degrade/restore ``swaps`` too)."""
         return dict(dispatches=self.dispatches, compiles=self.compiles,
-                    mode=self.mode, router=self.router, codec=self.codec,
+                    widths=sorted(self._plans), swaps=self.swaps,
+                    failed=tuple(sorted(self._failed)),
+                    degraded_compiles=self.degraded_compiles,
+                    degraded_lane=self.degraded_lane, mode=self.mode,
+                    router=self.router, codec=self.codec,
                     device=str(self.device))

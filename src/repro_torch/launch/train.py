@@ -31,8 +31,12 @@ fused codec's oracle). Without ``--multi-model`` the single-model
         --reduced --steps 4 --seq-len 64 --batch 4 --microbatches 2 \\
         --device cpu
 
-``--failed`` (the degraded schedule, ROADMAP.md Queue 1 items 5-6) and
-``--ckpt-dir`` / ``--resume`` (checkpointing, item 9) exit with a pointer.
+``--failed 2`` (comma-separated worker ids) trains the multi-model
+setting with those workers silent in the shuffle: the degraded
+survivor-set executor on ``camr_spmd``, the ``DegradedCAMREngine`` on
+``camr`` (``uncoded`` has no degraded mode). ``--ckpt-dir`` /
+``--resume`` (checkpointing, ROADMAP.md Queue 1 item 9) exit with a
+pointer.
 """
 
 from __future__ import annotations
@@ -94,16 +98,14 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=1,
                     help="gradient accumulation groups (single-model)")
     ap.add_argument("--failed", default=None,
-                    help="comma-separated failed worker ids (not ported)")
+                    help="comma-separated failed worker ids "
+                         "(--multi-model)")
     ap.add_argument("--ckpt-dir", default=None, help="(not ported)")
     ap.add_argument("--resume", action="store_true", help="(not ported)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device)")
     args = ap.parse_args(argv)
 
-    if args.failed:
-        raise SystemExit("--failed: the degraded survivor-set schedule is "
-                         "not ported yet (ROADMAP.md, Queue 1 items 5-6)")
     if args.ckpt_dir or args.resume:
         raise SystemExit("--ckpt-dir/--resume: checkpointing is not ported "
                          "yet (ROADMAP.md, Queue 1 item 9)")
@@ -114,10 +116,11 @@ def main(argv=None):
     if not args.multi_model and args.grad_sync in ("camr_spmd", "uncoded"):
         raise SystemExit(f"--grad-sync {args.grad_sync} is a --multi-model "
                          "wire; the single-model loop takes allreduce|camr")
-    if not args.multi_model and (args.grad_sync_dtype or
+    if not args.multi_model and (args.grad_sync_dtype or args.failed or
                                  args.codec != "fused"):
-        raise SystemExit("--grad-sync-dtype and --codec are --multi-model "
-                         "options (the CAMR gradient shuffle)")
+        raise SystemExit("--grad-sync-dtype, --codec and --failed are "
+                         "--multi-model options (the CAMR gradient "
+                         "shuffle)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -128,11 +131,13 @@ def main(argv=None):
     if not args.multi_model:
         _run_single_model(cfg, pipe, args)
         return
+    failed = ({int(s) for s in args.failed.split(",")}
+              if args.failed else None)
     tr = MultiModelCAMRTrainer(cfg, q=args.q, k=args.k, lr=args.lr,
                                seed=args.seed, router=args.router,
                                device=args.device,
                                grad_sync_dtype=args.grad_sync_dtype,
-                               codec=args.codec)
+                               codec=args.codec, failed=failed)
     t0 = time.time()
     rep = tr.train_steps(pipe, args.steps, mode=args.grad_sync)
     dt = time.time() - t0

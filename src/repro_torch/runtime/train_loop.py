@@ -45,6 +45,13 @@ the host modes, ``phase_ms``'s "aggregate" is the copy of the memo to
 the host and "shuffle" the engine's run (its per-batch combine, the
 shuffle and the reduce) with the copy back.
 
+A failed-worker set (``failed=``, :meth:`MultiModelCAMRTrainer
+.set_failed`) keeps every worker's map and aggregate: failed workers are
+silent only in the shuffle. ``camr_spmd`` then runs the stream's
+degraded survivor-set executor in place of the coded shuffle (no gather
+launch), ``camr`` the numpy ``DegradedCAMREngine``; a shard of a failed
+worker is reduced on its migrate target.
+
 The camr_spmd step stays on the card: the JAX trainer's host round trip
 of each gradient is not carried over there. Float32 products run in full
 f32: while a trainer runs on a card, TF32 and reduced-precision bf16
@@ -182,9 +189,13 @@ class MultiModelCAMRTrainer:
     kernels) or ``"multipass"`` (the oracle that materializes the chunk
     and cancellation tables; the same synced gradient, bitwise).
 
-    ``failed`` (and :meth:`set_failed`) takes a failed-worker set; only
-    the healthy cluster (``None`` or empty) is ported, a failed set is
-    refused (ROADMAP.md, Queue 1 items 5-6).
+    ``failed`` (and :meth:`set_failed`, between steps) takes a
+    failed-worker set: the failed workers map but are silent in the
+    shuffle. ``camr_spmd`` then syncs through the stream's degraded
+    survivor-set executor on the device (no gather launch), ``camr``
+    through the numpy ``DegradedCAMREngine``; ``uncoded`` has no
+    degraded mode and raises. Recovery is exact: a degraded step leaves
+    the parameters bitwise those of the healthy step.
 
     ``grad_sync_dtype`` is the shuffle payload dtype: ``"float32"`` or
     ``"bfloat16"`` (mixed-precision grad sync: gradients rounded to bf16
@@ -218,7 +229,7 @@ class MultiModelCAMRTrainer:
                              f"bfloat16, got {name}")
         if codec not in CODECS:
             raise ValueError(f"unknown codec {codec!r}")
-        self.set_failed(failed)
+        self.failed = set(failed) if failed else None
         self.device = resolve_device(device)
         self.grad_sync_dtype = name
         self._sync_dtype = getattr(torch, name)
@@ -327,6 +338,11 @@ class MultiModelCAMRTrainer:
                                          device=self.device,
                                          router=self.router,
                                          codec=self.codec)
+        # reconcile with the trainer's failed set (a first build under
+        # failure, or a direct ``self.failed`` mutation)
+        want = frozenset(self.failed or ())
+        if want != self._stream.failed:
+            self._stream.degrade(want) if want else self._stream.restore()
         return self._stream
 
     def _sync_spmd(self, contribs, report) -> torch.Tensor:
@@ -356,20 +372,23 @@ class MultiModelCAMRTrainer:
                 torch.bfloat16).to(self.device)
         return torch.from_numpy(gs).to(self.device)
 
-    def _assemble(self, results) -> np.ndarray:
+    def _assemble(self, results, migrate=None) -> np.ndarray:
         """Engine result dicts -> gsync ``[K, J, d]`` (pure data
-        movement)."""
+        movement); a failed worker's shard is read from its migrate
+        target."""
         J, K = self.J, self.K
         gs = np.empty((K, J, self.d_shard), self._sync_np)
         for s in range(K):
+            src = migrate(s) if migrate else s
             for j in range(J):
-                gs[s, j] = results[s][(j, s)]
+                gs[s, j] = results[src][(j, s)]
         return gs
 
     def _sync_interpreter(self, map_fn, datasets, report) -> np.ndarray:
-        """``mode="camr"``: one healthy :class:`JobStream` wave over the
-        numpy :class:`~repro_torch.core.engine.CAMREngine`."""
-        stream = JobStream(pipeline=False)
+        """``mode="camr"``: one :class:`JobStream` wave over the numpy
+        :class:`~repro_torch.core.engine.CAMREngine`, or over the
+        ``DegradedCAMREngine`` of the failed set."""
+        stream = JobStream(failed=self.failed, pipeline=False)
         spec = JobSpec(self.camr, map_fn, datasets, combine=self._combine,
                        name=f"train-step{self.step}",
                        value_dtype=self._sync_np)
@@ -377,10 +396,14 @@ class MultiModelCAMRTrainer:
         eng = stream.last_engines[0]
         report.loads = eng.measured_loads()
         report.bytes_total += eng.trace.total_bytes()
-        return self._assemble(results)
+        migrate = eng.migrate_target if self.failed else None
+        return self._assemble(results, migrate)
 
     def _sync_uncoded(self, map_fn, datasets, report) -> np.ndarray:
         """``mode="uncoded"``: the paper's unicast baseline."""
+        if self.failed:
+            raise ValueError("the uncoded baseline has no degraded mode; "
+                             "failed-worker steps need mode='camr'")
         eng = UncodedAggregatedEngine(self.q, self.k, 1, map_fn,
                                       combine=self._combine)
         results = eng.run(datasets)
@@ -389,16 +412,17 @@ class MultiModelCAMRTrainer:
         return self._assemble(results)
 
     def set_failed(self, failed) -> None:
-        """Membership between steps. Only the healthy cluster is ported:
-        a non-empty failed set raises (the degraded executor and the
-        elastic runtime are ROADMAP.md, Queue 1 items 5-6)."""
-        if failed:
-            raise NotImplementedError(
-                f"failed workers {sorted(failed)}: the degraded survivor-"
-                "set schedule and the elastic runtime are not ported yet "
-                "(ROADMAP.md, Queue 1 items 5-6); only the healthy "
-                "cluster trains")
-        self.failed = None
+        """Membership change between steps: later ``camr`` steps re-lower
+        from the warm schedule cache, and an existing SPMD stream swaps
+        to its degraded lane (or back) without building its healthy
+        executor again (``stream.compiles`` stays flat across
+        kill/rejoin)."""
+        self.failed = set(failed) if failed else None
+        if self._stream is not None:
+            if self.failed:
+                self._stream.degrade(self.failed)
+            else:
+                self._stream.restore()
 
     def _apply(self, gsync: torch.Tensor) -> None:
         """The worker-sharded AdamW update from ``gsync [K, J, d]`` (worker

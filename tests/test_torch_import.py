@@ -110,3 +110,36 @@ def test_no_port_file_imports_ml_dtypes():
 def test_numpy_copies_source_identical(rel):
     assert _strip_imports(os.path.join(PORT, rel)) == \
         _strip_imports(os.path.join(REF, rel))
+
+
+#: the top-level names of ``runtime/fault.py`` written for the port (the
+#: host interpreter takes a ``combine``, the executor is torch's)
+_FAULT_OWN = {"degraded_shuffle_host", "build_degraded_executor"}
+
+
+def _top_level(path):
+    """Top-level statements of a file by name (functions, classes and
+    assignments; imports and the module docstring left out), as AST
+    dumps."""
+    tree = ast.parse(open(path).read(), filename=path)
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out[node.name] = ast.dump(node)
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                out[ast.unparse(t)] = ast.dump(node)
+    return out
+
+
+def test_fault_numpy_part_source_identical():
+    """``runtime/fault.py`` is the JAX file's numpy code for every
+    top-level name but the two written for the port; the file as a whole
+    is not identical, so the names are compared one by one."""
+    port = _top_level(os.path.join(PORT, "runtime", "fault.py"))
+    ref = _top_level(os.path.join(REF, "runtime", "fault.py"))
+    assert sorted(port) == sorted(ref)
+    assert _FAULT_OWN <= set(ref)
+    assert len(ref) > 10, sorted(ref)
+    differ = {name for name in ref if port[name] != ref[name]}
+    assert differ <= _FAULT_OWN, sorted(differ - _FAULT_OWN)

@@ -372,10 +372,10 @@ def test_trainer_needs_a_card_or_an_explicit_cpu(monkeypatch, jax_run):
         MultiModelCAMRTrainer(cfg, q=2, k=3)
     tr = _port_trainer(jax_run)
     pipe = ShardedTokenPipeline(vocab=64, seq_len=8, global_batch=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiModelCAMRTrainer(cfg, q=2, k=3, device="cpu", failed={1})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.set_failed({2})
+    assert MultiModelCAMRTrainer(cfg, q=2, k=3, device="cpu",
+                                 failed={1}).failed == {1}
+    tr.set_failed({2})
+    assert tr.failed == {2}
     tr.set_failed(set())
     assert tr.failed is None
     with pytest.raises(ValueError, match="mode"):
@@ -423,10 +423,10 @@ def test_trainer_own_init_runs_and_launcher_points_at_roadmap(capsys):
                        "--grad-sync", "camr_spmd", "--steps", "1",
                        "--seq-len", "8", "--batch", "2", "--device", "cpu"])
     assert '"mode": "camr_spmd"' in capsys.readouterr().out
-    for argv in (["--grad-sync", "camr", "--multi-model", "--failed", "1"],
-                 ["--ckpt-dir", "ckpt"]):
-        with pytest.raises(SystemExit, match="ROADMAP"):
-            launch_train.main(["--arch", "granite_3_2b", *argv])
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        launch_train.main(["--arch", "granite_3_2b", "--ckpt-dir", "ckpt"])
+    with pytest.raises(SystemExit, match="--multi-model options"):
+        launch_train.main(["--arch", "granite_3_2b", "--failed", "1"])
 
 
 def test_launcher_runs_the_bf16_lane(capsys):
@@ -543,20 +543,17 @@ def test_multipass_synced_gradient_bitwise_equals_jax_mesh(tmp_path):
 
 
 def test_unported_modes_point_at_their_roadmap_item(jax_run):
-    """After this slice the pointers name what is still unported: failed
-    workers (the degraded executor and the elastic runtime, Queue 1 items
-    5-6) and checkpointing (item 9)."""
-    for argv, item in ((["--multi-model", "--grad-sync", "camr", "--failed",
-                         "1,2"], "items 5-6"),
-                       (["--resume"], "item 9"),
+    """The pointers name what is still unported: checkpointing (item 9).
+    Failed workers (Queue 1 items 5-6) are ported: the trainer takes a
+    failed set at construction and between steps."""
+    for argv, item in ((["--resume"], "item 9"),
                        (["--ckpt-dir", "ckpt"], "item 9")):
         with pytest.raises(SystemExit, match=f"Queue 1 {item}"):
             launch_train.main(["--arch", "granite_3_2b", *argv])
     tr = _port_trainer(jax_run)
-    with pytest.raises(NotImplementedError, match="Queue 1 items 5-6"):
-        tr.set_failed({0})
-    with pytest.raises(NotImplementedError, match="Queue 1 items 5-6"):
-        _port_trainer(jax_run, failed=[3])
+    tr.set_failed({0})
+    assert tr.failed == {0}
+    assert _port_trainer(jax_run, failed=[3]).failed == {3}
     cfg = jax_run["cfg"]
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         Trainer(cfg, device="cpu", ckpt_dir="ckpt")
