@@ -50,6 +50,23 @@ result line) on any mismatch:
    the degraded executor bitwise the host interpreter
    ``degraded_shuffle_host`` on two column slices and timed beside its
    byte bound; no build at a degrade after ``warm_degraded_execs``;
+   then ``phase_topology`` at (q, k, hosts) = ``TOPO_QKH`` = (2, 4, 2),
+   d = ``TOPO_D``, f32 and bf16: the two-level ``sync`` (both routers,
+   and with gateways ``TOPO_AVOID`` avoided) bitwise the flat one,
+   launching the lane's gathers twice each and running every relay
+   lane; the self-verifying wire's ``sync`` bitwise the flat one, its
+   u32 gathers at rows of pk+1 words; a payload fault in stage 1 and a
+   checksum fault in stage 2 (``bits=0x80000000``) detected and replayed
+   bitwise, ``WireCorruptionError`` at ``max_replays=0``; the lane's
+   gathers (and the verify lane's u32 ones at rows of pk+1 words) on the
+   lane's own inputs in both stages, bitwise their plain versions; four
+   verified waves at ``wave_batch=2, depth=2`` with a fault on wave 1,
+   waves 0-1 dispatched on the two-level plan, wave 2 on the surviving
+   flat one after ``kill_host(1)``, wave 3 on the two-level one after
+   ``rejoin_host(1)``, bitwise, ``host_swaps`` 2, no schedule lowering
+   after the first dispatch; it
+   prints ``camr_edge_bytes``, the flat, two-level, verified and
+   replayed sync ms and its peak memory;
 3. **train** — the training path, in four runs: ``MultiModelCAMRTrainer``
    on the cell of ``repro_torch.launch.cell`` (``granite_3_2b`` at full
    width, cut to 2 layers, q=2, k=3: K=6 virtual workers, J=4 models),
@@ -1004,6 +1021,278 @@ def phase_waves(gen):
     torch.cuda.empty_cache()
 
 
+#: the two-level cell: (q, k, hosts) = (2, 4, 2) is the smallest (q, k)
+#: whose phase B has traffic (at (2, 3) only hosts = 3 divides k, and
+#: there no packet is relayed); d a multiple of k-1 = 3 at which one f32
+#: wave [8, 4, 3, 8, d] is 5.44 GB, about the size of phase_waves' waves
+TOPO_QKH = (2, 4, 2)
+TOPO_D = 1_769_472
+#: the gateways avoided in the failover run: the first device of each host
+TOPO_AVOID = frozenset({0, 4})
+
+
+def _gathers(dtype) -> tuple:
+    """The fused gathers a shuffle of ``dtype`` launches (u32 words, or
+    the packed 16-bit lane)."""
+    import torch
+    if dtype == torch.float32:
+        return ("xor_encode_gather", "xor_decode_gather")
+    return ("xor_encode_gather16", "xor_decode_gather16")
+
+
+def _count_launches(fn):
+    """``fn()``'s result and the kernel launches it made."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    out = fn()
+    return out, {n: c for n, c in launch_counts().items() if c}
+
+
+def topology_gathers(plan, wave, verify):
+    """The fused gathers of the two-level ``plan``'s lane on the lane's own
+    inputs, in both coded stages: the wire buffer of ``wave`` (as int32
+    words widened by the checksum word when ``verify``, else the lane's
+    words or packed 16-bit lanes), its Δ, and the receive buffer that
+    phase A and phase B build from it. Each kernel launch is held bitwise
+    to its plain version on the same inputs; stage 1's pair is timed.
+    Returns ``(names, row, ms)``: the kernels, the row width in words or
+    lanes, and their stage-1 CUDA-event ms beside their plain versions'."""
+    import torch
+    from repro_torch.core import collective as C
+    from repro_torch.core.schedule import payload_words
+    k, K = plan.k, plan.K
+    tabs = C._device_tables(plan, wave.device, "all_to_all")
+    wp = payload_words(plan.d, wave.element_size(), k)
+    pk = wp // (k - 1)
+    if verify:
+        wire, pkw = C._widen(C._wire_buffer(wave, wp, "multipass"), k,
+                             pk), pk + 1
+    else:
+        wire, pkw = C._wire_buffer(wave, wp, "fused"), pk
+    half = wire.dtype == torch.int16
+    enc_fn, dec_fn, enc_ref, dec_ref, _ = _lane(half)
+    row = 2 * pkw if half else pkw
+    chunks = wire.reshape(K, -1, row)
+    ms = {}
+    for stage in (1, 2):
+        st = tabs["stages"][stage]
+        eargs = (chunks, st["enc_src"], st["src_ok"])
+        delta = enc_fn(*eargs)
+        if not bitwise_equal(delta, enc_ref(*eargs)):
+            fail(f"{enc_fn.__name__} != plain on the two-level lane's "
+                 f"stage-{stage} inputs (rows of {row})")
+        recv = C._relay(C._exchange(delta.view(torch.int32), st, K=K, k=k,
+                                    pk=pkw), st, {"stage12": 0}, pk=pkw)
+        dargs = (recv.view(torch.int16) if half else recv, chunks,
+                 st["dec_recv"], st["dec_src"], st["dec_mask"])
+        if not bitwise_equal(dec_fn(*dargs), dec_ref(*dargs)):
+            fail(f"{dec_fn.__name__} != plain on the two-level lane's "
+                 f"stage-{stage} inputs (rows of {row})")
+        if stage == 1:
+            for fn, ref, args in ((enc_fn, enc_ref, eargs),
+                                  (dec_fn, dec_ref, dargs)):
+                ms[fn.__name__] = (time_ms(lambda: fn(*args)),
+                                   time_ms(lambda: ref(*args), warmup=1,
+                                           reps=3))
+        del delta, recv, dargs
+    return (enc_fn.__name__, dec_fn.__name__), row, ms
+
+
+def phase_topology(gen):
+    """The two-level topology, gateway failover and the self-verifying
+    wire at ``TOPO_QKH``, d = ``TOPO_D``, on the f32 and bf16 lanes (waves
+    with ``-0.0`` inside), each output held bitwise to the flat ``sync``
+    of its wave: two-level ``sync`` under both routers and with gateways
+    ``TOPO_AVOID`` avoided, launching the lane's gathers twice each;
+    the verified ``sync``, launching the u32 gathers twice each at rows
+    of pk+1 words on both lanes; one fault in stage 1 (a payload word)
+    and one in stage 2 (the checksum word, ``bits=0x80000000``), each
+    detected and replayed; ``WireCorruptionError`` on a
+    ``max_replays=0`` stream; the gathers of the two-level and the verify
+    lane held to their plain versions on each lane's own inputs
+    (:func:`topology_gathers`); then four verified waves at
+    ``wave_batch=2, depth=2`` with a fault on wave 1, host 1 killed
+    (``HostMembership.kill_host``) before wave 2 and rejoined before
+    wave 3, each dispatch drained before the next topology change so
+    that waves 0-1 run on the two-level plan, wave 2 on the surviving
+    flat one and wave 3 on the two-level one; ``host_swaps`` 2 and no
+    schedule lowering after the first dispatch. Logs ``camr_edge_bytes``
+    and the CUDA-event ms of the flat, two-level and verified syncs, of a
+    verified sync with one replay and of the lanes' stage-1 gathers."""
+    import torch
+    from repro_torch.core.collective import (ShuffleStream, camr_edge_bytes,
+                                             expected_collective_calls,
+                                             make_plan)
+    from repro_torch.core.schedule import (SCHEDULE_CACHE, Topology,
+                                           payload_words)
+    from repro_torch.runtime.fault import HostMembership, WireCorruptionError
+    q, k, hosts = TOPO_QKH
+    d, K = TOPO_D, q * k
+    torch.cuda.reset_peak_memory_stats()
+    topo = Topology.two_level(hosts)
+    plan = make_plan(q, k, d)
+    two = make_plan(q, k, d, topo)
+    for dtype in (None, torch.bfloat16):
+        eb = camr_edge_bytes(two, dtype=dtype)
+        log(f"topology: camr_edge_bytes ({q},{k},{hosts}) d={d} "
+            f"{'float32' if dtype is None else 'bfloat16'}: {json.dumps(eb)}")
+    calls = {n: expected_collective_calls(p)["stage12"]
+             for n, p in (("flat", plan), ("two_level", two))}
+    relays = calls["two_level"] - calls["flat"]
+    log(f"topology: collectives of stages 1-2 (JAX executor) flat "
+        f"{calls['flat']}, two-level {calls['two_level']} ({relays} relay "
+        "lanes)")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        tag = f"topology[{name}]"
+        lane = {n: 2 for n in _gathers(dtype)}
+        word_lane = {n: 2 for n in _gathers(torch.float32)}
+        waves = _device_waves(gen, plan, dtype, 4)
+        flat = ShuffleStream(q, k, d, device=DEVICE)
+        want = [flat.sync(w) for w in waves]
+        ms = {"flat": time_ms(lambda: flat.sync(waves[0]), warmup=1,
+                              reps=5)}
+        runs = (("all_to_all", frozenset()), ("ppermute", frozenset()),
+                ("all_to_all", TOPO_AVOID))
+        for router, avoid in runs:
+            s = ShuffleStream(q, k, d, device=DEVICE, topology=topo,
+                              router=router, gateway_avoid=avoid)
+            out, launched = _count_launches(lambda: s.sync(waves[0]))
+            if not bitwise_equal(out, want[0]):
+                fail(f"{tag}: two-level {router} avoid {sorted(avoid)} "
+                     "!= flat sync")
+            if launched != lane:
+                fail(f"{tag}: two-level {router} launched {launched}, "
+                     f"want {lane}")
+            (p,) = s._plans.values()
+            if p.permutations["stage12"] != relays:
+                fail(f"{tag}: {p.permutations['stage12']} relay lanes run, "
+                     f"want {relays}")
+            if not avoid and router == "all_to_all":
+                ms["two_level"] = time_ms(lambda: s.sync(waves[0]),
+                                          warmup=1, reps=5)
+            del s, out
+        log(f"{tag}: two-level sync (all_to_all, ppermute, gateways "
+            f"{sorted(TOPO_AVOID)} avoided) bitwise == flat sync, each "
+            f"launching {lane} and running {relays} relay lanes")
+
+        v = ShuffleStream(q, k, d, device=DEVICE, topology=topo,
+                          verify_wire=True)
+        out, launched = _count_launches(lambda: v.sync(waves[0]))
+        if not bitwise_equal(out, want[0]) or v.wire_faults:
+            fail(f"{tag}: clean verified sync != flat sync or flagged")
+        if launched != word_lane:
+            fail(f"{tag}: verify lane launched {launched}, want "
+                 f"{word_lane}")
+        pk = payload_words(d, dtype.itemsize, k) // (k - 1)
+        log(f"{tag}: verify lane launched "
+            + ", ".join(f"{n} {c}" for n, c in launched.items())
+            + f" at rows of pk+1 = {pk + 1} words (the 16-bit gathers 0)")
+        ms["verify"] = time_ms(lambda: v.sync(waves[0]), warmup=1, reps=5)
+        faults = ((1, 0, 0, 1, waves[1], want[1]),
+                  (2, K - 1, pk, 0x80000000, waves[2], want[2]))
+        for stage, dev, word, bits, w, ref in faults:
+            v.inject_corruption(stage=stage, device=dev, word=word,
+                                bits=bits)
+            if not bitwise_equal(v.sync(w), ref):
+                fail(f"{tag}: replay of a stage-{stage} fault != flat sync")
+        st = v.stats()
+        if st["wire_faults"] != 2 or st["wire_replays"] != 2:
+            fail(f"{tag}: wire_faults {st['wire_faults']}, wire_replays "
+                 f"{st['wire_replays']} (want 2, 2)")
+
+        def replayed():
+            v.inject_corruption(stage=1, device=3, word=1, bits=0xFFFFFFFF)
+            return v.sync(waves[3])
+        ms["verify_replay"] = time_ms(replayed, warmup=1, reps=3)
+        if not bitwise_equal(replayed(), want[3]):
+            fail(f"{tag}: timed replays != flat sync")
+        m = ShuffleStream(q, k, d, device=DEVICE, topology=topo,
+                          verify_wire=True, max_replays=0)
+        m.inject_corruption(stage=2, device=5, word=pk, bits=1)
+        try:
+            m.sync(waves[0])
+        except WireCorruptionError:
+            pass
+        else:
+            fail(f"{tag}: max_replays=0 let a corrupted wave through")
+        for verify in (False, True):
+            names, row, gms = topology_gathers(two, waves[0], verify)
+            unit = "lanes" if names[0].endswith("16") else "words"
+            log(f"{tag}: {' / '.join(names)} bitwise == plain on the "
+                f"{'verify' if verify else 'two-level'} lane's own inputs "
+                f"(rows of {row} {unit}, stages 1 and 2); stage-1 ms "
+                "(CUDA events) "
+                + ", ".join(f"{n} {a:.3f} (plain {b:.3f})"
+                            for n, (a, b) in gms.items()))
+        torch.cuda.empty_cache()
+        log(f"{tag}: verified sync bitwise == flat sync; a stage-1 payload "
+            f"fault and a stage-2 checksum fault (bits 0x80000000) each "
+            f"detected and replayed bitwise (wire_faults "
+            f"{st['wire_faults']}, wire_replays {st['wire_replays']}); "
+            "WireCorruptionError at max_replays=0")
+        log(f"{tag}: sync ms (CUDA events) flat {ms['flat']:.3f}, two-level "
+            f"{ms['two_level']:.3f}, verified {ms['verify']:.3f}, verified "
+            f"with one replay {ms['verify_replay']:.3f}")
+        del v, m, flat
+        torch.cuda.empty_cache()
+
+        # verified waves through a host kill and rejoin, each dispatch on
+        # the topology it was submitted under: waves 0-1 (a fault on wave
+        # 1) stacked on the two-level plan, wave 2 alone on the surviving
+        # (flat) one, wave 3 alone on the rejoined two-level one; a wave
+        # is let go once submitted (a verified dispatch keeps its copy)
+        hm = HostMembership(q, k, topo)
+        s = ShuffleStream(q, k, d, device=DEVICE, wave_batch=2, depth=2,
+                          topology=topo, verify_wire=True)
+        s.warm_host_survivors()
+
+        def feed(i):
+            s.submit(waves[i])
+            waves[i] = None
+
+        feed(0)
+        s.inject_corruption(stage=2, device=6, word=2, bits=0xFFFFFFFF)
+        feed(1)
+        got = s.drain()
+        misses = SCHEDULE_CACHE.stats()["misses"]
+        hm.kill_host(1)
+        s.set_topology(hm.current_topology())
+        if s.topology is not None:
+            fail(f"{tag}: the surviving topology of (2, 4, 2) is not flat")
+        feed(2)
+        got += s.drain()
+        hm.rejoin_host(1)
+        s.set_topology(hm.current_topology())
+        feed(3)
+        got += s.drain()
+        st = s.stats()
+        if len(got) != 4 or not all(bitwise_equal(g, x.cpu())
+                                    for g, x in zip(got, want)):
+            fail(f"{tag}: kill/rejoin waves != flat syncs")
+        tk = topo.key()
+        if set(s._plans) != {(2, tk, ()), (1, None, ()), (1, tk, ())}:
+            fail(f"{tag}: dispatched on {sorted(map(str, s._plans))}, want "
+                 "waves 0-1 two-level, 2 flat, 3 two-level")
+        if (st["host_swaps"] != 2 or st["wire_faults"] != 1
+                or SCHEDULE_CACHE.stats()["misses"] != misses):
+            fail(f"{tag}: host_swaps {st['host_swaps']}, wire_faults "
+                 f"{st['wire_faults']}, schedule misses {misses} -> "
+                 f"{SCHEDULE_CACHE.stats()['misses']} (want 2, 1, flat)")
+        log(f"{tag}: 4 verified waves (wave_batch 2, depth 2) through "
+            f"kill_host(1) / rejoin_host(1), dispatched as waves 0-1 on "
+            f"the two-level plan, 2 on the surviving flat one, 3 on the "
+            f"rejoined two-level one, bitwise == flat sync; "
+            f"host_swaps {st['host_swaps']}, wire_faults "
+            f"{st['wire_faults']}, wire_replays {st['wire_replays']}, no "
+            f"schedule lowering after the first dispatch; wave_times ms "
+            + ", ".join(f"{t * 1e3:.1f}" for t in s.wave_times))
+        del s, got, waves, want
+        torch.cuda.empty_cache()
+    log(f"topology: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        " GB (the f32 cell of phase 3 resident)")
+
+
 # --------------------------------------------------------------------- #
 # phase 3: the slice's main path
 # --------------------------------------------------------------------- #
@@ -1833,6 +2122,7 @@ def main() -> int:
     results = phase_kernels(gen, tr)
     phase_shuffle()
     phase_waves(gen)
+    phase_topology(gen)
     counts, rep32, peak32 = phase_train(tr, pipe)
     p32 = param_slices(tr)
     del tr, pipe                       # the bf16 cell's peak is its own

@@ -32,11 +32,20 @@ packets ``[K, n, k-1, k, pk]`` and folds them with the dense kernels
 Semantics (as in the JAX package): ``contribs [K, J_own, k-1, K, d]``
 -> ``out [K, J, d]``, device ``s`` receiving the fully aggregated shard
 ``s`` of every job, BITWISE equal to the numpy engine's reduce results
-in every mode and codec. The port runs the flat topology on both wire
-lanes: 4-byte payloads (f32/u32) one value per u32 wire word, and 16-bit
-payloads (bf16/f16) packed two per word (by the 16-bit gather kernels on
-the fused codec, as u32 words on the multipass codec), with stage 3 and
-assembly at native width.
+in every mode and codec, on both wire lanes: 4-byte payloads (f32/u32)
+one value per u32 wire word, and 16-bit payloads (bf16/f16) packed two
+per word (by the 16-bit gather kernels on the fused codec, as u32 words
+on the multipass codec), with stage 3 and assembly at native width.
+
+Two-level topology (a plan made with ``topology=``): phase A is the
+flat round exchange driven by the primary-masked send tables of
+:class:`~repro_torch.core.schedule.HostTables` (one copy of a packet
+per remote host, the gateway's), phase B relays each gateway's copy to
+the other receivers on its host, one row gather per live (round,
+shift) lane (:func:`_route_rows_two_level`). The rebuilt receive buffer
+is word for word the flat one, so the output is bitwise the flat
+schedule's. ``verify_wire=True`` widens every packet row by one u32
+checksum word and counts the decoded rows whose checksum mismatches.
 """
 
 from __future__ import annotations
@@ -53,12 +62,14 @@ from ..device import resolve_device
 from ..kernels.xor_code import (xor_decode, xor_decode_gather,
                                 xor_decode_gather16, xor_encode_gather,
                                 xor_encode_gather16, xor_fold)
-from .schedule import (EXEC_CACHE, SCHEDULE_CACHE, ShuffleProgram,
-                       StageTables, payload_words, resolve_topology)
+from .schedule import (EXEC_CACHE, SCHEDULE_CACHE, HostTables,
+                       ShuffleProgram, StageTables, Topology, payload_words,
+                       resolve_topology)
 
 __all__ = ["CAMRPlan", "make_plan", "camr_shuffle", "scatter_contributions",
            "camr_shuffle_reference", "uncoded_reduce_scatter",
-           "camr_collective_bytes", "expected_collective_calls",
+           "camr_collective_bytes", "camr_edge_bytes",
+           "expected_collective_calls",
            "ShuffleStream", "CODEC_DTYPES", "PACKED_DTYPES",
            "check_codec_dtype"]
 
@@ -77,8 +88,9 @@ class CAMRPlan:
     #: per-(device, router) index tables on the device (built lazily)
     _tables: dict = field(default_factory=dict, repr=False, compare=False)
     #: device-axis permutations the executor has run with this plan, by
-    #: stage: one per (group, round) of the looped exchange and one per
-    #: stage-3 offset (the batched exchange is one routed row gather)
+    #: stage: one per (group, round) of the looped exchange, one per live
+    #: relay lane of the two-level exchange and one per stage-3 offset
+    #: (the batched exchange is one routed row gather)
     permutations: dict = field(
         default_factory=lambda: {"stage12": 0, "stage3": 0}, repr=False,
         compare=False)
@@ -103,15 +115,29 @@ class CAMRPlan:
     def J_own(self) -> int:
         return self.q ** (self.k - 2)
 
+    @property
+    def topology(self) -> Topology | None:
+        """The topology the program was lowered for (None == flat)."""
+        return self.program.topology
 
-def make_plan(q: int, k: int, d: int) -> CAMRPlan:
-    """Lower the flat schedule of a (q, k) CAMR cluster (served from the
-    structural :data:`~repro_torch.core.schedule.SCHEDULE_CACHE`)."""
+
+def make_plan(q: int, k: int, d: int, topology: Topology | None = None, *,
+              gateway_avoid=frozenset()) -> CAMRPlan:
+    """Lower the schedule of a (q, k) CAMR cluster (served from the
+    structural :data:`~repro_torch.core.schedule.SCHEDULE_CACHE`).
+
+    ``topology=None`` (or flat) lowers the flat schedule; a two-level
+    :class:`~repro_torch.core.schedule.Topology` also lowers the
+    host-aware relay overlay (an ``AutoTopology`` marker resolves through
+    the cost model first). ``gateway_avoid`` re-homes phase-A gateways
+    away from the named devices. Outputs are bitwise identical for every
+    topology and gateway assignment."""
     if k < 3:
         raise ValueError("the coded collective path requires k >= 3")
     if d % (k - 1):
         raise ValueError(f"shard width d={d} must be divisible by k-1={k - 1}")
-    program = SCHEDULE_CACHE.program(q, k, Q=q * k, d=d)
+    program = SCHEDULE_CACHE.program(q, k, Q=q * k, d=d, topology=topology,
+                                     gateway_avoid=gateway_avoid)
     return CAMRPlan(q=q, k=k, d=d, program=program)
 
 
@@ -184,23 +210,27 @@ def _arith_dtype(dtype: torch.dtype) -> torch.dtype:
 # --------------------------------------------------------------------- #
 # index tables of the stacked executor (host numpy -> device, per plan)
 # --------------------------------------------------------------------- #
-def _route_rows(T: StageTables, router: str, q: int, k: int,
-                K: int) -> np.ndarray:
+def _route_rows(T: StageTables, router: str, q: int, k: int, K: int,
+                a2a_send=None, pp_send=None) -> np.ndarray:
     """The stacked exchange of both routers, run on packet row ids.
 
     Returns ``[K, n, k-1]``: for device ``s``, group row ``i`` and round
     ``r``, the row of the stacked Δ buffer ``[K*n, pk]`` whose packet
     lands in ``recv[s, i, r-1]``, or -1 where the exchange delivers a
     zero block. Mirrors ``_stage_coded_batched`` of the JAX package line
-    for line, with row ids in place of packet words.
+    for line, with row ids in place of packet words. ``a2a_send`` /
+    ``pp_send`` replace the stage's send tables (phase A of the two-level
+    exchange passes the primary-masked ones of its ``HostTables``).
     """
+    a2a_send = T.a2a_send if a2a_send is None else a2a_send
+    pp_send = T.pp_send if pp_send is None else pp_send
     n, R = T.n, int(T.R)
     ar = np.arange(K)
     ids = np.arange(K * n).reshape(K, n)              # my Δ rows, stacked
     src = np.empty((K, n, k - 1), np.int64)
     for r in range(1, k):
         if router == "all_to_all":
-            idx = T.a2a_send[r - 1]                   # [K_src, K_dst, R]
+            idx = a2a_send[r - 1]                     # [K_src, K_dst, R]
             buf = np.where(idx >= 0,
                            ids[ar[:, None, None], np.clip(idx, 0, None)], -1)
             got = buf.swapaxes(0, 1)                  # tiled all_to_all
@@ -209,7 +239,7 @@ def _route_rows(T: StageTables, router: str, q: int, k: int,
         elif router == "ppermute":
             parts = []
             for dd in range(q):
-                idx = T.pp_send[r - 1, dd]            # [K, R]
+                idx = pp_send[r - 1, dd]              # [K, R]
                 buf = np.where(idx >= 0,
                                ids[ar[:, None], np.clip(idx, 0, None)], -1)
                 moved = np.full_like(buf, -1)         # unnamed dst -> zeros
@@ -222,6 +252,60 @@ def _route_rows(T: StageTables, router: str, q: int, k: int,
             raise ValueError(f"unknown router {router!r}")
         src[:, :, r - 1] = flat[ar[:, None], slot]
     return src
+
+
+def _route_rows_two_level(T: StageTables, X: HostTables, router: str,
+                          q: int, k: int, K: int):
+    """The two-level exchange of one coded stage, run on packet row ids:
+    ``_stage_coded_two_level`` of the JAX package line for line.
+
+    Returns ``(a_rows, lanes)``. ``a_rows [K, n, k-1]`` is phase A: the
+    flat round exchange driven by the primary-masked send tables
+    ``X.a2a_send`` / ``X.pp_send``, -1 where a slot receives a zero block.
+    ``lanes`` holds one ``(dst, src)`` pair of row arrays per live
+    (round, shift) lane of phase B, both rows of the stacked phase-A
+    buffer ``[K*n*(k-1), pk]``: the relay (``X.b_send`` gathered on the
+    gateway, moved over ``X.b_perms``) fills slot ``dst`` of the lane's
+    round with the phase-A packet in slot ``src``, at the slots
+    ``X.b_mask`` marks and ``X.b_recv`` points into the lane's part of
+    the round's relay buffer.
+    """
+    a_rows = _route_rows(T, router, q, k, K, X.a2a_send, X.pp_send)
+    n, Rb = T.n, int(X.Rb)
+    ar = np.arange(K)
+    ids = np.arange(K * n * (k - 1)).reshape(K, n * (k - 1))
+    lanes = []
+    for r in range(1, k):
+        live = X.b_live[r - 1]
+        if not live:
+            continue
+        parts = []
+        for di in live:
+            idx = X.b_send[r - 1, di]                 # [K, Rb]
+            buf = np.where(idx >= 0,
+                           ids[ar[:, None], np.clip(idx, 0, None)], -1)
+            moved = np.full_like(buf, -1)
+            for a, b in X.b_perms[di]:
+                moved[b] = buf[a]
+            parts.append(moved)
+        relay = np.concatenate(parts, axis=1)         # [K, len(live)*Rb]
+        slot, mask = X.b_recv[r - 1], X.b_mask[r - 1]  # [K, n]
+        for j in range(len(live)):                    # lane j's slots
+            s, i = np.nonzero(mask & (slot // Rb == j))
+            lanes.append(((s * n + i) * (k - 1) + r - 1,
+                          relay[s, slot[s, i]]))
+    # a relay source is a primary slot phase A filled, never a slot phase
+    # B fills: so phase B may write its slots in place in any lane order
+    dst = np.concatenate([d for d, _ in lanes] or [np.zeros(0, np.int64)])
+    src = np.concatenate([s for _, s in lanes] or [np.zeros(0, np.int64)])
+    flat_a = a_rows.reshape(-1)
+    if not ((src >= 0).all() and (flat_a[src] >= 0).all()
+            and (flat_a[dst] < 0).all() and len(np.unique(dst)) == len(dst)):
+        raise RuntimeError("two-level relay tables break phase B's in-place "
+                           "invariant: every source must be a slot phase A "
+                           "filled, every destination a distinct slot it "
+                           "left zero")
+    return a_rows, lanes
 
 
 def _fused_tables(plan: CAMRPlan, stage: int, router: str, t) -> dict:
@@ -251,10 +335,28 @@ def _multipass_tables(plan: CAMRPlan, stage: int, router: str, t) -> dict:
 def _batched_tables(plan: CAMRPlan, stage: int, router: str, t) -> dict:
     """Batched exchange: the routed row of every received round packet."""
     T = plan.program.stage_tables(stage)
-    rows = _route_rows(T, router, plan.q, plan.k, plan.K).reshape(-1)
+    return _recv_tables(_route_rows(T, router, plan.q, plan.k, plan.K), t)
+
+
+def _recv_tables(rows: np.ndarray, t) -> dict:
+    """Routed rows -> the gather index and the zero-block mask."""
+    rows = rows.reshape(-1)
     ok = rows >= 0
     return dict(recv_rows=t(np.clip(rows, 0, None), torch.int64),
                 recv_zero=None if ok.all() else t(~ok, torch.bool))
+
+
+def _two_level_tables(plan: CAMRPlan, stage: int, router: str, t) -> dict:
+    """Two-level exchange: phase A's routed rows (under the batched
+    exchange's names, as :func:`_exchange` runs it) and phase B's relay
+    lanes."""
+    prog = plan.program
+    a_rows, lanes = _route_rows_two_level(
+        prog.stage_tables(stage), prog.host_tables(stage), router, plan.q,
+        plan.k, plan.K)
+    return dict(_recv_tables(a_rows, t),
+                relay=[(t(d, torch.int64), t(s, torch.int64))
+                       for d, s in lanes])
 
 
 def _looped_tables(plan: CAMRPlan, stage: int, router: str, t) -> dict:
@@ -267,22 +369,26 @@ def _looped_tables(plan: CAMRPlan, stage: int, router: str, t) -> dict:
         for r, pairs in enumerate(rounds):
             for a, b in pairs:
                 loop_src[gi, r, b] = a
-    return dict(valid=t(T.valid, torch.bool),
-                loop_src=t(np.clip(loop_src, 0, None), torch.int64),
+    return dict(loop_src=t(np.clip(loop_src, 0, None), torch.int64),
                 loop_zero=t(loop_src < 0, torch.bool))
 
 
-#: the stage tables each codec and each exchange mode reads
+#: the stage tables each codec and each exchange reads
 _STAGE_PARTS = {"fused": _fused_tables, "multipass": _multipass_tables,
-                "batched": _batched_tables, "looped": _looped_tables}
+                "batched": _batched_tables, "looped": _looped_tables,
+                "two_level": _two_level_tables}
 
 
 def _device_tables(plan: CAMRPlan, device: torch.device, router: str,
                    codec: str = "fused", mode: str = "batched") -> dict:
     """The executor's index tables on ``device``, cached on the plan per
     (device, router): the shared ones on first use, each coded stage's
-    tables of a codec or an exchange mode the first time a shuffle runs
-    that codec or mode."""
+    tables of a codec or an exchange the first time a shuffle runs that
+    codec or exchange (a two-level plan's batched mode is the
+    ``"two_level"`` exchange)."""
+    if mode == "batched" and plan.topology is not None:
+        mode = "two_level"
+
     def t(a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=device)
@@ -300,15 +406,15 @@ def _device_tables(plan: CAMRPlan, device: torch.device, router: str,
 
 
 def _shared_tables(plan: CAMRPlan, t) -> dict:
-    """Tables of every codec and mode: each coded stage's group count and
-    chunk mask, stage 3 and assembly."""
+    """Tables of every codec and mode: each coded stage's group count,
+    chunk mask and group membership, stage 3 and assembly."""
     prog = plan.program
     q, K, J, J_own = plan.q, plan.K, plan.J, plan.J_own
     stages = {}
     for stage in (1, 2):
         T = prog.stage_tables(stage)
         stages[stage] = dict(n=T.n, src_ok=t(T.src_ok, torch.bool),
-                             parts=set())
+                             valid=t(T.valid, torch.bool), parts=set())
     # stage 3: device s sends the fold of its stored batches of shard
     # dst = classmate at offset o; ppermute pairs move it to dst
     ar = np.arange(K)
@@ -387,12 +493,26 @@ def _cancellations(packets, st, *, K, k):
 
 
 def _exchange(delta, st, *, K, k, pk):
-    """The batched round exchange: ``recv [K, n*(k-1), pk]``, round
-    packets in the ``[n, k-1]`` order the decode indexes."""
+    """The batched round exchange (phase A of the two-level one):
+    ``recv [K, n*(k-1), pk]``, round packets in the ``[n, k-1]`` order the
+    decode indexes."""
     recv = delta.reshape(-1, pk).index_select(0, st["recv_rows"])
     if st["recv_zero"] is not None:
         recv.masked_fill_(st["recv_zero"][:, None], 0)
     return recv.view(K, st["n"] * (k - 1), pk)
+
+
+def _relay(recv, st, calls, *, pk):
+    """Phase B of the two-level exchange, in place on phase A's ``recv``:
+    per live (round, shift) lane, one row gather of gateway copies that
+    fills the slots phase A left zero. Every source is a slot phase A
+    filled and no lane writes one (:func:`_route_rows_two_level` checks
+    it), so each lane reads the phase-A buffer as phase A left it."""
+    rows = recv.view(-1, pk)
+    for dst, src in st["relay"]:
+        rows.index_copy_(0, dst, rows.index_select(0, src))
+        calls["stage12"] += 1
+    return recv
 
 
 def _exchange_looped(delta, st, calls, *, K, k, pk):
@@ -436,18 +556,72 @@ def _decode_stage(recv, ctx, st, *, K, k, pk, codec):
     return dec[dev, row, st["dec_order"]].view(K, n, -1)
 
 
-def _stage_coded(wire, st, calls, *, K, k, pk, mode, codec):
-    """One coded stage of every device: encode, exchange (batched or
-    looped), decode."""
+def _stage_coded(wire, st, calls, *, K, k, pk, mode, codec, corrupt=None):
+    """One coded stage of every device: encode, exchange (batched,
+    two-level or looped), decode. ``corrupt = (device, row, word, bits)``
+    XORs ``bits`` (an int32 pattern) into one word of that device's Δ
+    after the encode, as a bit flip in transit would: every receiver of
+    the packet, relayed ones included, gets the tampered word."""
     ctx, delta = _encode_stage(wire, st, K=K, k=k, pk=pk, codec=codec)
-    if mode == "batched":
-        recv = _exchange(delta, st, K=K, k=k, pk=pk)
-    else:
+    if corrupt is not None:
+        cdev, crow, cword, cbits = corrupt
+        delta[cdev, crow, cword] ^= cbits
+    if mode == "looped":
         recv = _exchange_looped(delta, st, calls, K=K, k=k, pk=pk)
+    else:
+        recv = _exchange(delta, st, K=K, k=k, pk=pk)
+        if "relay" in st:
+            recv = _relay(recv, st, calls, pk=pk)
     del delta
     if codec == "multipass":    # rebinding frees the chunk table
         ctx = _cancellations(ctx, st, K=K, k=k)
     return _decode_stage(recv, ctx, st, K=K, k=k, pk=pk, codec=codec)
+
+
+def _xor_reduce(x: torch.Tensor) -> torch.Tensor:
+    """XOR of the words along the last axis (int32): a halving tree of
+    ``bitwise_xor``, the odd tail folded into the first column. XOR is
+    associative and commutative, so the bits are those of any order."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        y = torch.bitwise_xor(x[..., :h], x[..., h:2 * h])
+        if x.shape[-1] % 2:
+            y[..., :1] ^= x[..., 2 * h:]
+        x = y
+    return x[..., 0]
+
+
+def _widen(wire: torch.Tensor, k: int, pk: int) -> torch.Tensor:
+    """int32 wire words ``[..., (k-1)*pk]`` -> ``[..., (k-1)*(pk+1)]``:
+    each packet followed by its checksum word, the XOR of its words. The
+    fused tables index packet ROWS, so they drive the widened buffer."""
+    w4 = wire.view(*wire.shape[:-1], k - 1, pk)
+    wide = torch.cat([w4, _xor_reduce(w4)[..., None]], dim=-1)
+    return wide.view(*wire.shape[:-1], (k - 1) * (pk + 1))
+
+
+def _check_corrupt(stage: int, device: int, row, bits: int, K: int,
+                   n_rows) -> None:
+    """Range checks of a wire-fault spec, shared by :func:`camr_shuffle`
+    and :meth:`ShuffleStream.inject_corruption`. ``n_rows(stage)`` is the
+    stage's group-row count; ``row=None`` (the stream's "first group row
+    of ``device``") is not checked. The word's range depends on the
+    wave's dtype, so :func:`camr_shuffle` checks it alone."""
+    if stage not in (1, 2):
+        raise ValueError(f"corrupt stage {stage} is not a coded stage "
+                         "(1 or 2)")
+    if not 0 <= device < K:
+        raise ValueError(f"corrupt device {device} outside [0, {K})")
+    if row is not None and not 0 <= row < n_rows(stage):
+        raise ValueError(f"corrupt row {row} outside stage {stage}'s "
+                         f"[0, {n_rows(stage)})")
+    if not 0 < bits < 2 ** 32:
+        raise ValueError("corrupt bits must be a nonzero u32 pattern")
+
+
+def _int32_bits(bits: int) -> int:
+    """A u32 pattern in [1, 2**32) as the int32 of the same bits."""
+    return bits - 2 ** 32 if bits >= 2 ** 31 else bits
 
 
 def _fold_stored(vals, ar, shard):
@@ -466,26 +640,40 @@ def _fold_stored(vals, ar, shard):
 # --------------------------------------------------------------------- #
 def camr_shuffle(plan: CAMRPlan, contribs: torch.Tensor, *,
                  mode: str = "batched", router: str = "all_to_all",
-                 codec: str = "fused", debug: bool = False):
+                 codec: str = "fused", debug: bool = False,
+                 verify_wire: bool = False, corrupt=None):
     """3-stage CAMR coded shuffle of all K virtual devices at once:
     ``contribs [K, J_own, k-1, K, d] -> [K, J, d]``.
 
     Runs on the device of ``contribs``: the CUDA codec kernels on a card,
     their plain versions on the CPU. Outputs are BITWISE equal to the
     numpy engine's reduce results in every ``mode`` (``"batched"``, or the
-    legacy ``"looped"`` per-group exchange, which ignores ``router``) and
-    every ``codec`` (``"fused"`` gathers, or the ``"multipass"`` oracle):
-    XOR delivery is lossless and assembly folds the stored batches in the
-    engine's canonical order. bf16/f16 contributions take the packed
-    lane: two values per u32 wire word through stages 1 and 2 (half the
-    bytes of an f32 shuffle of the same ``d``), stage 3 and assembly in
-    the payload dtype.
+    legacy ``"looped"`` per-group exchange, which ignores ``router``),
+    every ``codec`` (``"fused"`` gathers, or the ``"multipass"`` oracle)
+    and every topology of the plan (a two-level plan runs the batched
+    mode only): XOR delivery is lossless and assembly folds the stored
+    batches in the engine's canonical order. bf16/f16 contributions take
+    the packed lane: two values per u32 wire word through stages 1 and 2
+    (half the bytes of an f32 shuffle of the same ``d``), stage 3 and
+    assembly in the payload dtype.
 
     ``debug=True`` returns the JAX executor's debug dict, stacked over the
     device axis: ``out``, ``stage1``, ``stage2``, ``stage3`` and
     ``own_sum`` ``[K, J, d]`` (each device's selections of every job row,
     garbage where the row is not its own to decode) and ``is_own``
     ``bool[K, J]``.
+
+    ``verify_wire=True`` runs the self-verifying wire: every coded packet
+    row carries one more u32 word, the XOR of its payload words, through
+    the u32 gather kernels on both lanes (16-bit payloads as their wire
+    words), and the receiver recomputes the checksum of each decoded row
+    it is a member for. Returns ``(out, bad)``, ``bad`` ``int32[K]`` the
+    mismatching rows per device: 0 on a clean wire, and any single
+    corrupted word of stages 1 and 2 (payload or checksum, flat or relay
+    edge) is counted. ``corrupt=(stage, device, row, word, bits)`` XORs
+    the u32 pattern ``bits`` into word ``word`` of row ``row`` of
+    ``device``'s Δ in coded stage ``stage``, after the encode. Both need
+    the fused codec and the batched mode.
     """
     prog = plan.program
     q, k, K, J, J_own, d = (plan.q, plan.k, plan.K, plan.J, plan.J_own,
@@ -500,6 +688,22 @@ def camr_shuffle(plan: CAMRPlan, contribs: torch.Tensor, *,
         raise ValueError(f"unknown codec {codec!r}")
     if router not in ("all_to_all", "ppermute"):
         raise ValueError(f"unknown router {router!r}")
+    if plan.topology is not None and mode != "batched":
+        raise ValueError("two-level topology requires mode='batched' "
+                         "(the looped legacy router has no host-aware "
+                         "relay lane)")
+    if verify_wire:
+        if codec != "fused" or mode != "batched":
+            raise ValueError("verify_wire requires codec='fused' and "
+                             "mode='batched' (the checksum word rides "
+                             "the row-oriented fused index tables)")
+        if debug:
+            raise ValueError("verify_wire and debug are mutually "
+                             "exclusive (different return shapes)")
+    elif corrupt is not None:
+        raise ValueError("corrupt injection without verify_wire would "
+                         "silently mis-reduce — exactly the failure mode "
+                         "the integrity lane exists to rule out")
     dtype = contribs.dtype
     contribs = contribs.contiguous()
     tabs = _device_tables(plan, contribs.device, router, codec, mode)
@@ -507,14 +711,40 @@ def camr_shuffle(plan: CAMRPlan, contribs: torch.Tensor, *,
     # packet multiple for packed 16-bit ones
     wp = payload_words(d, contribs.element_size(), k)
     pk = wp // (k - 1)
-    wire = _wire_buffer(contribs, wp, codec)   # [K, J_own, k-1, K, ...]
+    pkv = pk + 1 if verify_wire else pk
+    # [K, J_own, k-1, K, ...]; the verify lane takes every payload as its
+    # int32 wire words (the multipass codec's view) and widens the rows
+    wire = _wire_buffer(contribs, wp, "multipass" if verify_wire else codec)
+    spec = {}
+    if verify_wire:
+        wire = _widen(wire, k, pk)
+        if corrupt is not None:
+            cst, cdev, crow, cword, cbits = (int(x) for x in corrupt)
+            _check_corrupt(cst, cdev, crow, cbits, K,
+                           lambda s: tabs["stages"][s]["n"])
+            if not 0 <= cword < pkv:
+                raise ValueError(f"corrupt word {cword} outside packet "
+                                 f"[0, {pkv})")
+            spec[cst] = (cdev, crow, cword, _int32_bits(cbits))
+        bad = torch.zeros(K, dtype=torch.int32, device=contribs.device)
 
     # ========== stages 1 + 2: one shared coded-exchange machine ======== #
     arith = _arith_dtype(dtype)
     stage_vals = {}
     for stage in (1, 2):
-        dec = _stage_coded(wire, tabs["stages"][stage], plan.permutations,
-                           K=K, k=k, pk=pk, mode=mode, codec=codec)
+        st = tabs["stages"][stage]
+        dec = _stage_coded(wire, st, plan.permutations, K=K, k=k, pk=pkv,
+                           mode=mode, codec=codec, corrupt=spec.get(stage))
+        if verify_wire:
+            # recompute each decoded row's checksum; rows of groups the
+            # device is not a member of decode garbage and are masked
+            dec = dec.view(K, st["n"], k - 1, pkv)
+            payload = dec[..., :pk]
+            wrong = ((_xor_reduce(payload) != dec[..., pk])
+                     & st["valid"][..., None])
+            bad += wrong.sum(dim=(1, 2), dtype=torch.int32)
+            # the payload words are bit for bit the unverified decode's
+            dec = payload.reshape(K, st["n"], wp).contiguous()
         stage_vals[stage] = _from_wire(dec, dtype, d)   # [K, n, d]
     del wire
     vals = contribs.view(arith)
@@ -555,19 +785,28 @@ def camr_shuffle(plan: CAMRPlan, contribs: torch.Tensor, *,
     out = out.view(K, J, d).view(dtype)
     if debug:
         return dict(out=out, **info, is_own=tabs["is_own"])
+    if verify_wire:
+        return out, bad
     return out
 
 
 def expected_collective_calls(plan: CAMRPlan, mode: str = "batched",
                               router: str = "all_to_all") -> dict[str, int]:
-    """Collectives per shuffle of the JAX executor, flat topology: the
-    batched rounds (one ``all_to_all``, or ``q`` ppermutes, per round of
-    each coded stage) or the looped per-group permutations, plus the
-    ``q-1`` stage-3 unicasts. The port's looped lane and stage 3 run
-    exactly these permutations (:attr:`CAMRPlan.permutations`)."""
+    """Collectives per shuffle of the JAX executor: the batched rounds
+    (one ``all_to_all``, or ``q`` ppermutes, per round of each coded
+    stage) or the looped per-group permutations, plus the ``q-1``
+    stage-3 unicasts; on a two-level topology, one intra-host relay
+    ppermute more per live (round, shift) lane of each coded stage. The
+    port's looped lane, its relay lanes and stage 3 run exactly these
+    permutations (:attr:`CAMRPlan.permutations`); its batched rounds are
+    one routed row gather each stage."""
     q, k = plan.q, plan.k
     if mode == "batched":
         s12 = 2 * (k - 1) if router == "all_to_all" else 2 * (k - 1) * q
+        if plan.topology is not None:
+            s12 += sum(len(live) for X in (plan.program.hx1,
+                                           plan.program.hx2)
+                       for live in X.b_live)
     else:
         s12 = (plan.J + plan.program.n_s2) * (k - 1)
     return dict(stage12=s12, stage3=q - 1, total=s12 + q - 1)
@@ -624,17 +863,24 @@ def uncoded_reduce_scatter(contribs: torch.Tensor, *,
     return total.transpose(0, 1).contiguous()
 
 
+def _wire_itemsize(dtype, itemsize: int, where: str) -> int:
+    """The payload item size that picks the wire lane: ``dtype``'s (a
+    codec payload dtype) when given, else ``itemsize``."""
+    if dtype is None:
+        return itemsize
+    name = _dtype_name(dtype)
+    if name not in CODEC_DTYPES:
+        raise TypeError(f"{where}: {name} is not a codec payload dtype "
+                        f"({', '.join(CODEC_DTYPES)})")
+    return 2 if name in PACKED_DTYPES else 4
+
+
 def camr_collective_bytes(plan: CAMRPlan, itemsize: int = 4,
                           dtype=None) -> dict[str, int]:
     """On-wire bytes per device-step of the schedule (p2p model), for the
     comparison against a psum-based reduce-scatter (the JAX package's
     formula; ``dtype`` selects the wire lane by its item size)."""
-    if dtype is not None:
-        name = _dtype_name(dtype)
-        if name not in CODEC_DTYPES:
-            raise TypeError(f"camr_collective_bytes: {name} is not a codec "
-                            f"payload dtype ({', '.join(CODEC_DTYPES)})")
-        itemsize = 2 if name in PACKED_DTYPES else 4
+    itemsize = _wire_itemsize(dtype, itemsize, "camr_collective_bytes")
     k, q, J, J_own, K, d = (plan.k, plan.q, plan.J, plan.J_own, plan.K,
                             plan.d)
     # coded packets move as u32 wire words regardless of payload dtype
@@ -648,18 +894,56 @@ def camr_collective_bytes(plan: CAMRPlan, itemsize: int = 4,
                 camr_total=s1 + s2 + s3, psum_ring_total=ring)
 
 
-# --------------------------------------------------------------------- #
-# multi-wave streaming and the degraded lane (the training grad-sync path)
-# --------------------------------------------------------------------- #
-#: where the arguments of the JAX stream that are not ported yet point
-_ITEM7 = ("is not ported yet (ROADMAP.md, Queue 1 item 7: the two-level "
-          "topology, gateway failover and verify_wire)")
+def camr_edge_bytes(plan: CAMRPlan, itemsize: int = 4,
+                    dtype=None) -> dict[str, int]:
+    """Per-edge bytes of the flat and the two-level schedules, counted
+    from the lowered send tables (the JAX package's function): every kept
+    ``a2a_send`` entry is one packet delivery, classified by the host
+    blocks of its sender and receiver under the plan's two-level
+    topology; phase-B relay hops (``b_send``) are intra-host by
+    construction. Stage-3 unicasts are intra-class and classes sit inside
+    host blocks, so stage 3 never crosses a host under either schedule.
+    Needs a plan lowered with a two-level topology; ``dtype`` (a torch
+    dtype or its name) selects the wire lane by its item size."""
+    prog = plan.program
+    topo = prog.topology
+    if topo is None:
+        raise ValueError("camr_edge_bytes needs a plan lowered with a "
+                         "two-level topology (make_plan(..., topology="
+                         "Topology.two_level(hosts)))")
+    itemsize = _wire_itemsize(dtype, itemsize, "camr_edge_bytes")
+    k, q, K, d, J_own = plan.k, plan.q, plan.K, plan.d, plan.J_own
+    pk_b = (payload_words(d, itemsize, k) // (k - 1)) * 4
+    host = np.arange(K) // topo.devices_per_host(K)
+    cross = host[:, None] != host[None, :]                  # [K, K]
+    flat = dict(inter=0, intra=0)
+    two = dict(inter=0, intra=0)
+    for stage in (1, 2):
+        T = prog.stage_tables(stage)
+        X = prog.host_tables(stage)
+        for tab, acc in ((T.a2a_send, flat), (X.a2a_send, two)):
+            kept = (tab >= 0).sum(axis=3).sum(axis=0)       # [K, K]
+            acc["inter"] += int(kept[cross].sum())
+            acc["intra"] += int(kept[~cross].sum())
+        two["intra"] += int((X.b_send >= 0).sum())          # relay hops
+    s3_b = (q - 1) * J_own * d * itemsize * K               # intra-host
+    return dict(
+        hosts=topo.hosts, packet_bytes=pk_b,
+        flat_inter_bytes=flat["inter"] * pk_b,
+        flat_intra_bytes=flat["intra"] * pk_b + s3_b,
+        two_level_inter_bytes=two["inter"] * pk_b,
+        two_level_intra_bytes=two["intra"] * pk_b + s3_b,
+        s3_inter_bytes=0)
 
 
+# --------------------------------------------------------------------- #
+# multi-wave streaming, the degraded lane, topology re-homing and the
+# self-verifying wire (the training grad-sync path)
+# --------------------------------------------------------------------- #
 class ShuffleStream:
     """Multi-wave, double-buffered runner of :func:`camr_shuffle`, with a
-    degraded lane for a failed-worker set: the JAX stream's flat,
-    unverified lanes.
+    degraded lane for a failed-worker set, two-level topologies that a
+    host loss re-homes, and the self-verifying wire.
 
     * **sync** — one wave ``[K, J_own, k-1, K, d]`` through the stream's
       executor, output left on the device: the training grad-sync path.
@@ -678,21 +962,37 @@ class ShuffleStream:
     * **degraded lane** — :meth:`degrade` swaps later dispatches to the
       survivor-set executor of :func:`repro_torch.runtime.fault
       .build_degraded_executor` (``degraded_lane="device"``, served from
-      the process-wide :data:`~repro_torch.core.schedule.EXEC_CACHE`;
-      zero builds after :meth:`warm_degraded_execs`), or to the fault
-      runtime's host interpreter ``degraded_shuffle_host``
+      the process-wide :data:`~repro_torch.core.schedule.EXEC_CACHE`,
+      keyed per topology; zero builds after :meth:`warm_degraded_execs`),
+      or to the fault runtime's host interpreter ``degraded_shuffle_host``
       (``degraded_lane="host"``, the oracle the device lane is held to;
       it runs only when asked for). Both fold in the engine's canonical
       order, so their output is bitwise the healthy shuffle of the same
       contributions. :meth:`restore` returns to the healthy executors,
-      which stay built.
+      which stay built. A degraded wave has no coded wire and is not
+      verified.
+    * **topology** — ``topology`` (two-level, or an ``AutoTopology``
+      marker) runs the relay exchange; :meth:`set_topology` re-homes
+      later dispatches (after ``HostMembership.kill_host``, pass its
+      ``current_topology()``), :meth:`set_gateway_avoid` moves phase-A
+      gateways off straggling devices, and :meth:`warm_host_survivors`
+      lowers every surviving-host topology ahead, so a re-homing is a
+      cache hit. Outputs are bitwise the same under every topology.
+    * **self-verifying wire** — ``verify_wire=True`` runs each healthy
+      wave with packet checksums; a wave with a mismatching row is run
+      again, bitwise, through the clean executor, up to ``max_replays``
+      times, then ``WireCorruptionError`` is raised. :meth:`sync`
+      verifies before it returns, a streamed wave when it is collected.
+      :meth:`inject_corruption` arms a one-shot fault on the next
+      dispatch.
 
     ``compiles`` counts healthy executor builds (one plan and one set of
-    device tables per stacked width), ``degraded_compiles`` degraded
-    executor builds, ``dispatches`` the shuffles run and ``swaps`` the
-    degrade/restore events. The two-level ``topology``,
-    ``gateway_avoid``, ``verify_wire`` and ``max_replays`` are refused
-    (ROADMAP.md, Queue 1 item 7).
+    device tables per stacked width, topology and gateway set; a fault
+    spec is an argument of the executor, not a build of its own),
+    ``degraded_compiles`` degraded executor builds, ``dispatches`` the
+    shuffles run (replays included), ``swaps`` the degrade/restore
+    events, ``host_swaps`` the topology changes, ``wire_faults`` the
+    waves a checksum flagged and ``wire_replays`` the replays.
     """
 
     def __init__(self, q: int, k: int, d: int, *, device=None,
@@ -720,57 +1020,180 @@ class ShuffleStream:
             raise ValueError(f"unknown codec {codec!r}")
         if degraded_lane not in ("device", "host"):
             raise ValueError(f"unknown degraded_lane {degraded_lane!r}")
-        if resolve_topology(topology, q, k) is not None:
-            raise NotImplementedError(f"topology={topology!r} {_ITEM7}")
-        if gateway_avoid:
-            raise NotImplementedError(f"gateway_avoid {_ITEM7}")
-        if verify_wire:
-            raise NotImplementedError(f"verify_wire {_ITEM7}")
-        if max_replays != 2:
-            raise NotImplementedError(f"max_replays (of verify_wire) "
-                                      f"{_ITEM7}")
         self.q, self.k, self.d = q, k, d
         self.K = q * k
+        self.mode, self.router, self.codec = mode, router, codec
+        self.topology = self._checked_topology(topology)
+        self._gateway_avoid = self._checked_avoid(gateway_avoid)
+        self.verify_wire = bool(verify_wire)
+        if self.verify_wire and (codec != "fused" or mode != "batched"):
+            raise ValueError("verify_wire requires codec='fused' and "
+                             "mode='batched'")
+        if max_replays < 0:
+            raise ValueError("max_replays must be >= 0")
+        self.max_replays = max_replays
         self.device = resolve_device(device)
         self.depth, self.wave_batch = depth, wave_batch
-        self.mode, self.router, self.codec = mode, router, codec
         self.degraded_lane = degraded_lane
-        self._plans: dict = {}                 # stacked width W -> plan
+        self._plans: dict = {}                 # executor key -> plan
         self._pending: list = []               # waves awaiting dispatch
-        self._in_flight: deque = deque()       # (out, W, t0, event)
+        self._in_flight: deque = deque()       # (out, W, t0, event, buf)
         self._done: list = []                  # host [K, J, d] outputs
         self._failed: frozenset = frozenset()  # current survivor-set gap
+        self._corrupt = None                   # one-shot fault spec
         self.dispatches = 0
         self.compiles = 0
         self.degraded_compiles = 0
         self.swaps = 0
+        self.host_swaps = 0
+        self.wire_faults = 0
+        self.wire_replays = 0
         self.wave_times: list[float] = []      # dispatch -> collect, s
 
-    # -- healthy executor per stacked width ----------------------------- #
+    # -- healthy executor per (width, topology, gateways) --------------- #
+    def _gw(self) -> frozenset:
+        """Gateway preference in effect — flat has no gateways."""
+        return (self._gateway_avoid if self.topology is not None
+                else frozenset())
+
     def _executor(self, W: int = 1) -> CAMRPlan:
-        plan = self._plans.get(W)
+        key = (W, None if self.topology is None else self.topology.key(),
+               tuple(sorted(self._gw())))
+        plan = self._plans.get(key)
         if plan is None:
-            plan = make_plan(self.q, self.k, W * self.d)
+            plan = make_plan(self.q, self.k, W * self.d, self.topology,
+                             gateway_avoid=self._gw())
             _device_tables(plan, self.device, self.router, self.codec,
                            self.mode)
-            self._plans[W] = plan
+            self._plans[key] = plan
             self.compiles += 1
         return plan
 
-    def _run(self, buf: torch.Tensor, W: int) -> torch.Tensor:
-        if self._failed:
-            return self._degraded_exec(buf, W)
+    def _shuffle(self, buf: torch.Tensor, W: int, corrupt=None):
+        """The healthy executor: ``out``, or ``(out, bad)`` on a verified
+        stream."""
         return camr_shuffle(self._executor(W), buf, mode=self.mode,
-                            router=self.router, codec=self.codec)
+                            router=self.router, codec=self.codec,
+                            verify_wire=self.verify_wire, corrupt=corrupt)
+
+    def _program(self, W: int = 1):
+        return SCHEDULE_CACHE.program(self.q, self.k, Q=self.K,
+                                      d=W * self.d, topology=self.topology,
+                                      gateway_avoid=self._gw())
+
+    # -- fault domains and gateway failover ----------------------------- #
+    def _checked_topology(self, topology):
+        t = resolve_topology(topology, self.q, self.k)
+        if t is not None:
+            t.check(self.q, self.k)
+            if self.mode != "batched":
+                raise ValueError("two-level topology requires "
+                                 "mode='batched'")
+        return t
+
+    def _checked_avoid(self, avoid) -> frozenset:
+        fs = frozenset(int(x) for x in (avoid or ()))
+        if any(not 0 <= x < self.K for x in fs):
+            raise ValueError(f"gateway_avoid {sorted(fs)} has devices "
+                             f"outside [0, {self.K})")
+        return fs
+
+    @property
+    def gateway_avoid(self) -> frozenset:
+        return self._gw()
+
+    def set_topology(self, topology) -> None:
+        """Re-home later dispatches onto ``topology`` (after
+        ``HostMembership.kill_host``, its ``current_topology()``). A
+        re-keying only: executors of other topologies stay built, so a
+        rejoin swaps back without a build, and the schedule comes from
+        the warm cache (no cold lowering after
+        :meth:`warm_host_survivors`). Waves in flight complete as they
+        were dispatched; outputs are bitwise the same either way."""
+        t = self._checked_topology(topology)
+        if t != self.topology:
+            self.topology = t
+            self.host_swaps += 1
+
+    def set_gateway_avoid(self, avoid) -> None:
+        """Prefer phase-A gateways OUTSIDE ``avoid`` for later dispatches
+        (straggler failover: feed it ``Membership.gateway_avoid()``).
+        Joins the executor and schedule-cache keys; outputs are bitwise
+        the same for every assignment."""
+        self._gateway_avoid = self._checked_avoid(avoid)
+
+    def warm_host_survivors(self, *, max_host_failures: int = 1) -> int:
+        """Lower ahead the surviving-host topology of every loss of up to
+        ``max_host_failures`` hosts (``ScheduleCache.warm_host_survivors``),
+        so a later :meth:`set_topology` on the kill path is a cache hit.
+        Returns the survivor topologies warmed."""
+        if self.topology is None:
+            raise ValueError("warm_host_survivors needs a two-level "
+                             "stream (flat has no hosts to lose)")
+        return SCHEDULE_CACHE.warm_host_survivors(
+            self._program(), max_host_failures=max_host_failures)
+
+    # -- the self-verifying wire ---------------------------------------- #
+    def inject_corruption(self, *, stage: int = 1, device: int = 0,
+                          row=None, word: int = 0, bits: int = 1) -> None:
+        """Arm a ONE-SHOT wire fault: the next healthy dispatch XORs the
+        u32 pattern ``bits`` into word ``word`` of row ``row`` of
+        ``device``'s Δ in coded stage ``stage`` (the chaos layer's
+        ``CorruptPacket``). The checksum catches it and the wave is
+        replayed bitwise through the clean executor. ``row=None`` picks
+        the device's first group row in that stage, so the tampered
+        packet is really sent."""
+        if not self.verify_wire:
+            raise ValueError("inject_corruption needs verify_wire=True "
+                             "— corrupting an unverified wire would "
+                             "silently mis-reduce")
+        prog = self._program()
+        _check_corrupt(int(stage), int(device),
+                       None if row is None else int(row), int(bits), self.K,
+                       lambda s: prog.stage_tables(s).n)
+        if row is None:
+            valid = np.asarray(prog.stage_tables(stage).valid)[device]
+            rows = np.flatnonzero(valid)
+            if not len(rows):
+                raise ValueError(f"device {device} participates in no "
+                                 f"stage-{stage} group")
+            row = int(rows[0])
+        self._corrupt = (int(stage), int(device), int(row), int(word),
+                         int(bits))
+
+    def _take_corrupt(self):
+        spec, self._corrupt = self._corrupt, None
+        return spec
+
+    def _verified(self, res, bad, buf, W: int) -> torch.Tensor:
+        """Read the per-device mismatch counts (a host sync); on a fault,
+        run the SAME wave again through the clean executor, up to
+        ``max_replays`` times, then raise ``WireCorruptionError``. A
+        clean pass decodes exactly the unverified lane's payload words,
+        so a replay is bitwise."""
+        total = int(bad.sum())
+        if total:
+            self.wire_faults += 1
+        replays = 0
+        while total:
+            if replays >= self.max_replays:
+                from ..runtime.fault import WireCorruptionError
+                raise WireCorruptionError(
+                    f"wave failed wire verification after {replays} "
+                    f"bitwise replays ({total} corrupted packet rows "
+                    "persist) — persistent corruption, not a transient "
+                    "fault; quarantine the link")
+            replays += 1
+            self.wire_replays += 1
+            self.dispatches += 1
+            res, bad = self._shuffle(buf, W)
+            total = int(bad.sum())
+        return res
 
     # -- live elasticity ------------------------------------------------ #
     @property
     def failed(self) -> frozenset:
         return self._failed
-
-    def _program(self, W: int = 1):
-        return SCHEDULE_CACHE.program(self.q, self.k, Q=self.K,
-                                      d=W * self.d)
 
     def degrade(self, failed) -> None:
         """Swap later dispatches to the survivor set ``failed``.
@@ -795,14 +1218,16 @@ class ShuffleStream:
             self.swaps += 1
 
     def _degraded_fn(self, W: int, dtype: torch.dtype, failed=None):
-        """The degraded executor for stack width ``W``, value ``dtype``
-        and the survivor set, from the process-wide EXEC_CACHE: a later
-        stream of the same shape, or a :meth:`warm_degraded_execs` before
-        any failure, makes a mid-stream degrade build-free."""
+        """The degraded executor for stack width ``W``, value ``dtype``,
+        the survivor set and the topology, from the process-wide
+        EXEC_CACHE: a later stream of the same shape, or a
+        :meth:`warm_degraded_execs` before any failure, makes a
+        mid-stream degrade build-free."""
         from ..runtime.fault import build_degraded_executor
         failed = self._failed if failed is None else failed
+        topo = None if self.topology is None else self.topology.key()
         key = ("spmd_degraded", self.q, self.k, self.K, W * self.d,
-               _dtype_name(dtype), tuple(sorted(failed)), None,
+               _dtype_name(dtype), tuple(sorted(failed)), topo,
                str(self.device))
 
         def build():
@@ -871,11 +1296,17 @@ class ShuffleStream:
     def sync(self, contribs: torch.Tensor) -> torch.Tensor:
         """Run ONE wave ``[K, J_own, k-1, K, d]`` through the stream's
         executor (the degraded one while workers are failed); returns the
-        ``[K, J, d]`` output on the stream's device (no host copy).
-        Independent of the submit/drain window."""
+        ``[K, J, d]`` output on the stream's device (no host copy). A
+        verified stream checks the wave, and replays it on a fault,
+        before it returns. Independent of the submit/drain window."""
         self._check_wave(contribs)
         self.dispatches += 1
-        return self._run(contribs, 1)
+        if self._failed:
+            return self._degraded_exec(contribs, 1)
+        if self.verify_wire:
+            res, bad = self._shuffle(contribs, 1, self._take_corrupt())
+            return self._verified(res, bad, contribs, 1)
+        return self._shuffle(contribs, 1)
 
     # -- streaming ------------------------------------------------------ #
     def submit(self, contribs: torch.Tensor) -> None:
@@ -899,21 +1330,31 @@ class ShuffleStream:
         buf = waves[0] if W == 1 else torch.cat(waves, dim=-1)
         del waves
         t0 = time.perf_counter()
-        out = self._run(buf, W)
+        keep = None
+        if self._failed:
+            # the survivor-set executor: no coded wire, nothing to check
+            out = self._degraded_exec(buf, W)
+        elif self.verify_wire:
+            out = self._shuffle(buf, W, self._take_corrupt())
+            keep = buf                  # kept for a bitwise replay
+        else:
+            out = self._shuffle(buf, W)
         del buf
         event = None
-        if out.is_cuda:
+        if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record()
         self.dispatches += 1
-        self._in_flight.append((out, W, t0, event))
+        self._in_flight.append((out, W, t0, event, keep))
         while len(self._in_flight) > self.depth:
             self._collect_oldest()
 
     def _collect_oldest(self) -> None:
-        out, W, t0, event = self._in_flight.popleft()
+        out, W, t0, event, buf = self._in_flight.popleft()
         if event is not None:
             event.synchronize()
+        if buf is not None:                               # verified wave
+            out = self._verified(*out, buf, W)
         host = out.cpu()                                  # [K, J, W*d]
         self.wave_times.append(time.perf_counter() - t0)
         if W == 1:
@@ -941,11 +1382,19 @@ class ShuffleStream:
     def stats(self) -> dict:
         """Executor-reuse counters (``compiles`` stays flat while
         ``dispatches`` grows on a steady-state stream, across
-        degrade/restore ``swaps`` too)."""
+        degrade/restore ``swaps`` and topology ``host_swaps`` too) and the
+        wire's fault counters."""
         return dict(dispatches=self.dispatches, compiles=self.compiles,
-                    widths=sorted(self._plans), swaps=self.swaps,
-                    failed=tuple(sorted(self._failed)),
+                    widths=sorted({key[0] for key in self._plans}),
+                    swaps=self.swaps, failed=tuple(sorted(self._failed)),
                     degraded_compiles=self.degraded_compiles,
                     degraded_lane=self.degraded_lane, mode=self.mode,
                     router=self.router, codec=self.codec,
-                    device=str(self.device))
+                    device=str(self.device),
+                    topology=(None if self.topology is None
+                              else self.topology.key()),
+                    gateway_avoid=tuple(sorted(self._gw())),
+                    host_swaps=self.host_swaps,
+                    verify_wire=self.verify_wire,
+                    wire_faults=self.wire_faults,
+                    wire_replays=self.wire_replays)

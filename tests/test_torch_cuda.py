@@ -9,10 +9,11 @@ that has only PyTorch:
 
 Tolerances: XOR gathers (u32 words and u16 lanes), the dense folds of
 the multipass codec, ``aggregate`` with one row per segment and the
-shuffle (f32 and packed bf16/f16, every mode and codec) are bitwise
-(bit movers, exact sums); ``aggregate`` with several rows per segment
-is rtol 1e-6 in f32 and one bf16 ulp in bf16, as stated for the
-kernel (it is in fact the same ascending f32 sum); the tiny trainer's
+shuffle (f32 and packed bf16/f16, every mode and codec, the two-level
+and verified lanes) are bitwise (bit movers, exact sums); ``aggregate``
+with several rows per segment is rtol 1e-6 in f32 and one bf16 ulp in
+bf16, as stated for the kernel (it is in fact the same ascending f32
+sum); the tiny trainer's
 loss on the card is within rtol 1e-4 of the CPU's (cuBLAS and the CPU's
 BLAS sum products in other orders, TF32 off), on both grad-sync lanes.
 ``flash_attention`` is within 2e-5 (f32) / 2e-2 (bf16) of its plain
@@ -33,6 +34,7 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.collective import (camr_shuffle, make_plan,
                                          scatter_contributions)
+from repro_torch.core.schedule import Topology, payload_words
 from repro_torch.data.pipeline import ShardedTokenPipeline
 from repro_torch.kernels import (aggregate, aggregate_bf16, flash_attention,
                                  launch_counts, ops, ref, ssd_scan,
@@ -239,6 +241,36 @@ def test_cuda_shuffle_bitwise_equals_cpu(cuda_device, q, k, router):
     got = camr_shuffle(plan, c.to(cuda_device), router=router).cpu()
     want = camr_shuffle(plan, c, router=router)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("q,k,hosts", [(2, 4, 2), (3, 4, 2), (2, 6, 3)])
+def test_cuda_two_level_and_verified_wire_equal_cpu(cuda_device, q, k,
+                                                    hosts, dtype):
+    """The two-level shuffle (both routers) and the verified wire (clean
+    and with one corrupted checksum word at ``bits=0x80000000``) on the
+    card: bitwise the same code on the CPU, mismatch counts included."""
+    d = (k - 1) * 1001
+    plan = make_plan(q, k, d)
+    two = make_plan(q, k, d, Topology.two_level(hosts))
+    rng = np.random.default_rng(q * k + hosts)
+    bg = rng.standard_normal((plan.J, k, plan.K, d)).astype(np.float32)
+    c = torch.from_numpy(scatter_contributions(plan, bg)).to(dtype)
+    cd = c.to(cuda_device)
+    words = torch.int32 if dtype == torch.float32 else torch.int16
+    want = camr_shuffle(plan, c)
+    for router in ("all_to_all", "ppermute"):
+        got = camr_shuffle(two, cd, router=router).cpu()
+        assert torch.equal(got.view(words), want.view(words)), router
+    pk = payload_words(d, c.element_size(), k) // (k - 1)
+    row = int(np.flatnonzero(two.program.stage_tables(2).valid[1])[0])
+    for spec in (None, (2, 1, row, pk, 0x80000000)):
+        got, bad = camr_shuffle(two, cd, verify_wire=True, corrupt=spec)
+        ref, ref_bad = camr_shuffle(two, c, verify_wire=True, corrupt=spec)
+        assert torch.equal(got.cpu().view(words), ref.view(words)), spec
+        assert torch.equal(bad.cpu(), ref_bad), spec
+        assert int(ref_bad.sum()) == (0 if spec is None else k - 1)
 
 
 @pytest.mark.parametrize("m", [1, 2, 3, 4])

@@ -10,8 +10,9 @@ window and the degraded lane.
   stream's (every degraded route folds in the healthy order),
   ``compiles`` flat, ``swaps`` 2 — the twin of tests/test_elastic.py's
   stream churn, and of its warm zero-build gate;
-* the arguments of the JAX stream that are not ported (ROADMAP.md,
-  Queue 1 item 7) raise ``NotImplementedError``.
+* the two-level ``topology``, ``gateway_avoid``, ``verify_wire`` and
+  ``max_replays`` are taken and validated as the JAX stream validates
+  them (their lanes: tests/test_torch_topology.py).
 """
 
 import os
@@ -183,16 +184,27 @@ def test_warm_degraded_execs_zero_builds():
 
 
 def test_stream_refuses_item7_arguments_and_bad_options():
+    """The item-7 arguments are taken, and refused only where the JAX
+    stream refuses them."""
     from repro_torch.core.schedule import Topology
-    for kw in (dict(topology=Topology.two_level(3)),
-               dict(gateway_avoid={1}), dict(verify_wire=True),
-               dict(max_replays=0)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            ShuffleStream(Q, K3, D, device="cpu", **kw)
-    ShuffleStream(Q, K3, D, device="cpu", topology=Topology.flat())
+    s = ShuffleStream(Q, K3, D, device="cpu", topology=Topology.two_level(3),
+                      gateway_avoid={1}, verify_wire=True, max_replays=0)
+    st = s.stats()
+    assert st["topology"] == (3, 4.0) and st["gateway_avoid"] == (1,)
+    assert st["verify_wire"] and s.max_replays == 0
+    flat = ShuffleStream(Q, K3, D, device="cpu", topology=Topology.flat(),
+                         gateway_avoid={1})
+    assert flat.topology is None and flat.gateway_avoid == frozenset()
     for kw, what in ((dict(depth=0), "depth"), (dict(wave_batch=0),
                                                  "wave_batch"),
-                     (dict(degraded_lane="gpu"), "degraded_lane")):
+                     (dict(degraded_lane="gpu"), "degraded_lane"),
+                     (dict(topology=Topology.two_level(2)), r"hosts \| k"),
+                     (dict(topology=Topology.two_level(3), mode="looped"),
+                      "batched"),
+                     (dict(gateway_avoid={6}), "outside"),
+                     (dict(verify_wire=True, codec="multipass"),
+                      "verify_wire"),
+                     (dict(max_replays=-1), "max_replays")):
         with pytest.raises(ValueError, match=what):
             ShuffleStream(Q, K3, D, device="cpu", **kw)
     stream = ShuffleStream(Q, K3, D, device="cpu")
