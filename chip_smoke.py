@@ -18,7 +18,10 @@ result line) on any mismatch:
    the serving prefills' shapes (granite: 32/8 heads, D 64,
    Tq = Tk in {129, 1000, 1024, 2048}; gemma2: 8/4 heads, D 256, softcap
    50, window 4096, Tq = Tk in {1000, 5000}; zamba2: 32/32 heads, D 80,
-   Tq = Tk in {77, 129, 1024}); timed with CUDA events
+   Tq = Tk in {77, 129, 1024}; moonshot: 16/16 heads, D 128, Tq = Tk in
+   {129, 1024}; mixtral: 32/8 heads, D 128, window 4096, Tq = Tk in
+   {1024, 5000}; internlm2: 48/8 heads, D 128, Tq = Tk = 1024); timed
+   with CUDA events
    beside its bound (bytes, or for ``flash_attention`` the FLOPs of the
    visible pairs at the bf16 tensor-core peak when larger), its plain
    version and, where one PyTorch call computes the same function, that
@@ -76,8 +79,11 @@ result line) on any mismatch:
    full width cut to 2 layers) on the f32 lane, whose scans take the
    plain differentiable form: no ``ssd_scan`` or ``flash_attention``
    launch, then the hybrid family (``zamba2_2p7b`` at full width cut to
-   one pattern unit of 6 sublayers) on the bf16 lane, likewise (each
-   trainer freed before the next).
+   one pattern unit of 6 sublayers) on the bf16 lane, likewise, then the
+   MoE family (``moonshot_v1_16b_a3b`` with its 64 experts, top-6 and
+   capacity 1.25 at d_model 2048, cut to one layer, d_ff 512 and a vocab
+   of 16,384: ``MOE_TRAIN_CUT``) on the f32 lane, likewise (each trainer
+   freed before the next).
    Each run has its kernel launch counts (counters set to 0 just before
    it), step 1's synced gradient held bitwise on a column slice against
    the shuffle of the same contributions (the fused runs against the
@@ -112,18 +118,25 @@ result line) on any mismatch:
    bitwise that mode's healthy run; and one ``uncoded`` step of the full
    granite cell
    (its host time; step 1's losses those of the f32 run);
-4. **serve** — four models served through ``DecodeEngine(slots=4,
+4. **serve** — seven models served through ``DecodeEngine(slots=4,
    page_size=16, max_ctx=1056)`` behind ``ServeStream(wave_len=8)``,
    each on random bf16 weights from seed 0: ``granite_3_2b`` at full
-   depth (40 layers), ``mamba2_1p3b`` at full depth (48 SSM layers) and
+   depth (40 layers), ``mamba2_1p3b`` at full depth (48 SSM layers),
    ``zamba2_2p7b`` at full depth (54 sublayers: 45 SSM layers and 9
-   occurrences of one shared attention block), 8 greedy requests each
-   with prompts of {1000, 129, 257, 640, 1024, 77, 513, 900} tokens and
-   32 new tokens, and ``gemma2_2b`` cut to 4 layers, 4 requests. Each run
-   has its own launch counts (counters set to 0 just before it): one
+   occurrences of one shared attention block), ``moonshot_v1_16b_a3b``
+   at full width and full depth (48 layers of 64 experts, top-6) and
+   ``mixtral_8x7b`` at full width cut to 16 of its 32 layers (8 experts,
+   top-2), 8 greedy requests each with prompts of {1000, 129, 257, 640,
+   1024, 77, 513, 900} tokens and 32 new tokens, and ``gemma2_2b`` and
+   ``internlm2_20b`` cut to 4 layers, 4 requests each. Each run has its
+   own launch counts (counters set to 0 just before it): one
    ``flash_attention`` per attention layer and prefill, one ``ssd_scan``
    per SSM layer and prefill, no other kernel (granite 320 / 0, gemma2
-   16 / 0, mamba2 0 / 384, zamba2 72 / 360). Gates: every status ``ok``,
+   16 / 0, mamba2 0 / 384, zamba2 72 / 360, moonshot 384 / 0, mixtral
+   128 / 0, internlm2 16 / 0). An MoE run's warm second run tallies its
+   dispatches (``count_moe_drops``): the assignments dropped past an
+   expert's capacity in prefill, which it prints, and in decode, which
+   must be none. Gates: every status ``ok``,
    engine tokens bitwise the port's ``generate`` on the card (and on a
    warm second run that builds or loads no kernel library), the page
    pool's invariants, the prefill logits through the kernels within 5%
@@ -138,8 +151,8 @@ result line) on any mismatch:
 The last lines are the card's name and power limit, the ``kernels`` JSON
 line (eleven kernels, each with its main-path launches: the granite
 training runs' counts, ``flash_attention``'s summed over the granite,
-gemma2 and zamba2 serving runs, ``ssd_scan``'s over the mamba2 and
-zamba2 runs) and ``{"ok": true,
+gemma2, zamba2, moonshot, mixtral and internlm2 serving runs,
+``ssd_scan``'s over the mamba2 and zamba2 runs) and ``{"ok": true,
 "device": {...}}``. Needs one CUDA card, the CUDA toolkit (``nvcc``) and
 the rest of this checkout; imports nothing of JAX.
 """
@@ -511,15 +524,21 @@ ATTN_CASES = [
     (1, 8, 2, 8, 72, 16, True, 24, None),
 ]
 #: the serving prefills' shapes (bf16): granite_3_2b (32/8 heads, D 64,
-#: causal), gemma2_2b (8/4 heads, D 256, softcap 50, window 4096) and
+#: causal), gemma2_2b (8/4 heads, D 256, softcap 50, window 4096),
 #: zamba2_2p7b's shared attention block (32/32 heads, D 80, causal; at 77
-#: and 129 tokens a ragged last query tile and key tile); the first is
-#: the one the ``kernels`` line reports
+#: and 129 tokens a ragged last query tile and key tile),
+#: moonshot_v1_16b_a3b (16/16 heads, D 128, causal), mixtral_8x7b (32/8
+#: heads, D 128, window 4096; at 5000 tokens past the window) and
+#: internlm2_20b (48/8 heads, D 128, causal); the first is the one the
+#: ``kernels`` line reports
 FLASH_MAIN = (1, 32, 8, 1024, 1024, 64, True, None, None)
 FLASH_SHAPES = [FLASH_MAIN] + [
     (1, 32, 8, t, t, 64, True, None, None) for t in (129, 1000, 2048)] + [
     (1, 8, 4, t, t, 256, True, 4096, 50.0) for t in (1000, 5000)] + [
-    (1, 32, 32, t, t, 80, True, None, None) for t in (77, 129, 1024)]
+    (1, 32, 32, t, t, 80, True, None, None) for t in (77, 129, 1024)] + [
+    (1, 16, 16, t, t, 128, True, None, None) for t in (129, 1024)] + [
+    (1, 32, 8, t, t, 128, True, 4096, None) for t in (1024, 5000)] + [
+    (1, 48, 8, 1024, 1024, 128, True, None, None)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: the serving shapes' limit, relative to each output: the kernel works
 #: in f32 like the plain version and rounds once to bf16, so an element
@@ -1345,6 +1364,14 @@ SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS = "mamba2_1p3b", 2
 #: block), on the bf16 lane: its D of 467,989,280 would need about 109 GB
 #: on the f32 lane; on the bf16 one its peak is 78.7 GB of the card's 85.0
 HYBRID_TRAIN_ARCH, HYBRID_TRAIN_LAYERS = "zamba2_2p7b", 6
+#: the MoE-family training run: moonshot_v1_16b_a3b with its 64 experts,
+#: top-6 and capacity 1.25, d_model 2048 and its 16 heads of 128, cut to
+#: one layer, d_ff 512 (from 1408) and a vocab of 16,384 (from 163,840):
+#: D = 285,349,888, about the most the f32 lane holds (the granite cell
+#: peaks at 233 bytes a parameter, 51.8 GB at D 222,570,496); at full
+#: width one layer and its vocabulary are 1.24 B parameters
+MOE_TRAIN_ARCH = "moonshot_v1_16b_a3b"
+MOE_TRAIN_CUT = dict(n_layers=1, d_ff=512, vocab=16384)
 
 
 def column_slices(d, k):
@@ -1834,12 +1861,18 @@ def phase_modes(rep32):
 #: (arch, depth, prompt lengths): granite_3_2b at full width and full
 #: depth, gemma2_2b at full width cut to 4 layers (2 pattern units),
 #: mamba2_1p3b and zamba2_2p7b at full width and full depth (six of the
-#: lengths leave a ragged last SSD chunk of 64)
+#: lengths leave a ragged last SSD chunk of 64), moonshot_v1_16b_a3b at
+#: full width and full depth (48 layers, 56.1 GB of bf16 weights),
+#: mixtral_8x7b at full width cut to 16 of 32 layers (47.0 GB; all 32
+#: would be 93.4) and internlm2_20b cut to 4 layers
 _LENS = (1000, 129, 257, 640, 1024, 77, 513, 900)
 SERVE_RUNS = (("granite_3_2b", None, _LENS),
               ("gemma2_2b", 4, (1000, 300, 513, 64)),
               ("mamba2_1p3b", None, _LENS),
-              ("zamba2_2p7b", None, _LENS))
+              ("zamba2_2p7b", None, _LENS),
+              ("moonshot_v1_16b_a3b", None, _LENS),
+              ("mixtral_8x7b", 16, _LENS),
+              ("internlm2_20b", 4, (1000, 300, 513, 64)))
 #: the prefill logits through the kernel and through its plain version
 #: (bf16 activations round differently once the attention outputs differ
 #: in their last bits): max abs difference <= this share of max |logit|
@@ -1957,6 +1990,41 @@ def check_prefill_kernels(cfg, params, probe, tag):
             f"vs plain (chunks of 32) {float((lp - lp32).abs().max()):.4g}")
 
 
+@contextlib.contextmanager
+def count_moe_drops():
+    """Wrap ``layers._moe_dispatch_compute`` (every MoE block's dispatch)
+    and tally, apart for prefill and decode calls, the calls, the
+    assignments routed and those dropped past an expert's capacity, in
+    all and per layer (the routing recomputed by ``layers._moe_route`` on
+    the call's own inputs; the dropped counts stay on the card until the
+    end)."""
+    from repro_torch.models import layers
+    inner = layers._moe_dispatch_compute
+    tally = {kind: {"calls": 0, "assignments": 0, "dropped": 0,
+                    "layers": {}} for kind in ("prefill", "decode")}
+
+    def wrapped(p, xf, cfg, *args, n_tokens=None, **kw):
+        n = xf.shape[-2] if n_tokens is None else n_tokens
+        keep = layers._moe_route(p, xf, cfg, n)[-1]
+        t = tally["prefill" if n_tokens is None else "decode"]
+        per = t["layers"].setdefault(t["calls"] % cfg.n_layers, [0, []])
+        per[0] += keep.numel()
+        per[1].append((~keep).sum())
+        t["calls"] += 1
+        return inner(p, xf, cfg, *args, n_tokens=n_tokens, **kw)
+
+    layers._moe_dispatch_compute = wrapped
+    try:
+        yield tally
+    finally:
+        layers._moe_dispatch_compute = inner
+        for t in tally.values():
+            for per in t["layers"].values():
+                per[1] = sum(int(d) for d in per[1])
+            t["assignments"] = sum(a for a, _ in t["layers"].values())
+            t["dropped"] = sum(d for _, d in t["layers"].values())
+
+
 def serve_kernels(cfg, n_requests: int) -> dict:
     """Prefill launches of a serving run: one ``flash_attention`` per
     attention sublayer (a ``shared_attn`` block at each of its
@@ -2009,6 +2077,9 @@ def phase_serve(arch, n_layers, lens, seed=0, max_new=32):
                   else "")
         mixers.append(f"{n_attn} attention layers{shared} of "
                       f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.hd}")
+    if cfg.n_experts:
+        mixers.append(f"{cfg.n_experts} experts (top-{cfg.experts_per_token}"
+                      f") of d_ff {cfg.d_ff}")
     mixer = " + ".join(mixers)
     log(f"{tag}: {cfg.n_layers} layers, d_model {cfg.d_model}, {mixer}, "
         f"{cfg.dtype}; {len(reqs)} greedy requests, prompts {list(lens)}, "
@@ -2032,11 +2103,29 @@ def phase_serve(arch, n_layers, lens, seed=0, max_new=32):
         fail(f"{tag}: statuses {[r.status for r in results]}")
     eng.pool.check_invariants()
     builds = trace_total()
-    again = stream.run(reqs)
+    # the warm run's MoE dispatches are tallied (the first run is timed)
+    with (count_moe_drops() if cfg.n_experts
+          else contextlib.nullcontext()) as drops:
+        again = stream.run(reqs)
     if trace_total() != builds or stream.last_report.traces:
         fail(f"{tag}: the warm run built or loaded "
              f"{trace_total() - builds} kernel libraries")
     eng.pool.check_invariants()
+    if drops is not None:
+        share = {i: d / a for i, (a, d) in
+                 drops["prefill"]["layers"].items()}
+        log(f"{tag}: MoE dispatch of the warm run ({cfg.n_experts} experts, "
+            f"top-{cfg.experts_per_token}, capacity factor "
+            f"{cfg.moe_capacity_factor}): " + "; ".join(
+                f"{kind} {t['calls']} calls, {t['dropped']} of "
+                f"{t['assignments']} assignments dropped"
+                for kind, t in drops.items())
+            + f"; prefill drop share by layer: layer 0 {share[0]:.4f}, "
+            f"min {min(share.values()):.4f}, max {max(share.values()):.4f}")
+        if drops["decode"]["dropped"] or not drops["decode"]["calls"]:
+            fail(f"{tag}: decode dropped {drops['decode']['dropped']} "
+                 f"assignments in {drops['decode']['calls']} calls (slots=4 "
+                 "can overflow no expert)")
     for req, r, r2 in zip(reqs, results, again):
         want_toks = generate(cfg, params, req.prompt[None], max_new=max_new,
                              device=DEVICE).tokens[0, len(req.prompt):]
@@ -2160,6 +2249,13 @@ def main() -> int:
     # the hybrid family on the bf16 lane, with the same gates
     tr, pipe = build_cell("bfloat16", arch=HYBRID_TRAIN_ARCH,
                           n_layers=HYBRID_TRAIN_LAYERS)
+    phase_train(tr, pipe)
+    del tr, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the MoE family on the f32 lane (its training attention is plain
+    # and its experts are batched products: the lane's kernels only)
+    tr, pipe = build_cell("float32", arch=MOE_TRAIN_ARCH, **MOE_TRAIN_CUT)
     phase_train(tr, pipe)
     del tr, pipe
     gc.collect()

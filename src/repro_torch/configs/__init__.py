@@ -5,13 +5,17 @@ JAX package's ``repro.configs.ModelConfig`` without jax.
 the small same-family variant the CPU tests use. The architecture
 fields are the JAX package's; its XLA execution knobs (``use_pallas``,
 ``remat``, ``scan_unroll``, ``attn_block``, ``ssm_chunk``,
-``microbatches``, ``grad_sync``, ``moe_shard_mode``) have no
-counterpart here (the SSD chunk is the ``ssd_scan`` kernel's constant,
-64, mamba2's and zamba2's ``ssm_chunk``). The port ships the dense
-``granite_3_2b`` and ``gemma2_2b`` configs, the SSM ``mamba2_1p3b`` and
-the hybrid ``zamba2_2p7b``, each served and trained; the rest of the zoo
-(MoE, enc-dec, frontends) is still to port (ROADMAP.md, Queue 1 item
-8).
+``microbatches``, ``grad_sync``) have no counterpart here (the SSD chunk
+is the ``ssd_scan`` kernel's constant, 64, mamba2's and zamba2's
+``ssm_chunk``). ``moe_shard_mode`` stays: on one card it selects the
+lane of :func:`repro_torch.models.layers.moe_block` over a virtual
+``(n_data, n_model)`` mesh and nothing else. The port ships the dense
+``granite_3_2b``, ``gemma2_2b``, ``internlm2_20b`` and
+``mistral_large_123b`` configs, the MoE ``mixtral_8x7b`` and
+``moonshot_v1_16b_a3b``, the SSM ``mamba2_1p3b`` and the hybrid
+``zamba2_2p7b``, each served and trained; enc-dec
+(``seamless_m4t_large_v2``) and the frontends (``internvl2_26b``) are
+still to port (ROADMAP.md, Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -54,6 +58,9 @@ class ModelConfig:
     n_experts: int = 0
     experts_per_token: int = 0
     moe_capacity_factor: float = 1.25
+    #: ep | tp: how ``layers.moe_block`` splits the experts over the
+    #: model axis of a virtual mesh (experts, or each expert's d_ff)
+    moe_shard_mode: str = "ep"
     # SSM (mamba2)
     ssm_state: int = 0
     ssm_heads: int = 0
@@ -99,8 +106,10 @@ ARCHS = [
     "gemma2_2b", "mistral_large_123b", "granite_3_2b", "zamba2_2p7b",
     "mamba2_1p3b", "seamless_m4t_large_v2",
 ]
-#: the configs this slice of the port ships
-PORTED_ARCHS = ["granite_3_2b", "gemma2_2b", "mamba2_1p3b", "zamba2_2p7b"]
+#: the configs the port ships
+PORTED_ARCHS = ["granite_3_2b", "gemma2_2b", "mamba2_1p3b", "zamba2_2p7b",
+                "mixtral_8x7b", "moonshot_v1_16b_a3b", "internlm2_20b",
+                "mistral_large_123b"]
 
 
 def get_config(name: str) -> ModelConfig:
@@ -108,7 +117,8 @@ def get_config(name: str) -> ModelConfig:
     if name not in PORTED_ARCHS:
         raise NotImplementedError(
             f"config {name!r} is not ported yet (ROADMAP.md, Queue 1 item "
-            f"8: the rest of the zoo); ported: {', '.join(PORTED_ARCHS)}")
+            f"8: enc-dec and the frontends); ported: "
+            f"{', '.join(PORTED_ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.CONFIG
 

@@ -35,10 +35,17 @@ the plain versions, best with ``--reduced``):
     PYTHONPATH=src python -m repro_torch.launch.serve --archs zamba2_2p7b \\
         --reduced --device cpu
 
-Parameters are the port's ``init_params`` from seed 0. The dense
-configs, ``mamba2_1p3b`` and ``zamba2_2p7b`` are ported
-(``repro_torch.configs.PORTED_ARCHS``); the MoE, enc-dec and frontend
-archs raise with a pointer to ROADMAP.md (Queue 1 item 8).
+    # the MoE family (top-k experts in place of the MLP)
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --archs moonshot_v1_16b_a3b --reduced --device cpu
+
+Parameters are the port's ``init_params`` from seed 0. Ported
+(``repro_torch.configs.PORTED_ARCHS``): the dense ``granite_3_2b``,
+``gemma2_2b``, ``internlm2_20b`` and ``mistral_large_123b``, the MoE
+``mixtral_8x7b`` and ``moonshot_v1_16b_a3b``, the SSM ``mamba2_1p3b``
+and the hybrid ``zamba2_2p7b``; the enc-dec and frontend archs
+(``seamless_m4t_large_v2``, ``internvl2_26b``) raise with a pointer to
+ROADMAP.md (Queue 1 item 8).
 """
 
 from __future__ import annotations

@@ -13,8 +13,9 @@ device (``--device cpu`` runs the plain versions on the CPU, best with
 on the device, ``camr`` the numpy engine interpreter and ``uncoded`` the
 paper's unicast baseline (both on the host, fed from the device's map):
 all three give bitwise the same parameters. ``--arch`` takes any ported
-config: the dense ones, ``mamba2_1p3b`` (SSM) and ``zamba2_2p7b``
-(hybrid), e.g.
+config: the dense ones, ``mixtral_8x7b`` and ``moonshot_v1_16b_a3b``
+(MoE: the loss holds the load-balancing term), ``mamba2_1p3b`` (SSM)
+and ``zamba2_2p7b`` (hybrid), e.g.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2_2p7b \\
         --reduced --multi-model --grad-sync camr --steps 2 \\

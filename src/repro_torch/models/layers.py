@@ -1,9 +1,11 @@
-"""Layer primitives of the dense, SSM and hybrid decoders (plain
+"""Layer primitives of the dense, MoE, SSM and hybrid decoders (plain
 functions on tensors).
 
 Counterparts of ``repro.models.layers``: ``dense``, ``rms_norm``,
 ``rope``, ``attention_block`` (training, contiguous KV cache and paged
-KV cache), ``mlp_block`` and the Mamba2 ``ssm_block`` (training through
+KV cache), ``mlp_block``, ``moe_block`` (top-k routing and a
+capacity-bounded dispatch, with or without a virtual mesh) and the
+Mamba2 ``ssm_block`` (training through
 the plain differentiable ``ref.ssd_chunked``, prefill through
 ``ops.ssd``, the ``ssd_scan`` kernel on a card, and the single-step
 decode recurrence). Activations are ``x [B, T, D]``; attention
@@ -24,6 +26,8 @@ kernel has a backward.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -32,7 +36,7 @@ from ..kernels.ref import ssd_chunked
 from ..kernels.ssd_scan import CHUNK
 
 __all__ = ["dense", "rms_norm", "rope", "attention_block", "mlp_block",
-           "softplus", "ssm_block"]
+           "moe_capacity", "moe_block", "softplus", "ssm_block"]
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -149,6 +153,197 @@ def mlp_block(p, x, cfg):
     else:
         gate = F.silu(dense(x, p["w_gate"]))
     return dense(gate * dense(x, p["w_up"]), p["w_down"])
+
+
+# --------------------------------------------------------------------- #
+# MoE (top-k routing, capacity-bounded dispatch)
+# --------------------------------------------------------------------- #
+def moe_capacity(cfg, n: int) -> int:
+    """Slots per expert for a block of ``n`` tokens (GShard capacity, at
+    least 4); assignments past it are dropped."""
+    return max(int(cfg.moe_capacity_factor * n * cfg.experts_per_token
+                   / cfg.n_experts), 4)
+
+
+def _top_k(gates: torch.Tensor, k: int):
+    """``lax.top_k``: the ``k`` largest in descending order, a tie going
+    to the lower index (``torch.topk`` promises no order among equals;
+    bf16 router logits tie often over 64 experts)."""
+    w, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return w[..., :k], idx[..., :k]
+
+
+def _moe_route(p, xf, cfg, n: int):
+    """The router of a token block ``xf [..., M, D]`` whose first ``n``
+    rows are tokens (the rest a decode step's padding): gates (f32
+    softmax of the router logits rounded to the model dtype) ``[..., n,
+    E]``, the renormalised top-k weights and experts ``[..., n, k]``, and
+    per assignment in token-major order ``[..., n*k]`` its expert, its
+    slot (the exclusive count of earlier assignments to that expert) and
+    whether it fits ``moe_capacity(cfg, n)``. The logits, softmax and
+    sort run at all ``M`` rows, so a row's values do not depend on
+    ``n``."""
+    E, k = cfg.n_experts, cfg.experts_per_token
+    gates = torch.softmax(dense(xf, p["router"]).float(), dim=-1)
+    gates = gates[..., :n, :]
+    w, idx = _top_k(gates, k)
+    w = w / torch.sum(w, dim=-1, keepdim=True)
+    eidx = idx.flatten(-2)
+    onehot = F.one_hot(eidx, E)
+    pos = (onehot.cumsum(-2) - onehot).gather(-1, eidx[..., None])[..., 0]
+    return gates, w, idx, eidx, pos, pos < moe_capacity(cfg, n)
+
+
+def _expert_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A batched expert product, f32 accumulation, in ``a``'s dtype."""
+    if a.dtype == w.dtype:
+        return torch.matmul(a, w)
+    return torch.matmul(a.float(), w.float()).to(a.dtype)
+
+
+def _moe_dispatch_compute(p, xf, cfg, ep_replicated: bool = False, *,
+                          n_tokens: int | None = None):
+    """Dispatch and expert FFN of a flat token block, the twin of
+    ``repro.models.layers._moe_dispatch_compute``; returns ``(out, (me,
+    ce))``.
+
+    * ``xf [M, D]`` (no mesh): ``p``'s expert leaves are whole
+      (``[E, d, f]``). ``n_tokens`` (default ``M``) real tokens lead the
+      block: capacity and slots count those only, the rest (a decode
+      step's padding to ``lm.DECODE_ROWS``) take no slot and give 0. The
+      expert buffer has ``moe_capacity(cfg, M)`` rows an expert whatever
+      ``n_tokens`` is, so a decode step's products run at one shape.
+    * ``xf [n_data, n_model, M, D]``: JAX's ``shard_map`` body (with
+      ``n_model`` and ``axis_name`` read from the device axes) for every
+      device of a virtual mesh at once, along two leading device axes.
+      ``p``'s expert leaves carry the model shards along a leading axis
+      (:func:`_moe_shards`). ``ep``: the tiled ``all_to_all`` ``[E, cap,
+      D] -> [E/n, n*cap, D]`` is a swap of the source-device and
+      expert-block axes, and back; ``ep_replicated`` (the same tokens on
+      every model shard): each shard serves its own experts, then a sum
+      over the model axis (``psum``); ``tp``: each shard's d_ff slice,
+      then a sum over the model axis.
+
+    Dropped assignments go to a trash row of the buffer and are masked
+    to 0 in the gather (JAX adds zeros to slot ``(E-1, cap-1)``).
+    ``me`` and ``ce`` (f32 ``[..., E]``) are the mean gate and the share
+    of tokens whose top-1 expert is each expert.
+    """
+    E, k = cfg.n_experts, cfg.experts_per_token
+    mesh = xf.dim() == 4
+    n_model = xf.shape[1] if mesh else 1
+    lead, (M, D) = xf.shape[:-2], xf.shape[-2:]
+    G = math.prod(lead)
+    n = M if n_tokens is None else n_tokens
+    gates, w, idx, eidx, pos, keep = _moe_route(p, xf, cfg, n)
+    cap, slots = moe_capacity(cfg, n), moe_capacity(cfg, M)
+    sharded = n_model > 1
+    ep = sharded and cfg.moe_shard_mode == "ep" and not ep_replicated
+    ep_rep = sharded and cfg.moe_shard_mode == "ep" and ep_replicated
+    tp = sharded and cfg.moe_shard_mode == "tp"
+    n_e = E // n_model if ep_rep else E
+    if ep_rep:
+        e0 = (torch.arange(n_model, device=xf.device) * n_e)[:, None]
+        mine = keep & (eidx >= e0) & (eidx < e0 + n_e)
+        e_sel = eidx - e0
+    else:
+        mine, e_sel = keep, eidx
+    # each device's buffer is n_e * slots rows and a trash row
+    rows = n_e * slots + 1
+    g = torch.arange(G, device=xf.device).view(*lead, 1)
+    dst = torch.where(mine, e_sel * slots + pos, rows - 1) + g * rows
+    src = xf[..., :n, :].repeat_interleave(k, dim=-2)
+    buf = xf.new_zeros(G * rows, D).index_copy_(
+        0, dst.reshape(-1), src.reshape(-1, D))
+    buf = buf.view(*lead, rows, D)[..., :-1, :].reshape(*lead, n_e, slots, D)
+    if ep:                   # [E, cap, D] -> [E/n, n*cap, D] per device
+        nd = lead[0]
+        buf = buf.view(nd, n_model, n_model, n_e // n_model, slots, D) \
+            .permute(0, 2, 3, 1, 4, 5) \
+            .reshape(nd, n_model, n_e // n_model, n_model * slots, D)
+    act = ((lambda h: F.gelu(h, approximate="tanh"))
+           if cfg.mlp_act == "geglu" else F.silu)
+    h = act(_expert_mm(buf, p["w_gate"])) * _expert_mm(buf, p["w_up"])
+    out_e = _expert_mm(h, p["w_down"])
+    if ep:                   # and back: [E/n, n*cap, D] -> [E, cap, D]
+        out_e = out_e.view(nd, n_model, n_e // n_model, n_model, slots, D) \
+            .permute(0, 3, 1, 2, 4, 5).reshape(nd, n_model, n_e, slots, D)
+    if tp:                   # the d_ff slices' partial sums
+        out_e = out_e.sum(1, keepdim=True).expand_as(out_e)
+    src_row = torch.where(mine, e_sel * slots + pos, 0) + g * (rows - 1)
+    got = out_e.reshape(G * n_e * slots, D).index_select(
+        0, src_row.reshape(-1)).view(*lead, n * k, D)
+    got = torch.where(mine[..., None], got, 0)
+    wflat = w.reshape(*lead, n * k, 1).to(xf.dtype)
+    out = torch.sum((got * wflat).view(*lead, n, k, D), dim=-2)
+    if ep_rep:               # the expert shards' partial outputs
+        out = out.sum(1, keepdim=True).expand_as(out)
+    if n < M:
+        out = torch.cat([out, out.new_zeros(*lead, M - n, D)], dim=-2)
+    me = torch.mean(gates, dim=-2)
+    ce = torch.mean(F.one_hot(idx[..., 0], E).float(), dim=-2)
+    return out, (me, ce)
+
+
+def _moe_shards(p, cfg, n_model: int) -> dict:
+    """The expert leaves split over the model axis of a mesh, the shards
+    along a new leading axis: ``ep`` E/n experts a shard, ``tp`` a d_ff
+    slice of every expert; the router is whole on every shard."""
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    if cfg.moe_shard_mode == "ep":
+        return {"router": p["router"],
+                **{key: p[key].view(n_model, E // n_model, *p[key].shape[1:])
+                   for key in ("w_gate", "w_up", "w_down")}}
+    fl = f // n_model
+    return {"router": p["router"],
+            "w_gate": p["w_gate"].view(E, d, n_model, fl).permute(2, 0, 1, 3),
+            "w_up": p["w_up"].view(E, d, n_model, fl).permute(2, 0, 1, 3),
+            "w_down": p["w_down"].view(E, n_model, fl, d).transpose(0, 1)}
+
+
+def moe_block(p, x, cfg, *, mesh=None, rows=None):
+    """Top-k MoE over ``x [B, T, D]``; returns ``(out, aux)`` with the
+    load-balancing term ``aux = E * sum(me * ce)`` (f32 scalar).
+
+    * ``mesh=None``: one dispatch over all ``B*T`` tokens (the JAX
+      package with no mesh, and every serving path); ``rows`` (a decode
+      step) counts the real batch rows, the rest are padding that takes
+      no capacity.
+    * ``mesh=(n_data, n_model)``: JAX's ``shard_map`` lane on a virtual
+      mesh. The batch splits over data (when ``B % n_data == 0``); in
+      ``ep`` the sequence splits over model when ``T % n_model == 0``,
+      else the ep-replicated lane runs; ``tp`` never splits the tokens
+      over model. ``cap`` is per local token block, and ``me``, ``ce``
+      are averaged over model, then over data, before the product (the
+      ``pmean``s). Padding rows are dropped first.
+    """
+    B, T, D = x.shape
+    E = cfg.n_experts
+    if mesh is None:
+        out, (me, ce) = _moe_dispatch_compute(
+            p, x.reshape(B * T, D), cfg,
+            n_tokens=None if rows is None else rows * T)
+        return out.reshape(B, T, D), E * torch.sum(me * ce)
+    if rows is not None and rows < B:
+        out, aux = moe_block(p, x[:rows], cfg, mesh=mesh)
+        return torch.cat([out, out.new_zeros(B - rows, T, D)]), aux
+    n_data, n_model = mesh
+    split_b = B % n_data == 0
+    split_t = cfg.moe_shard_mode == "ep" and T % n_model == 0
+    b = B // n_data if split_b else B
+    t = T // n_model if split_t else T
+    xb = x.view(n_data, b, T, D) if split_b else x.expand(n_data, B, T, D)
+    xl = (xb.view(n_data, b, n_model, t, D).transpose(1, 2) if split_t
+          else xb[:, None].expand(n_data, n_model, b, T, D))
+    out, (me, ce) = _moe_dispatch_compute(
+        _moe_shards(p, cfg, n_model), xl.reshape(n_data, n_model, b * t, D),
+        cfg, ep_replicated=cfg.moe_shard_mode == "ep" and not split_t)
+    me, ce = me.mean(1).mean(0), ce.mean(1).mean(0)
+    out = out.view(n_data, n_model, b, t, D)
+    out = (out.transpose(1, 2).reshape(n_data, b, T, D) if split_t
+           else out[:, 0])
+    return (out.reshape(B, T, D) if split_b else out[0]), \
+        E * torch.sum(me * ce)
 
 
 # --------------------------------------------------------------------- #

@@ -1,7 +1,9 @@
 """Decoder LMs of the port: init, forward, training loss and serving.
 
 Counterpart of ``repro.models.lm`` for the dense family (``attn`` and
-``local`` sublayers with an MLP), the SSM family (``ssm`` sublayers:
+``local`` sublayers with an MLP), the MoE family (the same sublayers
+with a top-k expert block in place of the MLP, its load-balancing term
+added to the loss), the SSM family (``ssm`` sublayers:
 Mamba2's SSD block, no MLP) and the hybrid family (zamba2: ``ssm``
 sublayers and a ``shared_attn`` block, one attention + MLP parameter set
 reused at every occurrence): ``init_params`` (same shapes, dtypes and
@@ -47,20 +49,22 @@ def slot_names(cfg: ModelConfig) -> list[str]:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    """The families the port serves and trains: dense decoders, the SSM
-    family and the hybrid (zamba2) family."""
+    """The families the port serves and trains: dense decoders, the MoE
+    family, the SSM family and the hybrid (zamba2) family."""
     bad = [k for k in cfg.pattern if k not in _PORTED_KINDS]
-    if (cfg.family not in ("dense", "ssm", "hybrid") or cfg.n_experts
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
             or cfg.n_enc_layers or cfg.frontend or bad):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense decoder, SSM (mamba2) and hybrid "
-            "(zamba2) paths are ported; MoE, enc-dec and frontend models "
+            f"{cfg.name}: only the dense decoder, MoE, SSM (mamba2) and "
+            "hybrid (zamba2) paths are ported; enc-dec and frontend models "
             "wait for ROADMAP.md, Queue 1 item 8 (the rest of the zoo)")
 
 
 def _normal(gen, shape, dtype, scale):
+    """``randn * scale``, scaled in place: no second copy of the leaf
+    (moonshot's stacked expert leaves are 17.7 GB each in bf16)."""
     x = torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
-    return x * scale
+    return x.mul_(scale)
 
 
 def _init_slot(gen, cfg: ModelConfig, kind: str, R: int | None) -> dict:
@@ -75,33 +79,41 @@ def _init_slot(gen, cfg: ModelConfig, kind: str, R: int | None) -> dict:
         return torch.zeros((*lead, *(shape or (d,))), dtype=torch.float32,
                            device=gen.device)
 
-    def w(rows, cols, scale):
-        return _normal(gen, (*lead, rows, cols), dt, scale)
+    def w(*shape, scale):
+        return _normal(gen, (*lead, *shape), dt, scale)
 
     if kind == "ssm":
         di, H, S = cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_state
         return {
             "norm": z(),
-            "ssm": {"w_in": w(d, di, sc),
-                    "w_gate": w(d, di, sc),
+            "ssm": {"w_in": w(d, di, scale=sc),
+                    "w_gate": w(d, di, scale=sc),
                     # B/C group-shared across heads (n_groups=1)
-                    "w_bc": w(d, 2 * S, sc),
-                    "w_dt": w(d, H, sc),
+                    "w_bc": w(d, 2 * S, scale=sc),
+                    "w_dt": w(d, H, scale=sc),
                     "a_log": z(H),
                     "skip": z(H) + 0.1,          # D residual term
-                    "w_out": w(di, d, di ** -0.5)},
+                    "w_out": w(di, d, scale=di ** -0.5)},
         }
-    return {
+    p = {
         "norm1": z(),
-        "attn": {"wq": w(d, hq * dh, sc),
-                 "wk": w(d, hkv * dh, sc),
-                 "wv": w(d, hkv * dh, sc),
-                 "wo": w(hq * dh, d, sc)},
+        "attn": {"wq": w(d, hq * dh, scale=sc),
+                 "wk": w(d, hkv * dh, scale=sc),
+                 "wv": w(d, hkv * dh, scale=sc),
+                 "wo": w(hq * dh, d, scale=sc)},
         "norm2": z(),
-        "mlp": {"w_gate": w(d, f, sc),
-                "w_up": w(d, f, sc),
-                "w_down": w(f, d, f ** -0.5)},
     }
+    if cfg.n_experts:
+        E = cfg.n_experts
+        p["moe"] = {"router": w(d, E, scale=sc),
+                    "w_gate": w(E, d, f, scale=sc),
+                    "w_up": w(E, d, f, scale=sc),
+                    "w_down": w(E, f, d, scale=f ** -0.5)}
+    else:
+        p["mlp"] = {"w_gate": w(d, f, scale=sc),
+                    "w_up": w(d, f, scale=sc),
+                    "w_down": w(f, d, scale=f ** -0.5)}
+    return p
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
@@ -125,14 +137,20 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
 
 def _apply_slot(cfg, kind, p, x, positions, *, cache=None,
-                cache_index=None, mode="train"):
-    """One sublayer; returns ``(x, new_cache_entry)`` (None without a
-    cache). ``mode``: ``train`` / ``prefill`` / ``decode``, or
-    ``encoder`` (bidirectional). An ``ssm`` slot has no MLP: ``x +
+                cache_index=None, mode="train", mesh=None):
+    """One sublayer; returns ``(x, aux)``, ``aux`` the MoE load-balancing
+    term (None without an expert block); ``cache`` is written in place.
+    ``mode``: ``train`` / ``prefill`` / ``decode``, or ``encoder``
+    (bidirectional). An ``ssm`` slot has no MLP: ``x +
     ssm_block(rms_norm(x))``, its training pass through the plain
     differentiable scan, its prefill writing the final state into the
     cache and its decode step the live rows' states. A ``shared_attn``
-    slot is attention (window ``cfg.window``) + MLP, as ``attn``."""
+    slot is attention (window ``cfg.window``) + MLP, as ``attn``. With
+    ``cfg.n_experts`` the MLP is :func:`~repro_torch.models.layers.
+    moe_block` (over the virtual ``mesh``, if given); a decode step
+    dispatches only its ``len(cache_index)`` real rows (finished ones
+    included, as the JAX step does), not its padding."""
+    aux = None
     if kind == "ssm":
         h = L.rms_norm(x, p["norm"])
         if mode == "decode":
@@ -143,18 +161,22 @@ def _apply_slot(cfg, kind, p, x, positions, *, cache=None,
                                 return_state=cache is not None)
             if cache is not None:
                 cache["state"].copy_(st)
-        return x + h, cache
+        return x + h, aux
     window = cfg.local_window if kind == "local" else cfg.window
     h = L.rms_norm(x, p["norm1"])
-    h, new_self = L.attention_block(
+    h, _ = L.attention_block(
         p["attn"], h, positions, cfg, window=window,
         softcap=cfg.attn_softcap, causal=(mode != "encoder"),
         cache=cache["self"] if cache is not None else None,
         cache_index=cache_index)
     x = x + h
     h = L.rms_norm(x, p["norm2"])
-    x = x + L.mlp_block(p["mlp"], h, cfg)
-    return x, ({"self": new_self} if cache is not None else None)
+    if cfg.n_experts:
+        h, aux = L.moe_block(p["moe"], h, cfg, mesh=mesh, rows=(
+            len(cache_index) if mode == "decode" else None))
+    else:
+        h = L.mlp_block(p["mlp"], h, cfg)
+    return x + h, aux
 
 
 def _layer(tree, r: int):
@@ -164,20 +186,26 @@ def _layer(tree, r: int):
 
 
 def _units(cfg, params, x, positions, *, cache=None, cache_index=None,
-           mode="train"):
+           mode="train", mesh=None):
     """The pattern repetitions in order (``lax.scan`` in the JAX package);
-    ``cache`` (stacked over ``repeats``, as the params) is updated in
-    place, one layer's view at a time. A ``shared_attn`` slot takes
+    returns ``(x, aux)``, the MoE term summed over the layers (None
+    without an MoE block). ``cache`` (stacked over ``repeats``, as the
+    params) is updated in place, one layer's view at a time. A
+    ``shared_attn`` slot takes
     ``params["shared"]`` as it is at every repeat (it has no ``repeats``
     axis to index) and its own repeat's cache."""
+    aux = None
     for r in range(cfg.repeats):
         for name, kind in zip(slot_names(cfg), cfg.pattern):
             p = (params["shared"] if kind == "shared_attn"
                  else _layer(params["blocks"][name], r))
             c = _layer(cache[name], r) if cache is not None else None
-            x, _ = _apply_slot(cfg, kind, p, x, positions, cache=c,
-                               cache_index=cache_index, mode=mode)
-    return x
+            x, a = _apply_slot(cfg, kind, p, x, positions, cache=c,
+                               cache_index=cache_index, mode=mode,
+                               mesh=mesh)
+            if a is not None:
+                aux = a if aux is None else aux + a
+    return x, aux
 
 
 def _embed(cfg, params, batch):
@@ -220,15 +248,23 @@ def _chunked_loss(cfg, params, x, labels):
     return tot / torch.clamp(cnt, min=1)
 
 
-def train_loss(cfg: ModelConfig, params, batch):
-    """batch: ``tokens``, ``labels`` int ``[B, T]`` -> (loss, metrics)."""
+def train_loss(cfg: ModelConfig, params, batch, *, mesh=None):
+    """batch: ``tokens``, ``labels`` int ``[B, T]`` -> (loss, metrics
+    ``{"loss", "moe_aux"}``). An MoE model's loss holds ``0.01 * aux /
+    n_layers``, as the JAX package's; ``mesh=(n_data, n_model)`` runs
+    its expert blocks on that virtual mesh (:func:`~repro_torch.models.
+    layers.moe_block`)."""
     _check_ported(cfg)
     x = _embed(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    x = _units(cfg, params, x, positions)
+    x, aux = _units(cfg, params, x, positions, mesh=mesh)
     x = L.rms_norm(x, params["norm_f"])
     loss = _chunked_loss(cfg, params, x, batch["labels"])
-    return loss, {"loss": loss}
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        loss = loss + 0.01 * aux / cfg.n_layers
+    return loss, {"loss": loss, "moe_aux": aux}
 
 
 # --------------------------------------------------------------------- #
@@ -313,17 +349,19 @@ def admit_prefill(cfg: ModelConfig, paged: dict, prefill_cache: dict,
     return paged
 
 
-def prefill(cfg: ModelConfig, params, batch, max_len: int | None = None):
+def prefill(cfg: ModelConfig, params, batch, max_len: int | None = None,
+            *, mesh=None):
     """Forward pass over the prompt ``batch["tokens"] [B, T]`` that also
     writes the KV cache (sized ``max_len``, default ``T``) -> (logits of
-    the last position ``[B, 1, V]`` in f32, cache)."""
+    the last position ``[B, 1, V]`` in f32, cache); ``mesh`` as in
+    :func:`train_loss`."""
     _check_ported(cfg)
     x = _embed(cfg, params, batch)
     B, T = x.shape[:2]
     positions = torch.arange(T, device=x.device)
     cache = init_cache(cfg, B, max_len or T, device=x.device)
-    x = _units(cfg, params, x, positions, cache=cache, cache_index=0,
-               mode="prefill")
+    x, _ = _units(cfg, params, x, positions, cache=cache, cache_index=0,
+                  mode="prefill", mesh=mesh)
     x = L.rms_norm(x, params["norm_f"])
     return _logits(cfg, params, x[:, -1:]), cache
 
@@ -339,7 +377,8 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int | None = None):
 DECODE_ROWS = 16
 
 
-def decode_step(cfg: ModelConfig, params, cache, tokens, cache_index):
+def decode_step(cfg: ModelConfig, params, cache, tokens, cache_index, *,
+                mesh=None):
     """One serving step: tokens ``[B, 1]`` + cache -> (logits ``[B, 1,
     V]``, cache), with ``B <= DECODE_ROWS``.
 
@@ -349,7 +388,10 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, cache_index):
     over exactly its valid keys (see
     :func:`repro_torch.models.layers.attention_block`); an SSM row's
     recurrence runs at the same fixed width and a finished row writes no
-    state (see :func:`repro_torch.models.layers.ssm_block`).
+    state (see :func:`repro_torch.models.layers.ssm_block`); an MoE
+    block routes the ``B`` rows (finished ones too) with the capacity of
+    ``B`` tokens, its expert products at the fixed width's shape;
+    ``mesh`` as in :func:`train_loss`.
     """
     _check_ported(cfg)
     B = tokens.shape[0]
@@ -368,8 +410,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, cache_index):
                                  device=dev)[:, None]
     tokens = torch.cat([tokens, tokens.new_zeros((DECODE_ROWS - B, 1))])
     x = _embed(cfg, params, {"tokens": tokens})
-    x = _units(cfg, params, x, positions, cache=cache, cache_index=rows,
-               mode="decode")
+    x, _ = _units(cfg, params, x, positions, cache=cache, cache_index=rows,
+                  mode="decode", mesh=mesh)
     x = L.rms_norm(x, params["norm_f"])
     return _logits(cfg, params, x)[:B], cache
 

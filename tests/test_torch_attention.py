@@ -410,6 +410,7 @@ def _tiled_bf16_attention(q, k, v, *, causal, window, softcap, parts):
 @pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal,window,softcap", [
     (1, 4, 1, 300, 300, 64, True, None, None),      # granite, reduced
     (1, 2, 1, 300, 300, 256, True, 200, 50.0),      # gemma2, reduced
+    (1, 4, 1, 300, 300, 128, True, 200, None),      # mixtral, reduced
 ])
 def test_pv_precision_plan_holds_the_serving_limit(B, Hq, Hkv, Tq, Tk, D,
                                                    causal, window, softcap):

@@ -478,6 +478,9 @@ FLASH_CASES = [
     (1, 32, 32, 129, 129, 80, True, None, None),
     (1, 4, 2, 40, 90, 80, True, None, None),
     (1, 4, 2, 70, 150, 64, True, 40, None),
+    (1, 16, 16, 129, 129, 128, True, None, None),
+    (1, 32, 8, 300, 300, 128, True, 128, None),
+    (1, 48, 8, 77, 77, 128, True, None, None),
 ]
 
 
@@ -506,7 +509,7 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
 
 def _serving_shapes():
     """``chip_smoke.py``'s ``FLASH_SHAPES``: the bf16 prefills of granite,
-    gemma2 and zamba2."""
+    gemma2, zamba2, moonshot, mixtral and internlm2."""
     return chip_smoke().FLASH_SHAPES
 
 
@@ -734,3 +737,68 @@ def test_cuda_hybrid_engine_tokens_equal_generate(cuda_device, dtype):
                         temperature=req.temperature, seed=req.seed,
                         device=cuda_device).tokens[0, len(req.prompt):]
         assert r.status == "ok" and np.array_equal(r.generated, want)
+
+
+@pytest.mark.parametrize("arch", ["moonshot_v1_16b_a3b", "mixtral_8x7b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_moe_engine_tokens_equal_generate(cuda_device, arch, dtype):
+    """A reduced MoE model (4 experts, top-2) served on the card at
+    capacity 1.0, where prefills drop assignments: engine tokens bitwise
+    the port's ``generate``, one ``flash_attention`` launch per layer and
+    prefill."""
+    cfg = reduced(get_config(arch)).replace(dtype=dtype,
+                                            moe_capacity_factor=1.0)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    params = lm.init_params(cfg, gen)
+    rng = np.random.default_rng(8)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, (t,)).astype(np.int32),
+                    max_new=6, temperature=0.7 * (i % 2), seed=i)
+            for i, t in enumerate([5, 40, 17, 9, 33])]
+    eng = DecodeEngine(cfg, params, slots=4, page_size=8, max_ctx=48,
+                       max_new_cap=6, device=cuda_device)
+    before = flash_attention.launches
+    res = ServeStream(eng, wave_len=3).run(reqs)
+    assert flash_attention.launches - before == cfg.n_layers * len(reqs)
+    for req, r in zip(reqs, res):
+        want = generate(cfg, params, req.prompt[None], max_new=6,
+                        temperature=req.temperature, seed=req.seed,
+                        device=cuda_device).tokens[0, len(req.prompt):]
+        assert r.status == "ok" and np.array_equal(r.generated, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_moe_decode_step_rows_do_not_depend_on_batch(cuda_device,
+                                                          dtype):
+    """On the card, an MoE row's logits in a step of three rows are
+    bitwise those of its own step: its routing runs at the fixed width and
+    its expert products at one shape, whichever slots it takes."""
+    cfg = reduced(get_config("moonshot_v1_16b_a3b")).replace(dtype=dtype)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    params = lm.init_params(cfg, gen)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (3, 12)).astype(np.int32)).to(cuda_device)
+    caches = [lm.prefill(cfg, params, {"tokens": toks[s:s + 1]},
+                         max_len=13)[1] for s in range(3)]
+    stacked = {n: {"self": {k: torch.cat([c[n]["self"][k] for c in caches],
+                                         dim=1) for k in ("k", "v")}}
+               for n in caches[0]}
+    batch, _ = lm.decode_step(cfg, params, stacked, toks[:, :1], 12)
+    for s in range(3):
+        row, _ = lm.decode_step(cfg, params, caches[s], toks[s:s + 1, :1], 12)
+        assert torch.equal(batch[s], row[0])
+
+
+@pytest.mark.parametrize("arch", ["moonshot_v1_16b_a3b", "mixtral_8x7b"])
+def test_cuda_moe_trainer_step_matches_cpu(cuda_device, arch):
+    """A reduced MoE model (4 experts, top-2) trains on the card: losses
+    within rtol 1e-4 of the CPU's from the same parameters, the f32
+    lane's codec kernels and no prefill kernel."""
+    card, runs = _trainer_step_on_card_and_cpu(cuda_device, "float32",
+                                               arch=arch)
+    assert runs == {"xor_encode_gather": 2, "xor_decode_gather": 2,
+                    "aggregate": card.K, "xor_encode_gather16": 0,
+                    "xor_decode_gather16": 0, "aggregate_bf16": 0,
+                    "xor_fold": 0, "xor_decode": 0, "xor_encode": 0,
+                    "flash_attention": 0, "ssd_scan": 0}

@@ -440,14 +440,19 @@ def test_engine_rejects_oversized_and_unsupported(gemma):
     enc = cfg.replace(name="seamless", family="encdec", n_enc_layers=2)
     with pytest.raises(NotImplementedError):
         DecodeEngine(enc, None)
-    # still unported: the MoE family (ROADMAP.md, Queue 1 item 8)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        lm.init_paged_cache(enc, 2, 5, 4, 2, device="cpu")
+    # still unported: enc-dec and the frontends (ROADMAP.md, Queue 1
+    # item 8); the MoE family is served
+    for arch in ("seamless_m4t_large_v2", "internvl2_26b"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+            get_config(arch)
     moe = cfg.replace(name="mixtral", family="moe", n_experts=4,
                       experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        lm.init_paged_cache(moe, 2, 5, 4, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        get_config("mixtral_8x7b")
-    assert {"gemma2_2b", "mamba2_1p3b", "zamba2_2p7b"} <= set(PORTED_ARCHS)
+    assert set(lm.init_paged_cache(moe, 2, 5, 4, 2, device="cpu")) == \
+        set(lm.slot_names(moe))
+    assert {"gemma2_2b", "mamba2_1p3b", "zamba2_2p7b", "mixtral_8x7b",
+            "moonshot_v1_16b_a3b"} <= set(PORTED_ARCHS)
 
 
 def test_serial_stream_matches_pipelined(gemma):
