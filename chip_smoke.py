@@ -20,12 +20,17 @@ result line) on any mismatch:
    50, window 4096, Tq = Tk in {1000, 5000}; zamba2: 32/32 heads, D 80,
    Tq = Tk in {77, 129, 1024}; moonshot: 16/16 heads, D 128, Tq = Tk in
    {129, 1024}; mixtral: 32/8 heads, D 128, window 4096, Tq = Tk in
-   {1024, 5000}; internlm2: 48/8 heads, D 128, Tq = Tk = 1024); timed
+   {1024, 5000}; internlm2: 48/8 heads, D 128, Tq = Tk = 1024;
+   seamless: 16/16 heads, D 64, non-causal, its encoder at 1000 frames,
+   its cross-attention prefill at 4 x 1000 and 513 x 257 (Tq > Tk) and
+   its cross-attention decode at 1 x 1000, also in f32 within 2e-5;
+   and bf16 queries over f32 k/v through ``ops.attention`` at the cross
+   shapes, one f32-body launch within one bf16 ulp plus 2e-5); timed
    with CUDA events
    beside its bound (bytes, or for ``flash_attention`` the FLOPs of the
    visible pairs at the bf16 tensor-core peak when larger), its plain
    version and, where one PyTorch call computes the same function, that
-   call (SDPA for the causal shapes; none with softcap or window), and
+   call (SDPA; none with softcap or window), and
    for ``flash_attention`` also the device time of the kernel's and of
    SDPA's kernels in a ``torch.profiler`` trace (host launch time left
    out);
@@ -146,12 +151,28 @@ result line) on any mismatch:
    plain evaluations, which it prints, so each of a full-depth prefill's
    kernel calls is also held, at the model's own activations, to the
    bf16 limit of phase 1). Reports prefill ms by prompt length, decode
-   tok/s, step p50/p99 and peak memory.
+   tok/s, step p50/p99 and peak memory. Then the legacy host loop
+   (``phase_legacy``; ``DecodeEngine`` refuses these models, as JAX's
+   does): ``seamless_m4t_large_v2`` (24 encoder + 24 decoder layers) and
+   ``internvl2_26b`` (48 layers) at full width and full depth on random
+   bf16 weights, each request through ``serve_legacy`` with its own
+   frames or patches (``LEGACY_RUNS``: seamless on f32 frames of 257-1024
+   frames under prompts of 4-513 tokens, one more on bf16 frames;
+   internvl2 on f32 patches ``[1, 256, 1024]`` under prompts of 257-1024
+   tokens), 32 new tokens each: statuses ``ok``, tokens bitwise
+   ``generate``'s on the card, ``flash_attention`` launches exact (72 a
+   seamless prefill: 24 encoder, 24 self and 24 cross; 24 a seamless
+   decode step, its cross-attention; 48 an internvl2 prefill; none
+   other), every request's prefill logits through the kernels within 5%
+   of max |logit| of the plain versions' at full depth; it reports
+   prefill ms by length, the host loop's tok/s and step p50/p99, and
+   peak memory.
 
 The last lines are the card's name and power limit, the ``kernels`` JSON
 line (eleven kernels, each with its main-path launches: the granite
 training runs' counts, ``flash_attention``'s summed over the granite,
-gemma2, zamba2, moonshot, mixtral and internlm2 serving runs,
+gemma2, zamba2, moonshot, mixtral, internlm2, seamless and internvl2
+serving runs,
 ``ssd_scan``'s over the mamba2 and zamba2 runs) and ``{"ok": true,
 "device": {...}}``. Needs one CUDA card, the CUDA toolkit (``nvcc``) and
 the rest of this checkout; imports nothing of JAX.
@@ -528,17 +549,27 @@ ATTN_CASES = [
 #: zamba2_2p7b's shared attention block (32/32 heads, D 80, causal; at 77
 #: and 129 tokens a ragged last query tile and key tile),
 #: moonshot_v1_16b_a3b (16/16 heads, D 128, causal), mixtral_8x7b (32/8
-#: heads, D 128, window 4096; at 5000 tokens past the window) and
-#: internlm2_20b (48/8 heads, D 128, causal); the first is the one the
+#: heads, D 128, window 4096; at 5000 tokens past the window),
+#: internlm2_20b and internvl2_26b (48/8 heads, D 128, causal) and
+#: seamless_m4t_large_v2 (``ENCDEC_SHAPES``); the first is the one the
 #: ``kernels`` line reports
 FLASH_MAIN = (1, 32, 8, 1024, 1024, 64, True, None, None)
+#: seamless_m4t_large_v2 (16/16 heads, D 64, non-causal): its encoder over
+#: 1000 frames, its cross-attention prefill over them (a 4-token prompt,
+#: and 513 tokens over 257 frames: Tq > Tk) and its cross-attention in a
+#: decode step; held in f32 (f32 frames, as the JAX launcher makes them:
+#: the CUDA-core body) and in bf16
+ENCDEC_SHAPES = [(1, 16, 16, 1000, 1000, 64, False, None, None),
+                 (1, 16, 16, 4, 1000, 64, False, None, None),
+                 (1, 16, 16, 513, 257, 64, False, None, None),
+                 (1, 16, 16, 1, 1000, 64, False, None, None)]
 FLASH_SHAPES = [FLASH_MAIN] + [
     (1, 32, 8, t, t, 64, True, None, None) for t in (129, 1000, 2048)] + [
     (1, 8, 4, t, t, 256, True, 4096, 50.0) for t in (1000, 5000)] + [
     (1, 32, 32, t, t, 80, True, None, None) for t in (77, 129, 1024)] + [
     (1, 16, 16, t, t, 128, True, None, None) for t in (129, 1024)] + [
     (1, 32, 8, t, t, 128, True, 4096, None) for t in (1024, 5000)] + [
-    (1, 48, 8, 1024, 1024, 128, True, None, None)]
+    (1, 48, 8, 1024, 1024, 128, True, None, None)] + ENCDEC_SHAPES
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: the serving shapes' limit, relative to each output: the kernel works
 #: in f32 like the plain version and rounds once to bf16, so an element
@@ -546,6 +577,11 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: twice here) plus f32 rounding near 0. The ATTN_CASES' 2e-2 is about
 #: half of a typical output at these key counts (|o| ~ 0.03-0.08)
 FLASH_SERVE_TOL = dict(rtol=2 ** -6, atol=1e-5)
+#: bf16 queries over f32 k/v through ``ops.attention`` (the f32 body, the
+#: output rounded to bf16) against the plain version (f32 math rounded
+#: once): one bf16 ulp of each output (2**-7 of it) plus the f32 body's
+#: 2e-5 (an output near 0 has ulps far below the f32 sums' differences)
+MIXED_TOL = dict(rtol=2 ** -7, atol=2e-5)
 
 
 def _visible_pairs(Tq, Tk, causal, window) -> int:
@@ -559,11 +595,14 @@ def _visible_pairs(Tq, Tk, causal, window) -> int:
 
 def _sdpa_fn(q, k, v, causal, window, softcap):
     """The one PyTorch call that computes the same function, or None
-    (SDPA has no softcap and no sliding window)."""
+    (SDPA has no softcap and no sliding window; its causal mask is the
+    top-left one, the kernel's the right-aligned one, which agree where
+    Tq = Tk, the causal serving shapes)."""
     import torch.nn.functional as F
-    if window is not None or softcap is not None or not causal:
+    if window is not None or softcap is not None or (
+            causal and q.shape[2] != k.shape[2]):
         return None
-    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                   enable_gqa=True)
 
 
@@ -575,14 +614,19 @@ def check_flash(gen):
     """``flash_attention`` against its plain version on the card: every
     ATTN_CASES shape in f32 and bf16 (tolerances of tests/test_kernels.py:
     2e-5 / 2e-2), and the serving prefills' shapes in bf16 (within
-    ``FLASH_SERVE_TOL`` of each output); each serving shape timed beside
-    its bound, its plain version and SDPA, by CUDA events around each
-    call and by the device time of its kernels in a profiler trace."""
+    ``FLASH_SERVE_TOL`` of each output), seamless's (``ENCDEC_SHAPES``)
+    also in f32 (within 2e-5); each serving shape timed beside its bound,
+    its plain version and SDPA, by CUDA events around each call and by
+    the device time of its kernels in a profiler trace. Then seamless's
+    cross-attention on bf16 queries over f32 k/v through
+    ``ops.attention`` (one launch of the f32 body), within one bf16 ulp
+    of its plain version plus 2e-5 (``MIXED_TOL``)."""
     import torch
-    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.kernels import flash_attention, ops, ref
     timed = {}
     cases = [(c, dt) for c in ATTN_CASES for dt in ("float32", "bfloat16")]
     cases += [(c, "bfloat16") for c in FLASH_SHAPES]
+    cases += [(c, "float32") for c in ENCDEC_SHAPES]
     for case, dtype in cases:
         B, Hq, Hkv, Tq, Tk, D, causal, window, softcap = case
         dt = getattr(torch, dtype)
@@ -594,7 +638,7 @@ def check_flash(gen):
             q, k, v, **kw)
         torch.cuda.synchronize()
         serving = case in FLASH_SHAPES
-        tol = (FLASH_SERVE_TOL if serving
+        tol = (FLASH_SERVE_TOL if serving and dtype == "bfloat16"
                else dict(rtol=FLASH_TOL[dtype], atol=FLASH_TOL[dtype]))
         err = max_abs_err(got.float(), want.float())
         if got.dtype != dt or not torch.allclose(got.float(), want.float(),
@@ -608,7 +652,7 @@ def check_flash(gen):
             tol["atol"] + tol["rtol"] * want.float().abs())).max())
         del got, want
         flops = 4 * D * B * Hq * _visible_pairs(Tq, Tk, causal, window)
-        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
         bound = max(flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S)
         lib = _sdpa_fn(q, k, v, causal, window, softcap)
         r = dict(ms=time_ms(lambda: flash_attention(q, k, v, **kw)),
@@ -626,7 +670,7 @@ def check_flash(gen):
                  shape=f"q [{B},{Hq},{Tq},{D}] k/v [{B},{Hkv},{Tk},{D}] "
                        f"{dtype} causal={causal} window={window} "
                        f"softcap={softcap}, {flops / 1e9:.3f} GFLOP")
-        timed[case] = r
+        timed[case, dtype] = r
         lib_txt = (f"{r['library_ms']:.3f} ms" if lib is not None
                    else "none: SDPA has no softcap/window")
         log(f"kernels: flash_attention {r['shape']}: {r['ms']:.3f} ms "
@@ -640,10 +684,31 @@ def check_flash(gen):
             f"{_ms_txt(r['library_device_ms']) if lib is not None else 'n/a'}")
         del q, k, v
         torch.cuda.empty_cache()
+    for case in ENCDEC_SHAPES[2:]:       # the cross prefill and decode
+        B, Hq, Hkv, Tq, Tk, D = case[:6]
+        q = torch.randn((B, Hq, Tq, D), device=DEVICE,
+                        generator=gen).bfloat16()
+        k, v = (torch.randn((B, Hkv, Tk, D), device=DEVICE, generator=gen)
+                for _ in range(2))
+        before = flash_attention.launches
+        got = ops.attention(q, k, v, causal=False)
+        launches = flash_attention.launches - before
+        want = ref.flash_attention_ref(q, k, v, causal=False).float()
+        share = float(((got.float() - want).abs() / (
+            MIXED_TOL["atol"] + MIXED_TOL["rtol"] * want.abs())).max())
+        if got.dtype != torch.bfloat16 or launches != 1 or share > 1:
+            fail(f"ops.attention bf16 q over f32 k/v at {case}: {got.dtype}, "
+                 f"{launches} launches, the worst element at {share} of its "
+                 f"limit {MIXED_TOL}")
+        log(f"kernels: ops.attention bf16 q [{B},{Hq},{Tq},{D}] over f32 k/v "
+            f"[{B},{Hkv},{Tk},{D}] non-causal: one f32-body launch, within "
+            f"one bf16 ulp + 2e-5 of plain (the worst element at "
+            f"{share:.3f} of its limit)")
     log(f"kernels: flash_attention within 2e-5 (f32) / 2e-2 (bf16) of plain "
-        f"at {len(ATTN_CASES)} ATTN_CASES shapes x 2 dtypes, and within "
-        f"rtol 2**-6 + atol 1e-5 at {len(FLASH_SHAPES)} serving shapes")
-    return {"flash_attention": timed[FLASH_MAIN]}
+        f"at {len(ATTN_CASES)} ATTN_CASES shapes x 2 dtypes, within rtol "
+        f"2**-6 + atol 1e-5 at {len(FLASH_SHAPES)} bf16 serving shapes and "
+        f"within 2e-5 at {len(ENCDEC_SHAPES)} f32 ones")
+    return {"flash_attention": timed[FLASH_MAIN, "bfloat16"]}
 
 
 #: tests/test_kernels.py's SSD_CASES: B, T, H, P, S, chunk (the chunk is
@@ -2181,8 +2246,152 @@ def phase_serve(arch, n_layers, lens, seed=0, max_new=32):
     return counts
 
 
+#: the legacy host loop's runs (``serve_legacy``, ``generate`` the
+#: oracle), both at full width and full depth, as (arch, [(frames Ts or
+#: patch positions, prompt T, dtype of the frames or patches)]):
+#: seamless_m4t_large_v2 (24 encoder and 24 decoder layers, 3.9 GB of bf16
+#: weights) on f32 frames, as the JAX launcher makes them (its encoder and
+#: cross-attention in f32 through the CUDA-core body, bf16 queries over f32
+#: k/v), one request with a cross prefill of Tq > Tk, then one on bf16
+#: frames (the tensor-core body on the encoder); internvl2_26b (48 layers,
+#: 39.7 GB) on f32 patches [1, 256, 1024], prompts of at least the 256
+#: positions the patches replace
+LEGACY_RUNS = (("seamless_m4t_large_v2",
+                ((1000, 4, "float32"), (1024, 64, "float32"),
+                 (500, 16, "float32"), (257, 513, "float32"),
+                 (1000, 4, "bfloat16"))),
+               ("internvl2_26b",
+                ((256, 1024, "float32"), (256, 257, "float32"),
+                 (256, 513, "float32"), (256, 300, "float32"))))
+
+
+def legacy_launches(cfg, max_new: int) -> int:
+    """``flash_attention`` launches of one ``serve_legacy`` request: its
+    prefill's (an enc-dec model: each encoder layer, decoder self-
+    attention and cross-attention) and, for an enc-dec model, one per
+    cross-attention in each of its ``max_new - 1`` decode steps (the
+    self-attention of a decode step is the plain masked one)."""
+    if cfg.family != "encdec":
+        return cfg.n_layers
+    return cfg.n_enc_layers + 2 * cfg.n_layers + (max_new - 1) * cfg.n_layers
+
+
+def phase_legacy(arch, runs, seed=0, max_new=32):
+    """One enc-dec or ViT model served through ``serve_legacy`` (the
+    legacy host loop: ``DecodeEngine`` refuses these models, as JAX's
+    does), each request with its own frames or patches as ``extras``:
+    statuses, exact launch counts, tokens bitwise ``generate``'s on the
+    card, each request's prefill logits through the kernels against the
+    plain versions at full depth; returns the run's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import lm
+    from repro_torch.runtime.serve import Request, generate, serve_legacy
+    from repro_torch.weights import leaves
+    cfg = get_config(arch)
+    tag = f"legacy[{arch}]"
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(seed)
+    key = "frames" if cfg.family == "encdec" else "patches"
+    reqs, extras = [], []
+    for i, (n, T, dtype) in enumerate(runs):
+        reqs.append(Request(prompt=rng.integers(0, cfg.vocab, (T,)).astype(
+            np.int32), max_new=max_new, seed=i))
+        x = rng.standard_normal((1, n, cfg.frontend_dim)).astype(np.float32)
+        extras.append({key: torch.from_numpy(x).to(DEVICE,
+                                                  getattr(torch, dtype))})
+    n_w = sum(t.numel() * t.element_size() for _, t in leaves(params))
+    enc = (f"{cfg.n_enc_layers} encoder + " if cfg.n_enc_layers else "")
+    log(f"{tag}: {enc}{cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.hd}, {cfg.dtype}, "
+        f"{n_w / 1e9:.2f} GB of weights; {len(reqs)} greedy requests "
+        f"({key}, prompt, dtype) {[tuple(r) for r in runs]}, max_new "
+        f"{max_new}; init {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    counts = dict.fromkeys(launch_counts(), 0)
+    want = dict(counts, flash_attention=legacy_launches(cfg, max_new))
+    results, wall = [], 0.0
+    for req, ex in zip(reqs, extras):     # each request's counts exact
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        results += serve_legacy(cfg, params, [req], extras=ex, model=arch,
+                                device=DEVICE)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        got = launch_counts()
+        if got != want:
+            fail(f"{tag}: prompt {len(req.prompt)}: launch counts {got} != "
+                 f"expected {want}")
+        counts = {name: counts[name] + n for name, n in got.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if [r.status for r in results] != ["ok"] * len(reqs):
+        fail(f"{tag}: statuses {[r.status for r in results]}")
+    steps = []
+    for req, ex, r in zip(reqs, extras, results):
+        g = generate(cfg, params, req.prompt[None], max_new=max_new,
+                     extras=ex, device=DEVICE)
+        steps.extend(g.step_times)
+        if not np.array_equal(r.generated, g.tokens[0, len(req.prompt):]):
+            fail(f"{tag}: prompt {len(req.prompt)}: serve_legacy tokens "
+                 f"{r.generated} != generate {g.tokens[0, len(req.prompt):]}")
+    log(f"{tag}: {len(reqs)} requests ok, serve_legacy tokens bitwise == "
+        f"generate on the card; launches {counts} (each request's exact: "
+        f"{legacy_launches(cfg, max_new)} a request of {max_new} tokens)")
+
+    worst = []
+    for req, ex in zip(reqs, extras):
+        batch = {"tokens": torch.from_numpy(req.prompt[None]).to(DEVICE),
+                 **ex}
+        lg_kernel, _ = lm.prefill(cfg, params, batch)
+        with plain_attention():
+            lg_plain, _ = lm.prefill(cfg, params, batch)
+        diff = float((lg_kernel - lg_plain).abs().max())
+        scale = float(lg_plain.abs().max())
+        if not torch.isfinite(lg_kernel).all() or diff > LOGIT_SHARE * scale:
+            fail(f"{tag}: prompt {len(req.prompt)}: prefill logits kernel vs "
+                 f"plain differ by {diff} (limit {LOGIT_SHARE} x max |logit| "
+                 f"{scale})")
+        worst.append(f"{len(req.prompt)}/{ex[key].shape[1]} "
+                     f"{str(ex[key].dtype)[6:]}: {diff:.4g} of {scale:.4g}")
+    log(f"{tag}: prefill logits ({cfg.n_layers} layers) through the kernels "
+        f"vs the plain versions, max abs diff of max |logit| (prompt/{key} "
+        f"dtype): {'; '.join(worst)} (limit {LOGIT_SHARE})")
+
+    lines = []
+    for req, ex in zip(reqs, extras):
+        batch = {"tokens": torch.from_numpy(req.prompt[None]).to(DEVICE),
+                 **ex}
+        ms = time_ms(lambda: lm.prefill(cfg, params, batch,
+                                        max_len=len(req.prompt) + max_new),
+                     warmup=1, reps=3)
+        lines.append(f"{len(req.prompt)}/{ex[key].shape[1]}:{ms:.2f}")
+    log(f"{tag}: prefill ms by prompt/{key} length {', '.join(lines)}")
+    toks = sum(r.emitted for r in results)
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"{tag}: {toks} tokens in {wall:.2f} s wall ({toks / wall:.1f} tok/s "
+        f"end to end, prefills included); generate's host-loop steps: "
+        f"{len(steps) / sum(steps):.1f} tok/s, step p50 "
+        f"{1e3 * float(np.percentile(steps, 50)):.2f} ms p99 "
+        f"{1e3 * float(np.percentile(steps, 99)):.2f} ms; peak memory "
+        f"{peak / 1e9:.2f} GB (max_memory_allocated) of {total / 1e9:.1f} GB; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    del params, extras
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -2269,6 +2478,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     served = [phase_serve(arch, depth, lens)
               for arch, depth, lens in SERVE_RUNS]
+    served += [phase_legacy(arch, runs) for arch, runs in LEGACY_RUNS]
     for name in ("flash_attention", "ssd_scan"):
         counts[name] = sum(c[name] for c in served)
 
@@ -2281,6 +2491,7 @@ def main() -> int:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r.get("bound_by", "bytes"),
             library_ms=r["library_ms"]))
+    log(f"total: {time.perf_counter() - t_main:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

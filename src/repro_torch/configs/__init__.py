@@ -9,13 +9,15 @@ fields are the JAX package's; its XLA execution knobs (``use_pallas``,
 is the ``ssd_scan`` kernel's constant, 64, mamba2's and zamba2's
 ``ssm_chunk``). ``moe_shard_mode`` stays: on one card it selects the
 lane of :func:`repro_torch.models.layers.moe_block` over a virtual
-``(n_data, n_model)`` mesh and nothing else. The port ships the dense
-``granite_3_2b``, ``gemma2_2b``, ``internlm2_20b`` and
-``mistral_large_123b`` configs, the MoE ``mixtral_8x7b`` and
-``moonshot_v1_16b_a3b``, the SSM ``mamba2_1p3b`` and the hybrid
-``zamba2_2p7b``, each served and trained; enc-dec
-(``seamless_m4t_large_v2``) and the frontends (``internvl2_26b``) are
-still to port (ROADMAP.md, Queue 1 item 8).
+``(n_data, n_model)`` mesh and nothing else. The port ships every arch
+of the JAX zoo (:data:`ARCHS`): the dense ``granite_3_2b``,
+``gemma2_2b``, ``internlm2_20b`` and ``mistral_large_123b``, the MoE
+``mixtral_8x7b`` and ``moonshot_v1_16b_a3b``, the SSM ``mamba2_1p3b``
+and the hybrid ``zamba2_2p7b``, each served and trained, and the
+enc-dec ``seamless_m4t_large_v2`` (audio frames) and the ViT-frontend
+``internvl2_26b`` (patches), served through the legacy host loop only,
+as in the JAX package, whose token pipeline carries no frames or
+patches to train them on.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["ModelConfig", "ARCHS", "PORTED_ARCHS", "get_config", "reduced"]
+__all__ = ["ModelConfig", "ARCHS", "get_config", "reduced"]
 
 
 @dataclass(frozen=True)
@@ -106,19 +108,13 @@ ARCHS = [
     "gemma2_2b", "mistral_large_123b", "granite_3_2b", "zamba2_2p7b",
     "mamba2_1p3b", "seamless_m4t_large_v2",
 ]
-#: the configs the port ships
-PORTED_ARCHS = ["granite_3_2b", "gemma2_2b", "mamba2_1p3b", "zamba2_2p7b",
-                "mixtral_8x7b", "moonshot_v1_16b_a3b", "internlm2_20b",
-                "mistral_large_123b"]
 
 
 def get_config(name: str) -> ModelConfig:
     name = name.replace("-", "_")
-    if name not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"config {name!r} is not ported yet (ROADMAP.md, Queue 1 item "
-            f"8: enc-dec and the frontends); ported: "
-            f"{', '.join(PORTED_ARCHS)}")
+    if name not in ARCHS:
+        raise ValueError(f"unknown arch {name!r} (choose from "
+                         f"{', '.join(ARCHS)})")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.CONFIG
 

@@ -8,7 +8,8 @@
 //   s_ij = softcap * tanh(scale * q_i . k_j / softcap)   (softcap optional)
 //
 // q [B, Hq, Tq, D], k and v [B, Hkv, Tk, D] (GQA: rep = Hq / Hkv), queries
-// right-aligned against the keys (q_pos = i + Tk - Tq), causal and
+// right-aligned against the keys (q_pos = i + Tk - Tq; Tq > Tk only with
+// no mask, an enc-dec model's cross-attention), causal and
 // sliding-window masks (keys in (q_pos - window, q_pos]), m, l and the
 // accumulator in f32, a row with no visible key written as 0 (the l == 0
 // guard), output in q's type (f32 or bf16). Every tensor is addressed
@@ -834,9 +835,12 @@ cudaError_t flash_bf16(const void* q, const void* k, const void* v, void* o,
   }
 }
 
-bool valid(long long B, long long Hq, long long Hkv, long long Tq, long long Tk) {
-  return B >= 1 && Hkv >= 1 && Hq % Hkv == 0 && Tq >= 1 && Tk >= Tq &&
-         B * Hq <= 0x7fffffffLL;
+// Tq > Tk only without a mask: every key is visible, and the bodies read
+// the right-alignment shift Tk - Tq only under a causal or window mask
+bool valid(long long B, long long Hq, long long Hkv, long long Tq, long long Tk,
+           int causal, long long window) {
+  return B >= 1 && Hkv >= 1 && Hq % Hkv == 0 && Tq >= 1 && Tk >= 1 &&
+         (Tk >= Tq || (!causal && window <= 0)) && B * Hq <= 0x7fffffffLL;
 }
 
 }  // namespace
@@ -850,7 +854,7 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         long long Tk, long long D, const long long* strides,
                         float scale, float softcap, int causal, long long window,
                         void* stream) {
-  if (!valid(B, Hq, Hkv, Tq, Tk)) return (int)cudaErrorInvalidValue;
+  if (!valid(B, Hq, Hkv, Tq, Tk, causal, window)) return (int)cudaErrorInvalidValue;
   return (int)flash_f32(q, k, v, o, B, Hq, Hkv, Tq, Tk, D, strides, scale, softcap,
                         causal, window, (cudaStream_t)stream);
 }
@@ -862,7 +866,7 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          long long Tk, long long D, const long long* strides,
                          float scale, float softcap, int causal, long long window,
                          void* stream) {
-  if (!valid(B, Hq, Hkv, Tq, Tk)) return (int)cudaErrorInvalidValue;
+  if (!valid(B, Hq, Hkv, Tq, Tk, causal, window)) return (int)cudaErrorInvalidValue;
   return (int)flash_bf16(q, k, v, o, B, Hq, Hkv, Tq, Tk, D, strides, scale, softcap,
                          causal, window, (cudaStream_t)stream);
 }

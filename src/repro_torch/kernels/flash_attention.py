@@ -4,8 +4,10 @@
 Counterpart of the JAX package's Pallas kernel
 ``repro.kernels.flash_attention.flash_attention``: causal and sliding-
 window masks, GQA, gemma2's logit softcap, queries right-aligned against
-``Tq >= 1`` keys (``Tq <= Tk``), f32 softmax state, a row with no visible
-key written as 0, output in q's dtype (f32 or bf16). Forward only, as in
+the keys (``1 <= Tq <= Tk`` under a causal or window mask; any ``Tq``
+without one, where every key is visible: an encoder, a cross-attention),
+f32 softmax state, a row with no visible key written as 0, output in q's
+dtype (f32 or bf16). Forward only, as in
 the JAX package: the serving prefill calls it (through
 :func:`repro_torch.kernels.ops.attention`), training never does, so an
 input that requires grad is refused.
@@ -39,7 +41,7 @@ _LAUNCHERS = {torch.float32: "flash_attention_f32",
 _MAX_Q_TILES = 65535            # gridDim.y; 32 query rows a tile (f32 body)
 
 
-def _check(q, k, v, window, softcap):
+def _check(q, k, v, causal, window, softcap):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q must be [B, Hq, Tq, D] and k, v "
                          f"[B, Hkv, Tk, D], got {tuple(q.shape)}, "
@@ -51,10 +53,10 @@ def _check(q, k, v, window, softcap):
                          f"{tuple(k.shape)} differ in batch or head dim")
     if Hq % Hkv:
         raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
-    if not 1 <= Tq <= Tk:
+    if Tq < 1 or Tk < 1 or (Tq > Tk and (causal or window is not None)):
         raise ValueError(f"flash_attention: queries are right-aligned "
-                         f"against the keys, so 1 <= Tq <= Tk; got Tq={Tq}, "
-                         f"Tk={Tk}")
+                         f"against the keys, so a causal or window mask "
+                         f"needs 1 <= Tq <= Tk; got Tq={Tq}, Tk={Tk}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got "
                          f"{window}")
@@ -91,7 +93,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the output is a ``[B, Tq, Hq, D]`` buffer seen as ``[B, Hq, Tq, D]``,
     so ``out.transpose(1, 2).reshape(B, Tq, Hq * D)`` is free.
     """
-    _check(q, k, v, window, softcap)
+    _check(q, k, v, causal, window, softcap)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)

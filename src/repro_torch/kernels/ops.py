@@ -46,26 +46,31 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               valid_len=None) -> torch.Tensor:
     """Attention with the routing of ``repro.kernels.ops.attention``.
 
-    ``valid_len is None`` (a prefill over its own fresh keys): the
+    ``valid_len is None`` (a prefill over its own fresh keys, an
+    encoder, a cross-attention over its cached memory): the
     ``flash_attention`` kernel for a CUDA tensor at any length; on the
     CPU its plain version up to :data:`CHUNK_THRESHOLD` scores and the
-    chunked lane past it, as the JAX package's XLA lane routes.
-    ``valid_len`` given (a decode step over a partly filled
-    cache, ``Tq`` ~ 1): the plain masked attention on any device, as
-    the JAX package keeps that lane outside Pallas; its score matrix is
-    only ``[B, H, Tq, Tk]``.
+    chunked lane past it, as the JAX package's XLA lane routes. Inputs
+    of mixed dtypes (an enc-dec model's bf16 queries over the f32 k/v of
+    f32 audio frames) go through the kernel in the widest of them (bf16
+    to f32 is exact), the output rounded to q's dtype: the JAX
+    reference's upcast of all three. ``valid_len`` given (a decode step
+    over a partly filled cache, ``Tq`` ~ 1): the plain masked attention
+    on any device, as the JAX package keeps that lane outside Pallas;
+    its score matrix is only ``[B, H, Tq, Tk]``.
     """
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if valid_len is None:
         if (q.device.type == "cpu"
                 and q.shape[2] * k.shape[2] > CHUNK_THRESHOLD):
-            return flash_attention_chunked(q, k, v, causal=causal,
-                                           window=window, softcap=softcap,
-                                           scale=scale)
-        return flash_attention(q, k, v, causal=causal, window=window,
-                               softcap=softcap, scale=scale)
-    return flash_attention_ref(q, k, v, causal=causal, window=window,
-                               softcap=softcap, scale=scale,
-                               valid_len=valid_len)
+            return flash_attention_chunked(q, k, v, **kw)
+        if q.dtype == k.dtype == v.dtype:
+            return flash_attention(q, k, v, **kw)
+        dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                 v.dtype)
+        return flash_attention(q.to(dt), k.to(dt), v.to(dt),
+                               **kw).to(q.dtype)
+    return flash_attention_ref(q, k, v, valid_len=valid_len, **kw)
 
 
 def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,

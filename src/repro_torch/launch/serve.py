@@ -39,13 +39,20 @@ the plain versions, best with ``--reduced``):
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --archs moonshot_v1_16b_a3b --reduced --device cpu
 
-Parameters are the port's ``init_params`` from seed 0. Ported
-(``repro_torch.configs.PORTED_ARCHS``): the dense ``granite_3_2b``,
-``gemma2_2b``, ``internlm2_20b`` and ``mistral_large_123b``, the MoE
-``mixtral_8x7b`` and ``moonshot_v1_16b_a3b``, the SSM ``mamba2_1p3b``
-and the hybrid ``zamba2_2p7b``; the enc-dec and frontend archs
-(``seamless_m4t_large_v2``, ``internvl2_26b``) raise with a pointer to
-ROADMAP.md (Queue 1 item 8).
+    # the enc-dec family (audio frames) and the ViT frontend (patches):
+    # the legacy host loop only
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --archs seamless_m4t_large_v2,internvl2_26b --reduced \\
+        --device cpu --legacy --requests 4
+
+Parameters are the port's ``init_params`` from seed 0; every arch of
+``repro_torch.configs.ARCHS`` is served. With ``--legacy`` an enc-dec
+model takes f32 ``frames [1, prompt-len, frontend_dim]`` and a ViT one
+f32 ``patches [1, frontend_len, frontend_dim]``, drawn from the seed as
+the JAX launcher draws them; a ViT prompt is at least ``frontend_len``
+tokens long (the port refuses a shorter one, which JAX's ``_embed``
+would silently cut to the patches). Without ``--legacy`` both are
+refused, as in the JAX launcher: ``DecodeEngine`` does not serve them.
 """
 
 from __future__ import annotations
@@ -130,8 +137,9 @@ def main(argv=None):
 
     def requests_for(a):
         out = []
+        lo = cfgs[a].frontend_len if cfgs[a].frontend == "vit" else 1
         for i in range(args.requests):
-            T = int(rng.integers(1, args.prompt_len + 1))
+            T = int(rng.integers(lo, max(args.prompt_len, lo) + 1))
             prompt = rng.integers(0, cfgs[a].vocab, (T,)).astype(np.int32)
             out.append(Request(prompt=prompt, max_new=args.max_new,
                                eos=args.eos, temperature=args.temperature,
@@ -142,10 +150,21 @@ def main(argv=None):
         total = tot_time = 0
         all_results = []
         for a in names:
+            cfg = cfgs[a]
+            extras = {}
+            if cfg.frontend == "vit":
+                extras["patches"] = rng.standard_normal(
+                    (1, cfg.frontend_len, cfg.frontend_dim)).astype(
+                    np.float32)
+            if cfg.frontend == "audio":
+                extras["frames"] = rng.standard_normal(
+                    (1, args.prompt_len, cfg.frontend_dim)).astype(
+                    np.float32)
             t0 = time.perf_counter()
-            results = serve_legacy(cfgs[a], params[a], requests_for(a),
+            results = serve_legacy(cfg, params[a], requests_for(a),
                                    max_queue=args.max_queue,
-                                   shed_policy=args.shed_policy, model=a,
+                                   shed_policy=args.shed_policy,
+                                   extras=extras or None, model=a,
                                    device=device)
             dt = time.perf_counter() - t0
             tot_time += dt
@@ -160,6 +179,9 @@ def main(argv=None):
               f"status: {_status_line(all_results)}")
         return
 
+    for a in names:
+        if cfgs[a].family == "encdec" or cfgs[a].frontend:
+            ap.error(f"{a}: enc-dec/frontend archs need --legacy")
     engines = {
         a: DecodeEngine(cfgs[a], params[a], slots=args.slots,
                         page_size=args.page_size,

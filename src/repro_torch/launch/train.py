@@ -12,10 +12,12 @@ device (``--device cpu`` runs the plain versions on the CPU, best with
 ``--reduced``). ``--grad-sync camr_spmd`` is the stacked coded shuffle
 on the device, ``camr`` the numpy engine interpreter and ``uncoded`` the
 paper's unicast baseline (both on the host, fed from the device's map):
-all three give bitwise the same parameters. ``--arch`` takes any ported
-config: the dense ones, ``mixtral_8x7b`` and ``moonshot_v1_16b_a3b``
-(MoE: the loss holds the load-balancing term), ``mamba2_1p3b`` (SSM)
-and ``zamba2_2p7b`` (hybrid), e.g.
+all three give bitwise the same parameters. ``--arch`` takes the
+dense configs, ``mixtral_8x7b`` and ``moonshot_v1_16b_a3b`` (MoE: the
+loss holds the load-balancing term), ``mamba2_1p3b`` (SSM) and
+``zamba2_2p7b`` (hybrid); ``seamless_m4t_large_v2`` and
+``internvl2_26b`` are refused (the token pipeline carries no frames or
+patches), e.g.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2_2p7b \\
         --reduced --multi-model --grad-sync camr --steps 2 \\
@@ -123,6 +125,10 @@ def main(argv=None):
                          "--multi-model options (the CAMR gradient "
                          "shuffle)")
     cfg = get_config(args.arch)
+    if cfg.family == "encdec" or cfg.frontend:
+        raise SystemExit(f"{args.arch}: the token pipeline carries no "
+                         "frames or patches, so this model is served only "
+                         "(the JAX trainers cannot train it either)")
     if args.reduced:
         cfg = reduced(cfg)
     if args.n_layers:

@@ -1,11 +1,12 @@
-"""Layer primitives of the dense, MoE, SSM and hybrid decoders (plain
-functions on tensors).
+"""Layer primitives of the dense, MoE, SSM, hybrid and enc-dec models
+(plain functions on tensors).
 
 Counterparts of ``repro.models.layers``: ``dense``, ``rms_norm``,
-``rope``, ``attention_block`` (training, contiguous KV cache and paged
-KV cache), ``mlp_block``, ``moe_block`` (top-k routing and a
-capacity-bounded dispatch, with or without a virtual mesh) and the
-Mamba2 ``ssm_block`` (training through
+``rope``, ``attention_block`` (training, contiguous KV cache, paged
+KV cache, and the cross-attention of the enc-dec family),
+``mlp_block``, ``moe_block`` (top-k routing and a capacity-bounded
+dispatch, with or without a virtual mesh) and the Mamba2 ``ssm_block``
+(training through
 the plain differentiable ``ref.ssd_chunked``, prefill through
 ``ops.ssd``, the ``ssd_scan`` kernel on a card, and the single-step
 decode recurrence). Activations are ``x [B, T, D]``; attention
@@ -17,11 +18,12 @@ Training attention is the JAX package's XLA lane
 (:func:`repro_torch.kernels.ops.plain_attention`): the materialized
 ``flash_attention_ref`` up to ``Tq*Tk = 2**21`` (``seq_len`` 1448), the
 chunked ``flash_attention_chunked`` past it; a gradient never passes
-through the kernel. A prefill over a cache goes through
-``ops.attention``: the ``flash_attention`` kernel on a card at any
-length. Training's SSD scan is likewise the plain chunked form (the JAX
-package's XLA lane, ``use_pallas=False``), chosen by the mode: no
-kernel has a backward.
+through the kernel. A prefill goes through ``ops.attention`` (its
+self-attention over a cache, and an enc-dec model's encoder and
+cross-attention, which the caller marks ``train=False``): the
+``flash_attention`` kernel on a card at any length. Training's SSD
+scan is likewise the plain chunked form (the JAX package's XLA lane,
+``use_pallas=False``), chosen by the mode: no kernel has a backward.
 """
 
 from __future__ import annotations
@@ -99,11 +101,21 @@ def _decode_attention(q, k, v, cache, rows, **kw):
 
 
 def attention_block(p, x, positions, cfg, *, window=None, softcap=None,
-                    causal=True, cache=None, cache_index=None):
-    """Self-attention with GQA and RoPE; returns ``(out, new_cache)``.
+                    causal=True, cache=None, cache_index=None, memory=None,
+                    train=True):
+    """Self-attention with GQA and RoPE, or cross-attention over
+    ``memory [B, Ts, D]``; returns ``(out, new_cache)``.
 
-    * ``cache=None`` (training): the plain attention (materialized up to
-      ``seq_len`` 1448, chunked past it); ``new_cache`` is None.
+    * ``cache=None``: with ``train`` (training) the plain attention
+      (materialized up to ``seq_len`` 1448, chunked past it); without
+      (an enc-dec prefill's encoder and cross-attention, which keep no
+      self cache) :func:`repro_torch.kernels.ops.attention`, the
+      ``flash_attention`` kernel on a card; ``new_cache`` is None.
+    * ``memory`` given (cross-attention, ``cache=None``): k and v come
+      from the memory, neither q nor k is rotated and every key is
+      visible; ``new_cache`` is the memory's ``{"k", "v": [B, Hkv, Ts,
+      Dh]}`` in the memory's dtype (a prefill stores them as its cross
+      cache).
     * contiguous cache ``{"k", "v": [B, Hkv, Tmax, Dh]}``, prefill (``T >
       1``): the k/v are written at ``cache_index`` (an int) and the step
       attends over its fresh ``(k, v)`` through
@@ -122,15 +134,22 @@ def attention_block(p, x, positions, cfg, *, window=None, softcap=None,
     """
     B, T, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    src = x if memory is None else memory
+    Ts = src.shape[1]
     q = dense(x, p["wq"]).reshape(B, T, hq, dh).transpose(1, 2)
-    k = dense(x, p["wk"]).reshape(B, T, hkv, dh).transpose(1, 2)
-    v = dense(x, p["wv"]).reshape(B, T, hkv, dh).transpose(1, 2)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    kw = dict(causal=causal, window=window, softcap=softcap)
+    k = dense(src, p["wk"]).reshape(B, Ts, hkv, dh).transpose(1, 2)
+    v = dense(src, p["wv"]).reshape(B, Ts, hkv, dh).transpose(1, 2)
+    if memory is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    kw = dict(causal=causal and memory is None, window=window,
+              softcap=softcap)
 
     if cache is None:
-        out = ops.plain_attention(q, k, v, **kw)
+        out = (ops.plain_attention if train else ops.attention)(q, k, v,
+                                                                **kw)
+        if memory is not None:
+            cache = {"k": k, "v": v}
     elif T == 1:
         rows = (cache_index if isinstance(cache_index, list)
                 else [int(cache_index)] * cache["k"].shape[0])

@@ -1,12 +1,16 @@
-"""Decoder LMs of the port: init, forward, training loss and serving.
+"""The LMs of the port: init, forward, training loss and serving.
 
 Counterpart of ``repro.models.lm`` for the dense family (``attn`` and
 ``local`` sublayers with an MLP), the MoE family (the same sublayers
 with a top-k expert block in place of the MLP, its load-balancing term
 added to the loss), the SSM family (``ssm`` sublayers:
-Mamba2's SSD block, no MLP) and the hybrid family (zamba2: ``ssm``
+Mamba2's SSD block, no MLP), the hybrid family (zamba2: ``ssm``
 sublayers and a ``shared_attn`` block, one attention + MLP parameter set
-reused at every occurrence): ``init_params`` (same shapes, dtypes and
+reused at every occurrence), the enc-dec family (seamless: a
+bidirectional encoder over projected audio frames, ``params["enc"]``,
+and decoder ``attn`` slots with a cross-attention to its memory) and
+the ViT frontend (internvl2: projected patches in place of the first
+``frontend_len`` token embeddings): ``init_params`` (same shapes, dtypes and
 scales, drawn from a ``torch.Generator`` — the numbers differ from
 ``jax.random``; tests start both packages from the same exported
 weights, see :mod:`repro_torch.weights`), ``_embed``, the unit loop (a
@@ -18,13 +22,18 @@ Caches are updated in place (the JAX package returns new arrays): each
 entry point returns the cache it was given, written. An attention
 slot's cache entry is ``{"self": {"k", "v"[, "pages"]}}``, stacked over
 ``repeats`` (a ``shared_attn`` slot too: its weights are shared, each
-occurrence keeps its own keys), an SSM slot's ``{"state": f32[R,
-B|slots, H, S, P]}`` (recurrent: no sequence axis, no page table).
+occurrence keeps its own keys), an enc-dec decoder slot's also
+``"cross": {"k", "v": [R, B, Hkv, Ts, Dh]}`` (the encoder memory's k/v,
+written by the prefill in the memory's dtype, read by every decode
+step), an SSM slot's ``{"state": f32[R, B|slots, H, S, P]}``
+(recurrent: no sequence axis, no page table).
 
 Parameters are nested dicts of tensors; stacked-layer leaves keep their
-leading ``repeats`` axis and the shared block lives once, unstacked, in
-``params["shared"]``, as in the JAX package, so the flat layout of
-:func:`repro_torch.weights.ravel` matches ``ravel_pytree``. There is no
+leading ``repeats`` axis (the encoder's ``n_enc_layers``), the shared
+block lives once, unstacked, in ``params["shared"]`` and the frontend
+projection in ``params["front"]["w"]``, as in the JAX package, so the
+flat layout of :func:`repro_torch.weights.ravel` matches
+``ravel_pytree``. There is no
 rematerialisation: at the slice's sizes activations are small beside
 the parameters.
 """
@@ -35,29 +44,22 @@ import numpy as np
 import torch
 
 from ..configs import ModelConfig
+from ..kernels import ops
 from . import layers as L
 
 __all__ = ["slot_names", "init_params", "train_loss", "init_cache",
            "init_paged_cache", "admit_prefill", "prefill", "decode_step",
            "poisoned_rows", "DECODE_ROWS"]
 
-_PORTED_KINDS = ("attn", "local", "shared_attn", "ssm")
-
 
 def slot_names(cfg: ModelConfig) -> list[str]:
     return [f"{i}_{kind}" for i, kind in enumerate(cfg.pattern)]
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    """The families the port serves and trains: dense decoders, the MoE
-    family, the SSM family and the hybrid (zamba2) family."""
-    bad = [k for k in cfg.pattern if k not in _PORTED_KINDS]
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
-            or cfg.n_enc_layers or cfg.frontend or bad):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense decoder, MoE, SSM (mamba2) and "
-            "hybrid (zamba2) paths are ported; enc-dec and frontend models "
-            "wait for ROADMAP.md, Queue 1 item 8 (the rest of the zoo)")
+def _has_cross(cfg: ModelConfig, kind: str) -> bool:
+    """A decoder slot with a cross-attention: every ``attn`` slot of an
+    enc-dec model (the encoder's blocks are dense and have none)."""
+    return cfg.family == "encdec" and kind == "attn"
 
 
 def _normal(gen, shape, dtype, scale):
@@ -82,6 +84,8 @@ def _init_slot(gen, cfg: ModelConfig, kind: str, R: int | None) -> dict:
     def w(*shape, scale):
         return _normal(gen, (*lead, *shape), dt, scale)
 
+    if kind not in ("attn", "local", "shared_attn", "ssm"):
+        raise ValueError(f"unknown sublayer kind {kind!r}")
     if kind == "ssm":
         di, H, S = cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_state
         return {
@@ -95,14 +99,14 @@ def _init_slot(gen, cfg: ModelConfig, kind: str, R: int | None) -> dict:
                     "skip": z(H) + 0.1,          # D residual term
                     "w_out": w(di, d, scale=di ** -0.5)},
         }
-    p = {
-        "norm1": z(),
-        "attn": {"wq": w(d, hq * dh, scale=sc),
-                 "wk": w(d, hkv * dh, scale=sc),
-                 "wv": w(d, hkv * dh, scale=sc),
-                 "wo": w(hq * dh, d, scale=sc)},
-        "norm2": z(),
-    }
+    def attention():
+        return {"wq": w(d, hq * dh, scale=sc), "wk": w(d, hkv * dh, scale=sc),
+                "wv": w(d, hkv * dh, scale=sc), "wo": w(hq * dh, d, scale=sc)}
+
+    p = {"norm1": z(), "attn": attention(), "norm2": z()}
+    if _has_cross(cfg, kind):
+        p["norm_x"] = z()
+        p["cross"] = attention()
     if cfg.n_experts:
         E = cfg.n_experts
         p["moe"] = {"router": w(d, E, scale=sc),
@@ -119,8 +123,10 @@ def _init_slot(gen, cfg: ModelConfig, kind: str, R: int | None) -> dict:
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random parameters on the generator's device; a ``shared_attn``
     slot has no entry in ``params["blocks"]``: its one parameter set,
-    with no ``repeats`` axis, is ``params["shared"]``."""
-    _check_ported(cfg)
+    with no ``repeats`` axis, is ``params["shared"]``. An enc-dec model
+    adds ``params["enc"] = {"blocks": <a dense attn slot stacked over
+    n_enc_layers>, "norm"}``, a frontend ``params["front"]["w"]
+    [frontend_dim, d]``."""
     d, V = cfg.d_model, cfg.vocab_padded
     params = {
         "embed": _normal(gen, (V, d), cfg.torch_dtype, d ** -0.5),
@@ -133,15 +139,52 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
                         if kind != "shared_attn"}
     if "shared_attn" in cfg.pattern:
         params["shared"] = _init_slot(gen, cfg, "shared_attn", None)
+    if cfg.n_enc_layers:
+        params["enc"] = {
+            "blocks": _init_slot(gen, cfg.replace(family="dense"), "attn",
+                                 cfg.n_enc_layers),
+            "norm": torch.zeros((d,), dtype=torch.float32,
+                                device=gen.device)}
+    if cfg.frontend:
+        params["front"] = {"w": _normal(gen, (cfg.frontend_dim, d),
+                                        cfg.torch_dtype,
+                                        cfg.frontend_dim ** -0.5)}
     return params
 
 
+def _cross(cfg, p, h, memory, cache, cache_index, mode):
+    """The cross-attention of an enc-dec decoder slot over the encoder
+    memory. Training and a prefill attend over ``memory`` (a prefill
+    through the kernel, writing the memory's k/v into ``cache["cross"]``);
+    a decode step reads the cross cache as it is, its ``len(cache_index)``
+    real rows through ``ops.attention`` (no ``valid_len``: the kernel on a
+    card, as JAX routes it through Pallas) and the padding rows 0."""
+    if mode != "decode":
+        out, kv = L.attention_block(p, h, None, cfg, causal=False,
+                                    memory=memory, train=(mode == "train"))
+        if cache is not None:
+            for key in ("k", "v"):
+                cache["cross"][key].copy_(kv[key])
+        return out
+    ck = cache["cross"]
+    B, n = h.shape[0], len(cache_index)
+    q = L.dense(h, p["wq"]).reshape(B, 1, cfg.n_heads, cfg.hd).transpose(1, 2)
+    o = torch.zeros_like(q)
+    o[:n] = ops.attention(q[:n], ck["k"], ck["v"], causal=False)
+    return L.dense(o.transpose(1, 2).reshape(B, 1, -1), p["wo"])
+
+
 def _apply_slot(cfg, kind, p, x, positions, *, cache=None,
-                cache_index=None, mode="train", mesh=None):
+                cache_index=None, mode="train", mesh=None, memory=None,
+                train=None):
     """One sublayer; returns ``(x, aux)``, ``aux`` the MoE load-balancing
     term (None without an expert block); ``cache`` is written in place.
     ``mode``: ``train`` / ``prefill`` / ``decode``, or ``encoder``
-    (bidirectional). An ``ssm`` slot has no MLP: ``x +
+    (bidirectional, no cache: the encoder of a training step or, with
+    ``train=False``, of a prefill, whose attention takes the kernel). An
+    enc-dec decoder slot adds ``x + cross(rms_norm(x, norm_x))`` after
+    its self-attention (:func:`_cross`, over ``memory``; the encoder's
+    own slots are dense). An ``ssm`` slot has no MLP: ``x +
     ssm_block(rms_norm(x))``, its training pass through the plain
     differentiable scan, its prefill writing the final state into the
     cache and its decode step the live rows' states. A ``shared_attn``
@@ -151,13 +194,14 @@ def _apply_slot(cfg, kind, p, x, positions, *, cache=None,
     dispatches only its ``len(cache_index)`` real rows (finished ones
     included, as the JAX step does), not its padding."""
     aux = None
+    train = mode == "train" if train is None else train
     if kind == "ssm":
         h = L.rms_norm(x, p["norm"])
         if mode == "decode":
             h, _ = L.ssm_block(p["ssm"], h, cfg, state=cache["state"],
                                rows=cache_index)
         else:
-            h, st = L.ssm_block(p["ssm"], h, cfg, train=(mode == "train"),
+            h, st = L.ssm_block(p["ssm"], h, cfg, train=train,
                                 return_state=cache is not None)
             if cache is not None:
                 cache["state"].copy_(st)
@@ -168,8 +212,11 @@ def _apply_slot(cfg, kind, p, x, positions, *, cache=None,
         p["attn"], h, positions, cfg, window=window,
         softcap=cfg.attn_softcap, causal=(mode != "encoder"),
         cache=cache["self"] if cache is not None else None,
-        cache_index=cache_index)
+        cache_index=cache_index, train=train)
     x = x + h
+    if _has_cross(cfg, kind):
+        x = x + _cross(cfg, p["cross"], L.rms_norm(x, p["norm_x"]), memory,
+                       cache, cache_index, mode)
     h = L.rms_norm(x, p["norm2"])
     if cfg.n_experts:
         h, aux = L.moe_block(p["moe"], h, cfg, mesh=mesh, rows=(
@@ -186,14 +233,16 @@ def _layer(tree, r: int):
 
 
 def _units(cfg, params, x, positions, *, cache=None, cache_index=None,
-           mode="train", mesh=None):
+           mode="train", mesh=None, memory=None):
     """The pattern repetitions in order (``lax.scan`` in the JAX package);
     returns ``(x, aux)``, the MoE term summed over the layers (None
     without an MoE block). ``cache`` (stacked over ``repeats``, as the
     params) is updated in place, one layer's view at a time. A
     ``shared_attn`` slot takes
     ``params["shared"]`` as it is at every repeat (it has no ``repeats``
-    axis to index) and its own repeat's cache."""
+    axis to index) and its own repeat's cache. ``memory``: the encoder
+    output an enc-dec decoder's cross-attention reads (training and
+    prefill)."""
     aux = None
     for r in range(cfg.repeats):
         for name, kind in zip(slot_names(cfg), cfg.pattern):
@@ -202,17 +251,51 @@ def _units(cfg, params, x, positions, *, cache=None, cache_index=None,
             c = _layer(cache[name], r) if cache is not None else None
             x, a = _apply_slot(cfg, kind, p, x, positions, cache=c,
                                cache_index=cache_index, mode=mode,
-                               mesh=mesh)
+                               mesh=mesh, memory=memory)
             if a is not None:
                 aux = a if aux is None else aux + a
     return x, aux
 
 
-def _embed(cfg, params, batch):
-    x = params["embed"][torch.as_tensor(batch["tokens"]).long()]
+def _embed_tokens(cfg, params, tokens):
+    x = params["embed"][torch.as_tensor(tokens).long()]
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
+
+
+def _embed(cfg, params, batch):
+    """The token embeddings of ``batch["tokens"] [B, T]``; a ViT model's
+    projected ``batch["patches"] [B, P, frontend_dim]``, cast to the
+    embedding dtype, take the place of the first ``P`` positions. A
+    prompt shorter than the patches is refused (JAX's ``_embed`` returns
+    ``P`` positions for it, the prompt's tokens dropped)."""
+    x = _embed_tokens(cfg, params, batch["tokens"])
+    if cfg.frontend == "vit":
+        patches = L.dense(torch.as_tensor(batch["patches"]).to(x.device),
+                          params["front"]["w"])
+        n = patches.shape[1]
+        if x.shape[1] < n:
+            raise ValueError(f"{cfg.name}: a prompt of {x.shape[1]} tokens "
+                             f"is shorter than its {n} patch positions")
+        x = torch.cat([patches.to(x.dtype), x[:, n:]], dim=1)
+    return x
+
+
+def _encoder(cfg, params, frames, *, train):
+    """The bidirectional encoder over ``frames [B, Ts, frontend_dim]``
+    (projected by ``params["front"]["w"]``, in the frames' dtype): dense
+    ``attn`` slots with RoPE at ``arange(Ts)``, then ``rms_norm``. Its
+    attention is the plain one in training and ``ops.attention`` (the
+    kernel on a card) in a prefill."""
+    frames = torch.as_tensor(frames).to(params["front"]["w"].device)
+    x = L.dense(frames, params["front"]["w"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    dense = cfg.replace(family="dense")
+    for r in range(cfg.n_enc_layers):
+        x, _ = _apply_slot(dense, "attn", _layer(params["enc"]["blocks"], r),
+                           x, positions, mode="encoder", train=train)
+    return L.rms_norm(x, params["enc"]["norm"])
 
 
 def _logits(cfg, params, x):
@@ -249,15 +332,17 @@ def _chunked_loss(cfg, params, x, labels):
 
 
 def train_loss(cfg: ModelConfig, params, batch, *, mesh=None):
-    """batch: ``tokens``, ``labels`` int ``[B, T]`` -> (loss, metrics
+    """batch: ``tokens``, ``labels`` int ``[B, T]`` (+ ``frames`` for an
+    enc-dec model, ``patches`` for a ViT one) -> (loss, metrics
     ``{"loss", "moe_aux"}``). An MoE model's loss holds ``0.01 * aux /
     n_layers``, as the JAX package's; ``mesh=(n_data, n_model)`` runs
     its expert blocks on that virtual mesh (:func:`~repro_torch.models.
     layers.moe_block`)."""
-    _check_ported(cfg)
+    memory = (_encoder(cfg, params, batch["frames"], train=True)
+              if cfg.family == "encdec" else None)
     x = _embed(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, aux = _units(cfg, params, x, positions, mesh=mesh)
+    x, aux = _units(cfg, params, x, positions, mesh=mesh, memory=memory)
     x = L.rms_norm(x, params["norm_f"])
     loss = _chunked_loss(cfg, params, x, batch["labels"])
     if aux is None:
@@ -277,19 +362,30 @@ def _ssm_state(cfg: ModelConfig, rows: int, device) -> dict:
                                  device=device)}
 
 
-def init_cache(cfg: ModelConfig, B: int, T: int, *, device) -> dict:
+def init_cache(cfg: ModelConfig, B: int, T: int, *, device,
+               memory=None) -> dict:
     """Zeroed contiguous decode cache: per attention slot ``{"self":
     {"k", "v": [R, B, Hkv, T, Dh]}}`` in the model dtype, per SSM slot
-    ``{"state": f32[R, B, H, S, P]}``."""
-    _check_ported(cfg)
+    ``{"state": f32[R, B, H, S, P]}``; an enc-dec decoder slot also
+    ``"cross"`` ``{"k", "v": [R, B, Hkv, Ts, Dh]}`` in the dtype of the
+    encoder's ``memory [B, Ts, D]`` (without it JAX's template: ``T``
+    and the model dtype)."""
     R, hkv, hd = cfg.repeats, cfg.n_kv_heads, cfg.hd
 
-    def z():
-        return torch.zeros((R, B, hkv, T, hd), dtype=cfg.torch_dtype,
-                           device=device)
+    def z(n=T, dtype=cfg.torch_dtype):
+        return torch.zeros((R, B, hkv, n, hd), dtype=dtype, device=device)
 
-    return {name: (_ssm_state(cfg, B, device) if kind == "ssm"
-                   else {"self": {"k": z(), "v": z()}})
+    def entry(kind):
+        if kind == "ssm":
+            return _ssm_state(cfg, B, device)
+        ent = {"self": {"k": z(), "v": z()}}
+        if _has_cross(cfg, kind):
+            n, dt = ((T, cfg.torch_dtype) if memory is None
+                     else (memory.shape[1], memory.dtype))
+            ent["cross"] = {"k": z(n, dt), "v": z(n, dt)}
+        return ent
+
+    return {name: entry(kind)
             for name, kind in zip(slot_names(cfg), cfg.pattern)}
 
 
@@ -302,8 +398,12 @@ def init_paged_cache(cfg: ModelConfig, slots: int, n_pages: int,
     page: finished rows write there and the allocator never hands it
     out. An SSM slot's state is recurrent (no sequence axis), so it is a
     per-slot row ``{"state": f32[R, slots, H, S, P]}``, overwritten at
-    admission."""
-    _check_ported(cfg)
+    admission. An enc-dec model is refused, as the JAX package refuses
+    it: its cross caches have no paged layout."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "paged decode does not support enc-dec cross caches; use "
+            "the legacy generate() path")
     R, hkv, hd = cfg.repeats, cfg.n_kv_heads, cfg.hd
 
     def z():
@@ -354,14 +454,21 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int | None = None,
     """Forward pass over the prompt ``batch["tokens"] [B, T]`` that also
     writes the KV cache (sized ``max_len``, default ``T``) -> (logits of
     the last position ``[B, 1, V]`` in f32, cache); ``mesh`` as in
-    :func:`train_loss`."""
-    _check_ported(cfg)
+    :func:`train_loss`. An enc-dec model's ``batch["frames"] [B, Ts,
+    frontend_dim]`` go through the encoder (its attention through the
+    kernel) and each decoder slot's cross cache holds the memory's k/v
+    in the frames' dtype (f32 frames on a bf16 model: f32 cross caches
+    beside bf16 self caches, as in JAX); a ViT model's
+    ``batch["patches"]`` replace the first positions (:func:`_embed`)."""
     x = _embed(cfg, params, batch)
     B, T = x.shape[:2]
     positions = torch.arange(T, device=x.device)
-    cache = init_cache(cfg, B, max_len or T, device=x.device)
+    memory = None
+    if cfg.family == "encdec":
+        memory = _encoder(cfg, params, batch["frames"], train=False)
+    cache = init_cache(cfg, B, max_len or T, device=x.device, memory=memory)
     x, _ = _units(cfg, params, x, positions, cache=cache, cache_index=0,
-                  mode="prefill", mesh=mesh)
+                  mode="prefill", mesh=mesh, memory=memory)
     x = L.rms_norm(x, params["norm_f"])
     return _logits(cfg, params, x[:, -1:]), cache
 
@@ -390,10 +497,10 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, cache_index, *,
     recurrence runs at the same fixed width and a finished row writes no
     state (see :func:`repro_torch.models.layers.ssm_block`); an MoE
     block routes the ``B`` rows (finished ones too) with the capacity of
-    ``B`` tokens, its expert products at the fixed width's shape;
-    ``mesh`` as in :func:`train_loss`.
+    ``B`` tokens, its expert products at the fixed width's shape; an
+    enc-dec slot's cross-attention reads its cross cache for the ``B``
+    real rows (:func:`_cross`); ``mesh`` as in :func:`train_loss`.
     """
-    _check_ported(cfg)
     B = tokens.shape[0]
     if B > DECODE_ROWS:
         raise ValueError(f"a decode step takes at most DECODE_ROWS = "
@@ -409,7 +516,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, cache_index, *,
                                  + [0] * (DECODE_ROWS - B),
                                  device=dev)[:, None]
     tokens = torch.cat([tokens, tokens.new_zeros((DECODE_ROWS - B, 1))])
-    x = _embed(cfg, params, {"tokens": tokens})
+    x = _embed_tokens(cfg, params, tokens)
     x, _ = _units(cfg, params, x, positions, cache=cache, cache_index=rows,
                   mode="decode", mesh=mesh)
     x = L.rms_norm(x, params["norm_f"])

@@ -6,7 +6,9 @@ Counterpart of ``repro.runtime.serve``; the same two paths share the
 model code of :mod:`repro_torch.models.lm`:
 
 * :func:`generate` — the HOST loop, one Python iteration per token,
-  deterministic past ``eos``. It is the ORACLE the engine is held to.
+  deterministic past ``eos``. It is the ORACLE the engine is held to,
+  and, with :func:`serve_legacy`, the one path of the enc-dec and ViT
+  models, whose frames or patches join the prefill as ``extras``.
 * :class:`DecodeEngine` + :class:`ServeStream` — KV in fixed-size pages
   shared by every sequence, a wave of up to ``wave_len`` decode steps
   between host commits, admission and eviction between waves, prefill
@@ -55,6 +57,7 @@ from ..configs import ModelConfig
 from ..device import resolve_device
 from ..kernels import _build
 from ..models import lm
+from ..weights import params_from_jax
 
 __all__ = ["GenerationResult", "generate", "serve_legacy", "Request",
            "ServeResult", "STATUSES", "PagePool", "DecodeEngine",
@@ -123,11 +126,16 @@ def _check_device(params, device) -> torch.device:
     return dev
 
 
-def _no_extras(extras) -> None:
-    if extras:
-        raise NotImplementedError(
-            "frontend inputs (patches/frames) belong to the vlm/audio "
-            "configs, which are not ported yet (ROADMAP.md, Queue 1 item 8)")
+def _prefill_batch(prompts: np.ndarray, extras, dev) -> dict:
+    """The prefill batch: the prompt ids and the frontend inputs
+    (``frames`` of an enc-dec model, ``patches`` of a ViT one: numpy
+    arrays or tensors), each carried onto the serving device in its own
+    dtype (an ml_dtypes bf16 array as torch bf16, bit for bit)."""
+    batch = {"tokens": torch.from_numpy(prompts).to(dev)}
+    for key, value in (extras or {}).items():
+        batch[key] = (value.to(dev) if torch.is_tensor(value)
+                      else params_from_jax(value, dev))
+    return batch
 
 
 # --------------------------------------------------------------------- #
@@ -152,16 +160,18 @@ def generate(cfg: ModelConfig, params, prompts: np.ndarray, *,
 
     Stop handling is deterministic: once a row has emitted ``eos``,
     every later column of that row is ``pad`` (default: the eos id
-    itself). ``device`` (default: the current CUDA device; ``"cpu"``
-    for the plain versions) must hold ``params``.
+    itself). ``extras``: ``[B, ...]`` frontend inputs (numpy arrays or
+    tensors) that join the prefill batch (``frames`` / ``patches``).
+    ``device`` (default:
+    the current CUDA device; ``"cpu"`` for the plain versions) must hold
+    ``params``.
     """
-    _no_extras(extras)
     dev = _check_device(params, device)
     prompts = np.asarray(prompts, np.int32)
     B, T = prompts.shape
-    logits, cache = lm.prefill(
-        cfg, params, {"tokens": torch.from_numpy(prompts).to(dev)},
-        max_len=T + max_new)
+    logits, cache = lm.prefill(cfg, params,
+                               _prefill_batch(prompts, extras, dev),
+                               max_len=T + max_new)
     gen = _generator(seed, dev)
     out = [prompts]
     done = np.zeros(B, bool)
@@ -202,12 +212,14 @@ def serve_legacy(cfg: ModelConfig, params, requests, *,
     Sequential FIFO over one model: queue overflow beyond ``max_queue``
     is shed at submission, deadlines are checked before start and
     between tokens (an expired request keeps its clean prefix), and every
-    request ends with a status from :data:`STATUSES`. Tokens are bitwise
-    the :func:`generate` oracle's.
+    request ends with a status from :data:`STATUSES`. ``extras``
+    (``[1, ...]`` frontend inputs, as in :func:`generate`) join every
+    request's prefill. Tokens are bitwise the :func:`generate` oracle's.
+    The enc-dec and ViT models are served here (and by
+    :func:`generate`) only: :class:`DecodeEngine` refuses them.
     """
     if shed_policy not in ("newest", "oldest"):
         raise ValueError(f"unknown shed_policy {shed_policy!r}")
-    _no_extras(extras)
     dev = _check_device(params, device)
     now = clock if clock is not None else time.monotonic
     t_start = now()
@@ -231,9 +243,9 @@ def serve_legacy(cfg: ModelConfig, params, requests, *,
                 tokens=prompt, prompt_len=T, emitted=0, model=model,
                 index=i, status="expired")
             continue
-        logits, cache = lm.prefill(
-            cfg, params, {"tokens": torch.from_numpy(prompt[None]).to(dev)},
-            max_len=T + req.max_new)
+        logits, cache = lm.prefill(cfg, params,
+                                   _prefill_batch(prompt[None], extras, dev),
+                                   max_len=T + req.max_new)
         gen = _generator(req.seed, dev)
         toks: list[int] = []
         status = "ok"

@@ -134,6 +134,76 @@ def test_bad_gqa_and_bad_shapes_raise():
             flash_attention(q1, k2, k2, **kw)
 
 
+#: non-causal attention with more queries than keys (an enc-dec prompt
+#: longer than its frames, in the cross-attention prefill), GQA and MHA
+TQ_GT_TK = [(1, 4, 2, 40, 17, 16), (2, 2, 2, 9, 4, 64)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D", TQ_GT_TK)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_noncausal_more_queries_than_keys_matches_jax(B, Hq, Hkv, Tq, Tk, D,
+                                                      dtype):
+    """Non-causal ``Tq > Tk`` (every key visible, so the right alignment
+    does not matter): the wrapper admits it and its plain version equals
+    the JAX reference (1e-5 in f32; bf16 inputs, f32 math, the output
+    rounded once: one bf16 ulp)."""
+    q, k, v = _inputs(B, Hq, Hkv, Tq, Tk, D, dtype, seed=Tq)
+    got = flash_attention(_torch(q), _torch(k), _torch(v), causal=False)
+    want = np.asarray(jref.flash_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False),
+        np.float32)
+    tol = 2 ** -7 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+    assert ops.attention(_torch(q), _torch(k), _torch(v),
+                         causal=False).equal(got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_noncausal_more_queries_than_keys_matches_pallas_interpret(dtype):
+    """The Pallas kernel in interpret mode computes non-causal ``Tq > Tk``
+    too: the plain version against it at one small shape, within the
+    ATTN_CASES tolerances."""
+    q, k, v = _inputs(1, 4, 2, 40, 17, 16, dtype, seed=5)
+    want = pallas_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        causal=False, block_q=32, block_k=32)
+    got = flash_attention(_torch(q), _torch(k), _torch(v), causal=False)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+def test_masked_more_queries_than_keys_still_raises():
+    """A causal or window mask over ``Tq > Tk`` stays refused: the JAX
+    kernel's rows with no visible key would mix in masked keys
+    (ROADMAP.md, Queue 3)."""
+    q = torch.zeros((1, 2, 9, 16))
+    k = torch.zeros((1, 2, 4, 16))
+    for kw in (dict(causal=True), dict(causal=False, window=3)):
+        with pytest.raises(ValueError, match="Tq <= Tk"):
+            flash_attention(q, k, k, **kw)
+        with pytest.raises(ValueError, match="Tq <= Tk"):
+            ops.attention(q, k, k, **kw)
+
+
+@pytest.mark.parametrize("Tq,Tk", [(1, 12), (9, 5)])
+def test_mixed_dtype_attention_matches_jax_ref(Tq, Tk):
+    """``ops.attention`` on bf16 queries over f32 k/v (an enc-dec model's
+    cross-attention over f32 frames): the JAX reference upcasts all three
+    and rounds the output to q's dtype; the port promotes q to f32 (exact)
+    and rounds its output likewise. On the CPU both give the same bf16
+    values within one ulp (f32 sums in other orders, rounded once)."""
+    q, _, _ = _inputs(1, 4, 2, Tq, Tk, 16, "bfloat16", seed=Tq)
+    _, k, v = _inputs(1, 4, 2, Tq, Tk, 16, "float32", seed=Tk)
+    got = ops.attention(_torch(q), _torch(k), _torch(v), causal=False)
+    want = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=False)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=2 ** -7,
+                               atol=0)
+
+
 def test_wrapper_refuses_grad_and_other_devices():
     q = torch.zeros((1, 2, 4, 16), requires_grad=True)
     k = torch.zeros((1, 2, 4, 16))

@@ -23,8 +23,11 @@ version in f32 (that file's tolerance: chunked sums in another order)
 and within two bf16 ulps of each output (rtol 2**-6, atol 1e-4) in bf16,
 and at ``chip_smoke.py``'s bf16 serving shapes bitwise repeatable and
 within its serving limit (rtol 2**-6 + 2e-5 x max|y|); the serving
-engine's tokens (dense, SSM and hybrid models) are bitwise the port's
-``generate`` on the card.
+engine's tokens (dense, SSM and hybrid models) and the enc-dec and ViT
+models' ``serve_legacy`` tokens are bitwise the port's ``generate`` on
+the card; ``ops.attention`` on bf16 queries over f32 k/v is within one
+bf16 ulp of each plain output plus the f32 body's 2e-5 (f32 math
+rounded once on both sides).
 """
 
 import numpy as np
@@ -46,7 +49,7 @@ from repro_torch.kernels import (aggregate, aggregate_bf16, flash_attention,
 from repro_torch.models import lm
 from repro_torch.runtime import MultiModelCAMRTrainer
 from repro_torch.runtime.serve import (DecodeEngine, Request, ServeStream,
-                                       generate)
+                                       generate, serve_legacy)
 
 from chip_smoke_module import chip_smoke
 
@@ -458,7 +461,9 @@ def test_cuda_three_modes_are_bitwise_equal(cuda_device, lane):
 # D 256, softcap 50, window 4096; a window that binds at 300), zamba2's
 # (32/32 heads, D 80, at 77 and 129 tokens a ragged last query and key
 # tile) and a ragged D 80 case, and a window over Tq < Tk with Tk not a
-# multiple of the bf16 body's 64-key tile
+# multiple of the bf16 body's 64-key tile; seamless's non-causal
+# cross-attention with more queries than keys (Tq > Tk), at its shape and
+# at a ragged one
 FLASH_CASES = [
     (1, 2, 2, 64, 64, 16, True, None, None),
     (2, 4, 2, 32, 32, 32, True, None, None),
@@ -481,6 +486,8 @@ FLASH_CASES = [
     (1, 16, 16, 129, 129, 128, True, None, None),
     (1, 32, 8, 300, 300, 128, True, 128, None),
     (1, 48, 8, 77, 77, 128, True, None, None),
+    (1, 16, 16, 513, 257, 64, False, None, None),
+    (2, 4, 2, 100, 33, 64, False, None, None),
 ]
 
 
@@ -529,6 +536,27 @@ def test_cuda_flash_attention_is_deterministic(cuda_device):
                            second.view(torch.int16)), (B, Hq, Hkv, Tq, Tk, D)
 
 
+@pytest.mark.parametrize("Tq,Tk", [(1, 1000), (513, 257)])
+def test_cuda_mixed_dtype_attention_matches_plain(cuda_device, Tq, Tk):
+    """``ops.attention`` on bf16 queries over f32 k/v (an enc-dec model's
+    cross-attention over f32 frames): one launch of the f32 body, the
+    output in bf16 within one bf16 ulp of each plain output (2**-7 of
+    it: f32 math rounded once on both sides) plus the f32 body's 2e-5
+    (an output near 0 has ulps far below the f32 sums' differences)."""
+    rng = np.random.default_rng(Tq)
+    q = torch.from_numpy(rng.standard_normal((1, 16, Tq, 64)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    k, v = (torch.from_numpy(rng.standard_normal((1, 16, Tk, 64)).astype(
+        np.float32)).to(cuda_device) for _ in range(2))
+    before = flash_attention.launches
+    got = ops.attention(q, k, v, causal=False)
+    assert flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2e-5)
+
+
 def test_cuda_flash_attention_refuses_grad_and_bad_dims(cuda_device):
     q = torch.zeros((1, 2, 4, 64), device=cuda_device, requires_grad=True)
     k = torch.zeros((1, 2, 4, 64), device=cuda_device)
@@ -562,6 +590,58 @@ def test_cuda_engine_tokens_equal_generate(cuda_device, dtype):
     for req, r in zip(reqs, res):
         want = generate(cfg, params, req.prompt[None], max_new=6,
                         temperature=req.temperature, seed=req.seed,
+                        device=cuda_device).tokens[0, len(req.prompt):]
+        assert r.status == "ok" and np.array_equal(r.generated, want)
+
+
+@pytest.mark.parametrize("frames", ["float32", "bfloat16"])
+def test_cuda_encdec_serve_legacy_equals_generate(cuda_device, frames):
+    """The reduced seamless in bf16 served on the card with f32 or bf16
+    frames: ``serve_legacy`` tokens bitwise ``generate``'s, and one
+    ``flash_attention`` launch per encoder layer, self-attention and
+    cross-attention in each prefill, and per cross-attention in each
+    decode step (f32 frames: the f32 body on the encoder and the cross-
+    attention, which take bf16 queries over f32 k/v)."""
+    cfg = reduced(get_config("seamless_m4t_large_v2")).replace(
+        dtype="bfloat16")
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    params = lm.init_params(cfg, gen)
+    rng = np.random.default_rng(3)
+    ex = {"frames": torch.from_numpy(rng.standard_normal(
+        (1, 70, cfg.frontend_dim)).astype(np.float32)).to(
+        getattr(torch, frames))}
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, (t,)).astype(np.int32),
+                    max_new=6) for t in (5, 100, 33)]
+    before = flash_attention.launches
+    res = serve_legacy(cfg, params, reqs, extras=ex, device=cuda_device)
+    per_prefill = cfg.n_enc_layers + 2 * cfg.n_layers
+    assert flash_attention.launches - before == len(reqs) * (
+        per_prefill + 5 * cfg.n_layers)
+    for req, r in zip(reqs, res):
+        want = generate(cfg, params, req.prompt[None], max_new=6, extras=ex,
+                        device=cuda_device).tokens[0, len(req.prompt):]
+        assert r.status == "ok" and np.array_equal(r.generated, want)
+
+
+def test_cuda_vit_serve_legacy_equals_generate(cuda_device):
+    """The reduced internvl2 in bf16 served on the card with f32 patches:
+    ``serve_legacy`` tokens bitwise ``generate``'s, one ``flash_attention``
+    launch per layer and prefill, none in decode."""
+    cfg = reduced(get_config("internvl2_26b")).replace(dtype="bfloat16")
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    params = lm.init_params(cfg, gen)
+    rng = np.random.default_rng(4)
+    ex = {"patches": rng.standard_normal(
+        (1, cfg.frontend_len, cfg.frontend_dim)).astype(np.float32)}
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, (t,)).astype(np.int32),
+                    max_new=6) for t in (8, 100, 33)]
+    before = flash_attention.launches
+    res = serve_legacy(cfg, params, reqs, extras=ex, device=cuda_device)
+    assert flash_attention.launches - before == len(reqs) * cfg.n_layers
+    for req, r in zip(reqs, res):
+        want = generate(cfg, params, req.prompt[None], max_new=6, extras=ex,
                         device=cuda_device).tokens[0, len(req.prompt):]
         assert r.status == "ok" and np.array_equal(r.generated, want)
 

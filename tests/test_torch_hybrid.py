@@ -39,7 +39,7 @@ from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
 from repro.models import lm as jlm
 from repro.runtime import serve as jserve
-from repro_torch.configs import PORTED_ARCHS, get_config, reduced
+from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ssd_scan import CHUNK
 from repro_torch.launch import serve as launch_serve
@@ -73,7 +73,7 @@ def test_zamba2_config_matches_jax():
     """The port's config (full and reduced) field by field against the
     JAX package's (``ssm_chunk`` and ``microbatches`` are XLA knobs the
     port has none of: the chunk is the kernel's constant, 64)."""
-    assert ARCH in PORTED_ARCHS
+    assert ARCH in ARCHS
     for want, got in ((jax_get_config(ARCH), get_config(ARCH)),
                       (jax_reduced(jax_get_config(ARCH)),
                        reduced(get_config(ARCH)))):

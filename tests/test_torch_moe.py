@@ -51,7 +51,7 @@ from repro.data.pipeline import ShardedTokenPipeline
 from repro.models import layers as jlayers
 from repro.models import lm as jlm
 from repro.runtime import serve as jserve
-from repro_torch.configs import PORTED_ARCHS, get_config, reduced
+from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models import layers, lm
@@ -76,6 +76,7 @@ FIELDS = ("name", "family", "n_layers", "d_model", "n_heads", "n_kv_heads",
           "window", "local_window", "attn_softcap", "final_softcap",
           "mlp_act", "tie_embeddings", "scale_embed", "n_experts",
           "experts_per_token", "moe_capacity_factor", "moe_shard_mode",
+          "n_enc_layers", "frontend", "frontend_dim", "frontend_len",
           "dtype", "loss_chunk", "vocab_padded", "repeats")
 
 
@@ -104,7 +105,7 @@ def _toks(cfg, shape, seed):
 def test_config_matches_jax(arch):
     """Full and reduced configs field by field against the JAX
     package's."""
-    assert arch in PORTED_ARCHS
+    assert arch in ARCHS
     for want, got in ((jax_get_config(arch), get_config(arch)),
                       (jax_reduced(jax_get_config(arch)),
                        reduced(get_config(arch)))):
@@ -113,10 +114,20 @@ def test_config_matches_jax(arch):
 
 
 @pytest.mark.parametrize("arch", ["seamless_m4t_large_v2", "internvl2_26b"])
-def test_get_config_still_refuses_encdec_and_frontends(arch):
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1 item 8: enc-dec and the frontends"):
-        get_config(arch)
+def test_encdec_and_frontend_configs_match_jax(arch):
+    """``get_config`` serves the enc-dec and ViT configs: full and
+    reduced (2 encoder layers, frontend 24 x 8) field by field against
+    the JAX package's; an unknown name is refused."""
+    for want, got in ((jax_get_config(arch), get_config(arch)),
+                      (jax_reduced(jax_get_config(arch)),
+                       reduced(get_config(arch)))):
+        for f in FIELDS:
+            assert getattr(got, f) == getattr(want, f), f
+    small = reduced(get_config(arch))
+    assert (small.n_enc_layers, small.frontend_dim, small.frontend_len) == \
+        ((2 if small.family == "encdec" else 0), 24, 8)
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config(arch + "_x")
 
 
 @pytest.mark.parametrize("arch", MOE)

@@ -31,7 +31,7 @@ from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
 from repro.models import lm as jlm
 from repro.runtime import serve as jserve
-from repro_torch.configs import PORTED_ARCHS, get_config, reduced
+from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import lm
 from repro_torch.runtime.serve import (STATUSES, DecodeEngine, PagePool,
@@ -436,23 +436,23 @@ def test_engine_rejects_oversized_and_unsupported(gemma):
     with pytest.raises(KeyError):
         ServeStream(eng).run([("nope", Request(prompt=np.zeros(2, np.int32),
                                                max_new=2))])
-    # the enc-dec config of the JAX zoo, in the port's ModelConfig
+    # the enc-dec and ViT configs are served by the legacy path only:
+    # the engine and the paged cache refuse them, as JAX's do
     enc = cfg.replace(name="seamless", family="encdec", n_enc_layers=2)
-    with pytest.raises(NotImplementedError):
-        DecodeEngine(enc, None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    vit = cfg.replace(name="internvl2", frontend="vit", frontend_dim=24,
+                      frontend_len=8)
+    for c in (enc, vit):
+        with pytest.raises(NotImplementedError, match="legacy generate"):
+            DecodeEngine(c, None)
+    with pytest.raises(NotImplementedError, match="legacy generate"):
         lm.init_paged_cache(enc, 2, 5, 4, 2, device="cpu")
-    # still unported: enc-dec and the frontends (ROADMAP.md, Queue 1
-    # item 8); the MoE family is served
-    for arch in ("seamless_m4t_large_v2", "internvl2_26b"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            get_config(arch)
     moe = cfg.replace(name="mixtral", family="moe", n_experts=4,
                       experts_per_token=2)
     assert set(lm.init_paged_cache(moe, 2, 5, 4, 2, device="cpu")) == \
         set(lm.slot_names(moe))
     assert {"gemma2_2b", "mamba2_1p3b", "zamba2_2p7b", "mixtral_8x7b",
-            "moonshot_v1_16b_a3b"} <= set(PORTED_ARCHS)
+            "moonshot_v1_16b_a3b", "seamless_m4t_large_v2",
+            "internvl2_26b"} <= set(ARCHS)
 
 
 def test_serial_stream_matches_pipelined(gemma):
@@ -514,9 +514,12 @@ def test_launcher_engine_and_legacy_paths(capsys):
                        "3", "--max-queue", "1"])
     out = capsys.readouterr().out
     assert "status: ok=1 shed=1" in out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_serve.main(["--archs", "seamless_m4t_large_v2", "--reduced",
-                           "--device", "cpu", "--legacy"])
+    launch_serve.main(["--archs", "seamless_m4t_large_v2", "--reduced",
+                       "--device", "cpu", "--legacy", "--requests", "2",
+                       "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "seamless_m4t_large_v2: 2 reqs (legacy host loop) 6 tokens" in out
+    assert "status: ok=2" in out
 
 
 # --------------------------------------------------------------------- #

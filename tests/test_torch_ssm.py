@@ -37,7 +37,7 @@ from repro.kernels import ref as jref
 from repro.kernels.ssd_scan import ssd_scan as pallas_ssd
 from repro.models import layers as jlayers
 from repro.models import lm as jlm
-from repro_torch.configs import PORTED_ARCHS, get_config, reduced
+from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.kernels import KERNELS, launch_counts, ops, ssd_scan
 from repro_torch.kernels.ref import ssd_chunked, ssd_scan_ref
 from repro_torch.kernels.ssd_scan import CHUNK
@@ -297,7 +297,7 @@ def test_mamba2_config_matches_jax():
     """The port's config (full and reduced) field by field against the
     JAX package's (``ssm_chunk`` and ``microbatches`` are XLA knobs the
     port has none of: the chunk is the kernel's constant, 64)."""
-    assert "mamba2_1p3b" in PORTED_ARCHS
+    assert "mamba2_1p3b" in ARCHS
     for want, got in ((jax_get_config("mamba2_1p3b"),
                        get_config("mamba2_1p3b")),
                       (jax_reduced(jax_get_config("mamba2_1p3b")),
