@@ -163,7 +163,8 @@ result line) on any mismatch:
    ``generate``'s on the card, ``flash_attention`` launches exact (72 a
    seamless prefill: 24 encoder, 24 self and 24 cross; 24 a seamless
    decode step, its cross-attention; 48 an internvl2 prefill; none
-   other), every request's prefill logits through the kernels within 5%
+   other; of these, the f32 body's exact too: 792 a seamless request on
+   f32 frames, its encoder and cross-attention, none else), every request's prefill logits through the kernels within 5%
    of max |logit| of the plain versions' at full depth; it reports
    prefill ms by length, the host loop's tok/s and step p50/p99, and
    peak memory.
@@ -173,7 +174,10 @@ line (eleven kernels, each with its main-path launches: the granite
 training runs' counts, ``flash_attention``'s summed over the granite,
 gemma2, zamba2, moonshot, mixtral, internlm2, seamless and internvl2
 serving runs,
-``ssd_scan``'s over the mamba2 and zamba2 runs) and ``{"ok": true,
+``ssd_scan``'s over the mamba2 and zamba2 runs; and a twelfth entry,
+``flash_attention_f32``, for ``flash_attention``'s f32 body at
+seamless's encoder shape, its launches those of the f32 body alone,
+3,168 in the four seamless requests on f32 frames) and ``{"ok": true,
 "device": {...}}``. Needs one CUDA card, the CUDA toolkit (``nvcc``) and
 the rest of this checkout; imports nothing of JAX.
 """
@@ -211,6 +215,8 @@ SOURCES = {"xor_encode_gather": (_GATHER, "src/repro/kernels/xor_code.py:240"),
            "xor_encode": (_FOLD, "src/repro/kernels/xor_code.py:106"),
            "flash_attention": (_FLASH,
                                "src/repro/kernels/flash_attention.py:127"),
+           "flash_attention_f32": (_FLASH,
+                                   "src/repro/kernels/flash_attention.py:127"),
            "ssd_scan": (_SSD, "src/repro/kernels/ssd_scan.py:98")}
 #: H100 SXM peaks (data sheet, dense): bf16 tensor cores, f32 outside them
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -708,7 +714,8 @@ def check_flash(gen):
         f"at {len(ATTN_CASES)} ATTN_CASES shapes x 2 dtypes, within rtol "
         f"2**-6 + atol 1e-5 at {len(FLASH_SHAPES)} bf16 serving shapes and "
         f"within 2e-5 at {len(ENCDEC_SHAPES)} f32 ones")
-    return {"flash_attention": timed[FLASH_MAIN, "bfloat16"]}
+    return {"flash_attention": timed[FLASH_MAIN, "bfloat16"],
+            "flash_attention_f32": timed[ENCDEC_SHAPES[0], "float32"]}
 
 
 #: tests/test_kernels.py's SSD_CASES: B, T, H, P, S, chunk (the chunk is
@@ -2102,6 +2109,15 @@ def serve_kernels(cfg, n_requests: int) -> dict:
             for name, kinds in per.items()}
 
 
+def kernel_launches() -> dict:
+    """``launch_counts()`` and, as ``flash_attention_f32``, the launches of
+    ``flash_attention``'s f32 body (a share of ``flash_attention``'s)."""
+    from repro_torch.kernels import flash_attention, launch_counts
+    return dict(launch_counts(),
+                flash_attention_f32=flash_attention.launches_by_dtype[
+                    "float32"])
+
+
 def phase_serve(arch, n_layers, lens, seed=0, max_new=32):
     """One model served through the port's entry points: its launch
     counts, statuses, tokens bitwise ``generate``'s, zero builds on a
@@ -2110,7 +2126,7 @@ def phase_serve(arch, n_layers, lens, seed=0, max_new=32):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import reset_launch_counts
     from repro_torch.models import lm
     from repro_torch.runtime.serve import (DecodeEngine, Request,
                                            ServeStream, generate,
@@ -2157,7 +2173,7 @@ def phase_serve(arch, n_layers, lens, seed=0, max_new=32):
     results = stream.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = kernel_launches()
     peak = torch.cuda.max_memory_allocated()
     rep = stream.last_report
     want = dict.fromkeys(counts, 0)
@@ -2276,6 +2292,19 @@ def legacy_launches(cfg, max_new: int) -> int:
     return cfg.n_enc_layers + 2 * cfg.n_layers + (max_new - 1) * cfg.n_layers
 
 
+def legacy_f32_launches(cfg, max_new: int, dtype: str) -> int:
+    """Of :func:`legacy_launches`, those of the f32 body: on an f32 model
+    all; on a bf16 one, with f32 frames, an enc-dec model's encoder
+    layers and its cross-attention in the prefill and each decode step
+    (bf16 queries widened over the f32 k/v); else none (a ViT prefix is
+    cast to the model's dtype)."""
+    if cfg.dtype == "float32":
+        return legacy_launches(cfg, max_new)
+    if cfg.family != "encdec" or dtype != "float32":
+        return 0
+    return cfg.n_enc_layers + max_new * cfg.n_layers
+
+
 def phase_legacy(arch, runs, seed=0, max_new=32):
     """One enc-dec or ViT model served through ``serve_legacy`` (the
     legacy host loop: ``DecodeEngine`` refuses these models, as JAX's
@@ -2286,7 +2315,7 @@ def phase_legacy(arch, runs, seed=0, max_new=32):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import reset_launch_counts
     from repro_torch.models import lm
     from repro_torch.runtime.serve import Request, generate, serve_legacy
     from repro_torch.weights import leaves
@@ -2316,17 +2345,20 @@ def phase_legacy(arch, runs, seed=0, max_new=32):
         f"{max_new}; init {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    counts = dict.fromkeys(launch_counts(), 0)
-    want = dict(counts, flash_attention=legacy_launches(cfg, max_new))
+    counts = dict.fromkeys(kernel_launches(), 0)
     results, wall = [], 0.0
-    for req, ex in zip(reqs, extras):     # each request's counts exact
+    for req, ex, run in zip(reqs, extras, runs):   # each request's exact
+        want = dict(dict.fromkeys(counts, 0),
+                    flash_attention=legacy_launches(cfg, max_new),
+                    flash_attention_f32=legacy_f32_launches(cfg, max_new,
+                                                            run[2]))
         reset_launch_counts()
         t0 = time.perf_counter()
         results += serve_legacy(cfg, params, [req], extras=ex, model=arch,
                                 device=DEVICE)
         torch.cuda.synchronize()
         wall += time.perf_counter() - t0
-        got = launch_counts()
+        got = kernel_launches()
         if got != want:
             fail(f"{tag}: prompt {len(req.prompt)}: launch counts {got} != "
                  f"expected {want}")
@@ -2344,7 +2376,9 @@ def phase_legacy(arch, runs, seed=0, max_new=32):
                  f"{r.generated} != generate {g.tokens[0, len(req.prompt):]}")
     log(f"{tag}: {len(reqs)} requests ok, serve_legacy tokens bitwise == "
         f"generate on the card; launches {counts} (each request's exact: "
-        f"{legacy_launches(cfg, max_new)} a request of {max_new} tokens)")
+        f"{legacy_launches(cfg, max_new)} a request of {max_new} tokens, of "
+        f"which the f32 body's by frames dtype "
+        f"{ {r[2]: legacy_f32_launches(cfg, max_new, r[2]) for r in runs} })")
 
     worst = []
     for req, ex in zip(reqs, extras):
@@ -2479,7 +2513,7 @@ def main() -> int:
     served = [phase_serve(arch, depth, lens)
               for arch, depth, lens in SERVE_RUNS]
     served += [phase_legacy(arch, runs) for arch, runs in LEGACY_RUNS]
-    for name in ("flash_attention", "ssd_scan"):
+    for name in ("flash_attention", "flash_attention_f32", "ssd_scan"):
         counts[name] = sum(c[name] for c in served)
 
     kernels = []

@@ -30,6 +30,9 @@ _F32 = ctypes.c_float
 #: q, k, v, o; B, Hq, Hkv, Tq, Tk, D; the 12 strides; scale, softcap,
 #: causal, window; the stream
 _FLASH = [_VP] * 4 + [_LL] * 6 + [_VP, _F32, _F32, _INT, _LL, _VP]
+#: the same with, before the stream, the f32 body's split plan, its
+#: number of splits and the f32 workspace (partial sums; m and l)
+_FLASH_F32 = _FLASH[:-1] + [_VP, _LL, _VP, _VP, _VP]
 #: x, a, b, c, y; B, T, H, P, S; the 12 strides; the stream
 _SSD = [_VP] * 5 + [_LL] * 5 + [_VP, _VP]
 SOURCES = {
@@ -48,7 +51,7 @@ SOURCES = {
         "aggregate_bf16": [_VP] * 3 + [_LL] * 3 + [_INT, _VP],
     },
     "flash_attention": {
-        "flash_attention_f32": _FLASH,
+        "flash_attention_f32": _FLASH_F32,
         "flash_attention_bf16": _FLASH,
     },
     "ssd_scan": {

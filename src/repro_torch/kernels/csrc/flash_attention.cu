@@ -21,8 +21,11 @@
 // Two bodies, one per type; a call takes its type's body or fails:
 //
 // * bf16 (every serving prefill): flash_tc, on the tensor cores.
-// * f32: flash_kernel, f32 FMAs on the CUDA cores (held to its plain
-//   version at 2e-5, which bf16 operands could not meet).
+// * f32 (an enc-dec model's encoder and cross-attention over f32 frames):
+//   flash_simt, f32 FMAs on the CUDA cores, with keys split across blocks
+//   when a call has few query tiles, and flash_simt_merge (held to its
+//   plain version at 2e-5, which bf16 operands, or one TF32 pass, could
+//   not meet).
 //
 // Bound: at a prefill of Tq = Tk = 1024 with granite's 32/8 heads and
 // D = 64 the kernel does 4*32*1024^2*64/2 = 4.3 GFLOP of visible pairs over
@@ -83,6 +86,48 @@
 // tile and kStages K and V tiles of 8 KB a panel (TcShape); registers: O
 // is 32 f32 a thread per panel (128 at D = 256), S 32, P 32.
 
+// Design of the f32 body. At few queries an f32 call is bound by bytes
+// (seamless's cross-attention, 1 or 4 queries over 1000 keys and 16 heads:
+// 8.2 MB, 2.5 us at 3.35 TB/s); at many by the CUDA cores' 67 TFLOP/s
+// (its encoder, 1000 x 1000: 4.1 GFLOP, 61 us).
+//
+// * Keys split across blocks (flash-decoding). The wrapper's plan
+//   (flash_attention.split_plan) gives each 64-query tile n_splits ranges
+//   of its visible keys, whole 128-key chunks each, from Tq, Tk and the
+//   masks alone: never from B, the heads or the card, so a row's bits do
+//   not depend on its batch. The grid is (b * head, query tile, split);
+//   at 1 x 1000 over 16 heads that is 128 blocks where one block a head
+//   walked all keys. With one split (the encoder) a block writes o; with
+//   more, each writes its rows' m, l and unnormalized acc into the
+//   wrapper's f32 workspace, and flash_simt_merge folds them in split
+//   order, without atomics.
+// * Register tiles. A block is 256 threads over 64 query rows; thread
+//   (ty, tx) holds a 4 x (BK / 16) tile of S = Q K^T and a 4 x 4
+//   ceil(D / 64) tile of O in registers (both 4 x 4 at D 64), its
+//   operands float4 loads from shared memory: Q rows (q scaled on load,
+//   as the Pallas kernel scales q before the dot) and K rows for S, P
+//   columns and V rows for O, 8 loads a 64 FMAs of S and 2 a 16 of O.
+//   The 16 lanes that share a row sit in one half-warp: a load of a Q
+//   row or a P column is one broadcast, the row max takes 4 shuffles, and
+//   the row sum stays per lane until the end. The masks and their
+//   arithmetic run only on a tile that Tk, the split's end or a causal
+//   or window mask cuts. P goes through shared memory key-major, and a
+//   warp reads back only its own rows (a __syncwarp, not a block
+//   barrier). Warps whose 8 rows all lie past Tq skip the arithmetic (a
+//   decode tile: one warp of eight works). Against 4 x 8 tiles on 128
+//   threads (208 registers, 8 warps a SM) and 32-key tiles at D 64 (80
+//   registers, three blocks a SM), this shape (125 registers, two blocks
+//   and 16 warps a SM) was the fastest at seamless's encoder on an H100
+//   SXM (700 W).
+// * K/V ring. Two slots of BK keys (64 at D <= 64, else 32), filled by
+//   16-byte cp.async.cg copies: the next tile's copies fly while this one
+//   is computed, one barrier a tile. Keys past a split's range are
+//   zero-filled and masked. A row of Q, K or V takes D + 4 floats, an odd
+//   count of 16-byte units, so the 16 K rows a half-warp reads fill the 8
+//   bank groups twice (the 256 bytes' own two passes). Shared memory
+//   (F32Shape): 104 KB at D 64 (two blocks a SM), 110 KB at D 128, 208 KB
+//   at D 256 (one). Exponentials are exp2f of log2(e)-scaled differences.
+
 #include <cuda.h>            // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,227 +139,6 @@ namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
-
-// ---------------------------------------------------------------------------
-// f32: the CUDA-core body (one block per (b, head, 32-query tile), 4 warps
-// of 8 rows, 32-key tiles staged in shared memory as f32; lane j scores key
-// j, lane d accumulates output dims d, d + 32, ...)
-// ---------------------------------------------------------------------------
-
-constexpr int kWarps = 4;
-constexpr int kRows = 8;                 // query rows per warp
-constexpr int kBQ = kWarps * kRows;      // query rows per block
-constexpr int kBK = 32;                  // keys per tile: one per lane
-constexpr int kThreads = kWarps * 32;
-
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  long long Hq, rep, Tq, Tk;
-  long long qb, qh, qt, kb, kh, kt, vb, vh, vt, ob, oh, ot;  // strides
-  float scale, softcap;                  // softcap <= 0: none
-  int causal;
-  long long window;                      // <= 0: none
-};
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  // q tile [kBQ][D], K tile as float4 columns [D/4][kBK], V tile
-  // [kBK][D], probabilities [kWarps][kBK][kRows]
-  return sizeof(float) * (kBQ * D + D * kBK + kBK * D + kWarps * kBK * kRows);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const Args a) {
-  constexpr int DQ = D / 4;
-  constexpr int DPL = (D + 31) / 32;     // output dims per lane
-  extern __shared__ float4 smem4[];
-  float* s_q = reinterpret_cast<float*>(smem4);
-  float4* s_k = reinterpret_cast<float4*>(s_q + kBQ * D);   // [DQ][kBK]
-  float* s_v = reinterpret_cast<float*>(s_k + DQ * kBK);    // [kBK][D]
-  float* s_p = s_v + kBK * D;                               // [w][kBK][kRows]
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long b = blockIdx.x / a.Hq, h = blockIdx.x % a.Hq;
-  const long long hk = h / a.rep;
-  const long long q0 = (long long)blockIdx.y * kBQ;
-  const long long shift = a.Tk - a.Tq;
-  const T* qg = static_cast<const T*>(a.q) + b * a.qb + h * a.qh;
-  const T* kg = static_cast<const T*>(a.k) + b * a.kb + hk * a.kh;
-  const T* vg = static_cast<const T*>(a.v) + b * a.vb + hk * a.vh;
-  T* og = static_cast<T*>(a.o) + b * a.ob + h * a.oh;
-
-  // the query tile, scaled as the Pallas kernel scales it (before the dot)
-  for (int e = threadIdx.x; e < kBQ * DQ; e += kThreads) {
-    const int r = e / DQ, dq = e % DQ;
-    const long long qi = q0 + r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (qi < a.Tq) {
-      x = load4(qg + qi * a.qt + 4 * dq);
-      x.x *= a.scale; x.y *= a.scale; x.z *= a.scale; x.w *= a.scale;
-    }
-    reinterpret_cast<float4*>(s_q)[e] = x;
-  }
-
-  // the keys any row of the block sees
-  const long long last_q = (q0 + kBQ < a.Tq ? q0 + kBQ : a.Tq) - 1;
-  long long kbeg = 0, kend = a.Tk;
-  if (a.causal && last_q + shift + 1 < kend) kend = last_q + shift + 1;
-  if (a.window > 0 && q0 + shift - a.window + 1 > 0) kbeg = q0 + shift - a.window + 1;
-  kbeg = kbeg / kBK * kBK;
-  // the rows of this warp
-  const long long wq0 = q0 + warp * kRows;
-  const long long wq1 = (wq0 + kRows < a.Tq ? wq0 + kRows : a.Tq) - 1;
-
-  float m[kRows], l[kRows], acc[kRows][DPL];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNeg;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
-  }
-
-  const float4* q4 = reinterpret_cast<const float4*>(s_q) + warp * kRows * DQ;
-  float* p_w = s_p + warp * kBK * kRows;
-  for (long long k0 = kbeg; k0 < kend; k0 += kBK) {
-    __syncthreads();                     // the previous tile is consumed
-    for (int e = threadIdx.x; e < kBK * DQ; e += kThreads) {
-      const int j = e / DQ, dq = e % DQ;
-      const long long kj = k0 + j;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (kj < a.Tk) {
-        kx = load4(kg + kj * a.kt + 4 * dq);
-        vx = load4(vg + kj * a.vt + 4 * dq);
-      }
-      s_k[dq * kBK + j] = kx;
-      reinterpret_cast<float4*>(s_v)[e] = vx;
-    }
-    __syncthreads();
-
-    // does any row of this warp see any key of this tile?
-    bool live = wq0 < a.Tq;
-    if (a.causal) live = live && k0 <= wq1 + shift;
-    if (a.window > 0) live = live && k0 + kBK - 1 > wq0 + shift - a.window;
-    if (!live) continue;                 // warp-uniform
-
-    float s[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-#pragma unroll 4
-    for (int dq = 0; dq < DQ; ++dq) {
-      const float4 kx = s_k[dq * kBK + lane];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qx = q4[r * DQ + dq];
-        s[r] = fmaf(qx.x, kx.x, s[r]);
-        s[r] = fmaf(qx.y, kx.y, s[r]);
-        s[r] = fmaf(qx.z, kx.z, s[r]);
-        s[r] = fmaf(qx.w, kx.w, s[r]);
-      }
-    }
-
-    const long long kpos = k0 + lane;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const long long qi = wq0 + r, qpos = qi + shift;
-      bool ok = kpos < a.Tk && qi < a.Tq;
-      if (a.causal) ok = ok && kpos <= qpos;
-      if (a.window > 0) ok = ok && kpos > qpos - a.window;
-      float x = s[r];
-      if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
-      x = ok ? x : kNeg;
-      const float m_new = fmaxf(m[r], warp_max(x));
-      const float alpha = expf(m[r] - m_new);
-      const float p = ok ? expf(x - m_new) : 0.f;
-      l[r] = l[r] * alpha + warp_sum(p);
-      m[r] = m_new;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
-      p_w[lane * kRows + r] = p;
-    }
-    __syncwarp();
-    for (int j = 0; j < kBK; ++j) {
-      const float4 pa = reinterpret_cast<const float4*>(p_w + j * kRows)[0];
-      const float4 pb = reinterpret_cast<const float4*>(p_w + j * kRows)[1];
-      const float pr[kRows] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        if (D % 32 == 0 || d < D) {
-          const float vv = s_v[j * D + d];
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) acc[r][i] = fmaf(pr[r], vv, acc[r][i]);
-        }
-      }
-    }
-    __syncwarp();                        // p_w is rewritten by the next tile
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const long long qi = wq0 + r;
-    if (qi >= a.Tq) break;
-    const float den = l[r] == 0.f ? 1.f : l[r];
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      if (D % 32 == 0 || d < D) store1(og + qi * a.ot + d, acc[r][i] / den);
-    }
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch(const Args& a, long long B, cudaStream_t s) {
-  constexpr size_t smem = smem_bytes<D>();
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid((unsigned)(B * a.Hq), (unsigned)((a.Tq + kBQ - 1) / kBQ));
-  flash_kernel<T, D><<<grid, kThreads, smem, s>>>(a);
-  return cudaGetLastError();
-}
-
-cudaError_t flash_f32(const void* q, const void* k, const void* v, void* o,
-                      long long B, long long Hq, long long Hkv, long long Tq,
-                      long long Tk, long long D, const long long* st, float scale,
-                      float softcap, int causal, long long window, cudaStream_t s) {
-  if ((Tq + kBQ - 1) / kBQ > 65535) return cudaErrorInvalidValue;
-  const Args a{q, k, v, o, Hq, Hq / Hkv, Tq, Tk,
-               st[0], st[1], st[2], st[3], st[4], st[5],
-               st[6], st[7], st[8], st[9], st[10], st[11],
-               scale, softcap, causal, window};
-  switch (D) {
-    case 16: return launch<float, 16>(a, B, s);
-    case 32: return launch<float, 32>(a, B, s);
-    case 64: return launch<float, 64>(a, B, s);
-    case 80: return launch<float, 80>(a, B, s);
-    case 128: return launch<float, 128>(a, B, s);
-    case 256: return launch<float, 256>(a, B, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core body
@@ -835,6 +659,371 @@ cudaError_t flash_bf16(const void* q, const void* k, const void* v, void* o,
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32: the CUDA-core body
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Threads = 256;         // 8 warps
+constexpr int kF32Rows = 64;             // query rows of a block: 8 a warp, 4 a thread
+constexpr int kF32Stages = 2;            // depth of the K/V ring
+
+template <int D>
+struct F32Shape {
+  static constexpr int kKeys = D <= 64 ? 64 : 32;     // keys of a K/V tile
+  static constexpr int kCols = kKeys / 16;            // S columns of a thread
+  static constexpr int kGroups = (D + 63) / 64;       // float4 columns of O a thread
+  static constexpr int kPitch = D + 4;                // floats a row of Q, K, V: an
+                                                      // odd count of 16-byte units
+  static constexpr int kPPitch = kF32Rows + 4;        // floats a key of P
+  static constexpr int kMinBlocks = D <= 128 ? 2 : 1;
+  static constexpr int kSmem =
+      (int)sizeof(float) * (kF32Rows * kPitch + kF32Stages * 2 * kKeys * kPitch +
+                            kKeys * kPPitch);
+};
+
+struct F32Args {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  float* acc;                            // [B * Hq, n_splits, Tq, D] partial sums
+  float* ml;                             // [B * Hq, n_splits, Tq, 2] partial m, l
+  const int* plan;                       // [n_qtiles, n_splits, 2] key ranges
+  long long Hq, rep, Tq, Tk;
+  long long qb, qh, qt, kb, kh, kt, vb, vh, vt, ob, oh, ot;  // strides
+  float scale, softcap;                  // softcap <= 0: none
+  int causal, n_splits;
+  long long window;                      // <= 0: none
+};
+
+// 16 bytes global -> shared, bypassing L1; `fill` false writes zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src, bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(fill ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+// over the 16 lanes that share a row (xor 8, 4, 2, 1 stays in a half-warp)
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// The online softmax of one S tile, in place: s becomes P. The masks
+// apply only where kCut (a tile that Tk, the split's end or a causal or
+// window mask cuts); the row max is reduced over the row's 16 lanes, the
+// row sum kept per lane until the end. Row i of the thread sits at
+// position qpos + i, its column j at key + 16 j.
+template <bool kCut, int C, int G>
+__device__ __forceinline__ void softmax_tile(float (&s)[4][C], float (&m)[4],
+                                             float (&l)[4], float (&o)[4][G][4],
+                                             const F32Args& a, long long qpos,
+                                             long long key, long long kend) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    bool ok[C];
+    float mx = kNeg;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      ok[j] = true;
+      if (kCut) {
+        const long long kj = key + 16 * j;
+        ok[j] = kj < kend;
+        if (a.causal) ok[j] = ok[j] && kj <= qpos + i;
+        if (a.window > 0) ok[j] = ok[j] && kj > qpos + i - a.window;
+      }
+      float x = s[i][j];
+      if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
+      s[i][j] = ok[j] ? x : kNeg;
+      mx = fmaxf(mx, s[i][j]);
+    }
+    const float m_new = fmaxf(m[i], row_max(mx));
+    const float alpha = exp2f((m[i] - m_new) * kLog2e);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      s[i][j] = ok[j] ? exp2f((s[i][j] - m_new) * kLog2e) : 0.f;
+      sum += s[i][j];
+    }
+    l[i] = l[i] * alpha + sum;
+    m[i] = m_new;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][g][e] *= alpha;
+  }
+}
+
+// One block per (b, head, 64-query tile, key split). Thread (ty, tx), ty =
+// 2 warp + lane / 16 and tx = lane % 16, owns query rows 4 ty .. 4 ty + 3,
+// the S columns (keys) tx + 16 j of a tile and the O columns 64 g + 4 tx
+// .. + 3; so the 16 lanes that share a row sit in one half-warp.
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, F32Shape<D>::kMinBlocks)
+flash_simt(const F32Args a) {
+  using Sh = F32Shape<D>;
+  constexpr int BK = Sh::kKeys, C = Sh::kCols, G = Sh::kGroups;
+  constexpr int P = Sh::kPitch, PP = Sh::kPPitch, D4 = D / 4;
+  extern __shared__ float4 f32_smem[];
+  float* s_q = reinterpret_cast<float*>(f32_smem);    // [kF32Rows][P], scaled
+  float* s_kv = s_q + kF32Rows * P;                    // [stage][K, V][BK][P]
+  float* s_p = s_kv + kF32Stages * 2 * BK * P;         // [BK][PP]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ty = 2 * warp + lane / 16, tx = lane % 16;
+  const long long bh = blockIdx.x, b = bh / a.Hq, h = bh % a.Hq;
+  const long long hk = h / a.rep;
+  const long long q0 = (long long)blockIdx.y * kF32Rows;
+  const int* range = a.plan + 2 * ((long long)blockIdx.y * a.n_splits + blockIdx.z);
+  const long long kbeg = range[0], kend = range[1];
+  const float* qg = a.q + b * a.qb + h * a.qh;
+  const float* kg = a.k + b * a.kb + hk * a.kh;
+  const float* vg = a.v + b * a.vb + hk * a.vh;
+
+  // keys k0 .. k0 + BK of K and V into a ring slot; keys past the split's
+  // range are zero-filled (and masked)
+  auto load = [&](int slot, long long k0) {
+    float* dk = s_kv + slot * 2 * BK * P;
+    float* dv = dk + BK * P;
+    for (int e = threadIdx.x; e < BK * D4; e += kF32Threads) {
+      const int j = e / D4, c = 4 * (e % D4);
+      const bool in = k0 + j < kend;
+      const long long key = in ? k0 + j : kbeg;
+      cp_async16(smem_u32(dk + j * P + c), kg + key * a.kt + c, in);
+      cp_async16(smem_u32(dv + j * P + c), vg + key * a.vt + c, in);
+    }
+  };
+  const int n_tiles = kend > kbeg ? (int)((kend - kbeg + BK - 1) / BK) : 0;
+  if (n_tiles > 0) load(0, kbeg);
+  cp_commit();
+
+  // the query tile, scaled as the Pallas kernel scales it (before the dot)
+  for (int e = threadIdx.x; e < kF32Rows * D4; e += kF32Threads) {
+    const int r = e / D4, c = 4 * (e % D4);
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < a.Tq) {
+      x = *reinterpret_cast<const float4*>(qg + (q0 + r) * a.qt + c);
+      x.x *= a.scale;
+      x.y *= a.scale;
+      x.z *= a.scale;
+      x.w *= a.scale;
+    }
+    *reinterpret_cast<float4*>(s_q + r * P + c) = x;
+  }
+
+  const bool live = q0 + 8 * warp < a.Tq;   // warp-uniform: a row of the warp is real
+  const long long shift = a.Tk - a.Tq;
+  const float* q_t = s_q + 4 * ty * P;
+  float o[4][G][4], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNeg;
+    l[i] = 0.f;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][g][e] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_wait_all();
+    __syncthreads();            // tile t has landed; tile t - 1's slot and P are free
+    if (t + 1 < n_tiles) load((t + 1) % kF32Stages, kbeg + (long long)(t + 1) * BK);
+    cp_commit();
+    if (!live) continue;
+    const float* s_k = s_kv + (t % kF32Stages) * 2 * BK * P;
+    const float* s_v = s_k + BK * P;
+    const long long k0 = kbeg + (long long)t * BK;
+
+    // S = Q K^T, a 4 x C tile a thread from float4 operands along D
+    float s[4][C];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < C; ++j) s[i][j] = 0.f;
+#pragma unroll 16
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[4], kv[C];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = lds4(q_t + i * P + d);
+#pragma unroll
+      for (int j = 0; j < C; ++j) kv[j] = lds4(s_k + (tx + 16 * j) * P + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        }
+    }
+
+    // softcap, masks (only on a tile they cut) and the online softmax
+    const bool cut = k0 + BK > kend || (a.causal && k0 + BK - 1 > q0 + shift) ||
+                     (a.window > 0 && k0 <= q0 + kF32Rows - 1 + shift - a.window);
+    const long long qpos = q0 + 4 * ty + shift, key = k0 + tx;
+    if (cut)
+      softmax_tile<true>(s, m, l, o, a, qpos, key, kend);
+    else
+      softmax_tile<false>(s, m, l, o, a, qpos, key, kend);
+    // P to shared memory, key-major: a warp writes and reads only its rows
+#pragma unroll
+    for (int j = 0; j < C; ++j)
+      *reinterpret_cast<float4*>(s_p + (tx + 16 * j) * PP + 4 * ty) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    __syncwarp();
+
+    // O += P V, a 4 x 4G tile a thread
+#pragma unroll 8
+    for (int j = 0; j < BK; ++j) {
+      const float4 pj = lds4(s_p + j * PP + 4 * ty);
+      const float pr[4] = {pj.x, pj.y, pj.z, pj.w};
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int c = 64 * g + 4 * tx;
+        if (D % 64 == 0 || c < D) {
+          const float4 vv = lds4(s_v + j * P + c);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            o[i][g][0] = fmaf(pr[i], vv.x, o[i][g][0]);
+            o[i][g][1] = fmaf(pr[i], vv.y, o[i][g][1]);
+            o[i][g][2] = fmaf(pr[i], vv.z, o[i][g][2]);
+            o[i][g][3] = fmaf(pr[i], vv.w, o[i][g][3]);
+          }
+        }
+      }
+    }
+  }
+
+  if (!live) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) l[i] = row_sum(l[i]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long qi = q0 + 4 * ty + i;
+    if (qi >= a.Tq) break;
+    if (a.n_splits == 1) {               // the whole range: o itself
+      const float den = l[i] == 0.f ? 1.f : l[i];
+      float* out = a.o + b * a.ob + h * a.oh + qi * a.ot;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int c = 64 * g + 4 * tx;
+        if (D % 64 == 0 || c < D)
+          *reinterpret_cast<float4*>(out + c) =
+              make_float4(o[i][g][0] / den, o[i][g][1] / den, o[i][g][2] / den,
+                          o[i][g][3] / den);
+      }
+    } else {                             // a split: its partial m, l, acc
+      const long long row = (bh * a.n_splits + blockIdx.z) * a.Tq + qi;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int c = 64 * g + 4 * tx;
+        if (D % 64 == 0 || c < D)
+          *reinterpret_cast<float4*>(a.acc + row * D + c) =
+              make_float4(o[i][g][0], o[i][g][1], o[i][g][2], o[i][g][3]);
+      }
+      if (tx == 0) {
+        a.ml[2 * row] = m[i];
+        a.ml[2 * row + 1] = l[i];
+      }
+    }
+  }
+}
+
+// The splits' partials of each row merged in split order (no atomics):
+// m = max m_s, l = sum l_s e^(m_s - m), o = sum acc_s e^(m_s - m) / l. A
+// split that saw no key of the row (m_s = kNeg, l_s = 0, acc_s = 0) adds
+// nothing; a row that saw none at all is written as 0. A thread per
+// (b, head, query, 4 columns).
+__global__ void __launch_bounds__(256)
+flash_simt_merge(const F32Args a, int D, long long n) {
+  const int D4 = D / 4;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (long long)gridDim.x * blockDim.x) {
+    const long long row = e / D4, bh = row / a.Tq, qi = row % a.Tq;
+    const int c = 4 * (int)(e % D4);
+    const long long first = bh * a.n_splits * a.Tq + qi;  // split s: + s Tq
+    float m = kNeg;
+    for (int s = 0; s < a.n_splits; ++s) m = fmaxf(m, a.ml[2 * (first + s * a.Tq)]);
+    float l = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < a.n_splits; ++s) {
+      const long long r = first + s * a.Tq;
+      const float w = expf(a.ml[2 * r] - m);
+      const float4 x = *reinterpret_cast<const float4*>(a.acc + r * D + c);
+      l = fmaf(a.ml[2 * r + 1], w, l);
+      acc.x = fmaf(x.x, w, acc.x);
+      acc.y = fmaf(x.y, w, acc.y);
+      acc.z = fmaf(x.z, w, acc.z);
+      acc.w = fmaf(x.w, w, acc.w);
+    }
+    const float den = l == 0.f ? 1.f : l;
+    const long long b = bh / a.Hq, h = bh % a.Hq;
+    *reinterpret_cast<float4*>(a.o + b * a.ob + h * a.oh + qi * a.ot + c) =
+        make_float4(acc.x / den, acc.y / den, acc.z / den, acc.w / den);
+  }
+}
+
+template <int D>
+cudaError_t launch_simt(const F32Args& a, long long BH, long long n_qtiles,
+                        cudaStream_t s) {
+  constexpr int smem = F32Shape<D>::kSmem;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_simt<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  flash_simt<D><<<dim3((unsigned)BH, (unsigned)n_qtiles, (unsigned)a.n_splits),
+                  kF32Threads, smem, s>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || a.n_splits == 1) return e;
+  const long long n = BH * a.Tq * (D / 4);
+  const long long blocks = (n + 255) / 256 < 0x7fffffffLL ? (n + 255) / 256 : 0x7fffffffLL;
+  flash_simt_merge<<<(unsigned)blocks, 256, 0, s>>>(a, D, n);
+  return cudaGetLastError();
+}
+
+cudaError_t flash_f32(const void* q, const void* k, const void* v, void* o,
+                      long long B, long long Hq, long long Hkv, long long Tq,
+                      long long Tk, long long D, const long long* st, float scale,
+                      float softcap, int causal, long long window, const int* plan,
+                      long long n_splits, void* acc, void* ml, cudaStream_t s) {
+  const long long n_qtiles = (Tq + kF32Rows - 1) / kF32Rows;
+  if (n_qtiles > 65535 || n_splits < 1 || n_splits > 65535 || plan == nullptr ||
+      (n_splits > 1 && (acc == nullptr || ml == nullptr)))
+    return cudaErrorInvalidValue;
+  const F32Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<float*>(o),
+                  static_cast<float*>(acc), static_cast<float*>(ml), plan,
+                  Hq, Hq / Hkv, Tq, Tk,
+                  st[0], st[1], st[2], st[3], st[4], st[5],
+                  st[6], st[7], st[8], st[9], st[10], st[11],
+                  scale, softcap, causal, (int)n_splits, window};
+  const long long BH = B * Hq;
+  switch (D) {
+    case 16: return launch_simt<16>(a, BH, n_qtiles, s);
+    case 32: return launch_simt<32>(a, BH, n_qtiles, s);
+    case 64: return launch_simt<64>(a, BH, n_qtiles, s);
+    case 80: return launch_simt<80>(a, BH, n_qtiles, s);
+    case 128: return launch_simt<128>(a, BH, n_qtiles, s);
+    case 256: return launch_simt<256>(a, BH, n_qtiles, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // Tq > Tk only without a mask: every key is visible, and the bodies read
 // the right-alignment shift Tk - Tq only under a causal or window mask
 bool valid(long long B, long long Hq, long long Hkv, long long Tq, long long Tk,
@@ -849,14 +1038,19 @@ extern "C" {
 
 // strides: 12 element strides (b, h, t) of q, k, v and o, in that order;
 // the last axis of each is contiguous. Returns the cudaError_t of the launch.
+// plan: [ceil(Tq / 64), n_splits, 2] int32 key ranges of each query tile's
+// splits (flash_attention.split_plan); acc [B * Hq, n_splits, Tq, D] and ml
+// [B * Hq, n_splits, Tq, 2] f32 workspace, unused (may be null) at one split.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         long long B, long long Hq, long long Hkv, long long Tq,
                         long long Tk, long long D, const long long* strides,
                         float scale, float softcap, int causal, long long window,
+                        const void* plan, long long n_splits, void* acc, void* ml,
                         void* stream) {
   if (!valid(B, Hq, Hkv, Tq, Tk, causal, window)) return (int)cudaErrorInvalidValue;
   return (int)flash_f32(q, k, v, o, B, Hq, Hkv, Tq, Tk, D, strides, scale, softcap,
-                        causal, window, (cudaStream_t)stream);
+                        causal, window, static_cast<const int*>(plan), n_splits, acc,
+                        ml, (cudaStream_t)stream);
 }
 
 // the same, bf16, on the tensor-core body; every stride but the last and

@@ -463,7 +463,10 @@ def test_cuda_three_modes_are_bitwise_equal(cuda_device, lane):
 # tile) and a ragged D 80 case, and a window over Tq < Tk with Tk not a
 # multiple of the bf16 body's 64-key tile; seamless's non-causal
 # cross-attention with more queries than keys (Tq > Tk), at its shape and
-# at a ragged one
+# at a ragged one; then shapes whose few query tiles split their keys in
+# the f32 body (flash_attention.split_plan): seamless's cross decode and
+# prefill over 1000 frames, Tq 1, 4, 31 and 64 over 257-5000 keys, causal
+# with a window that binds, softcap, GQA, D 80 and 256
 FLASH_CASES = [
     (1, 2, 2, 64, 64, 16, True, None, None),
     (2, 4, 2, 32, 32, 32, True, None, None),
@@ -488,6 +491,14 @@ FLASH_CASES = [
     (1, 48, 8, 77, 77, 128, True, None, None),
     (1, 16, 16, 513, 257, 64, False, None, None),
     (2, 4, 2, 100, 33, 64, False, None, None),
+    (1, 16, 16, 1, 1000, 64, False, None, None),
+    (2, 16, 16, 4, 1000, 64, False, None, None),
+    (2, 8, 2, 1, 5000, 128, True, 4096, None),
+    (1, 4, 2, 31, 257, 80, True, None, None),
+    (1, 4, 4, 64, 300, 80, False, None, None),
+    (1, 8, 4, 64, 3000, 256, True, 1000, 50.0),
+    (2, 4, 1, 4, 777, 256, False, None, 30.0),
+    (1, 8, 2, 31, 2000, 64, True, 700, 50.0),
 ]
 
 
@@ -534,6 +545,43 @@ def test_cuda_flash_attention_is_deterministic(cuda_device):
         second = flash_attention(q, k, v, **kw)
         assert torch.equal(first.view(torch.int16),
                            second.view(torch.int16)), (B, Hq, Hkv, Tq, Tk, D)
+
+
+def test_cuda_flash_attention_f32_is_deterministic(cuda_device):
+    """Two calls of the f32 body at each of seamless's shapes
+    (``ENCDEC_SHAPES``: the encoder in one split, the cross prefill and
+    decode split across blocks and merged) give the same bits."""
+    for B, Hq, Hkv, Tq, Tk, D, causal, window, softcap in \
+            chip_smoke().ENCDEC_SHAPES:
+        rng = np.random.default_rng(Tq + Tk)
+        q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   .to(cuda_device)
+                   for s in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D)))
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        first = flash_attention(q, k, v, **kw)
+        second = flash_attention(q, k, v, **kw)
+        assert torch.equal(first.view(torch.int32),
+                           second.view(torch.int32)), (Tq, Tk)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_cuda_decode_row_cross_attention_does_not_depend_on_batch(
+        cuda_device, mixed):
+    """A seamless decode row's cross-attention (one query over 1000 f32
+    frames, 16 heads, split across blocks) gives the same bits alone and
+    as one of a batch of 4 rows: the split plan reads no batch size. Also
+    through ``ops.attention`` with bf16 queries (``mixed``), as a bf16
+    model over f32 frames calls it."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda_device)
+               for s in ((4, 16, 1, 64), (4, 16, 1000, 64), (4, 16, 1000, 64)))
+    if mixed:
+        q = q.bfloat16()
+    batch = ops.attention(q, k, v, causal=False)
+    for b in range(4):
+        row = ops.attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=False)
+        assert torch.equal(batch[b:b + 1], row), b
 
 
 @pytest.mark.parametrize("Tq,Tk", [(1, 1000), (513, 257)])
