@@ -122,7 +122,22 @@ result line) on any mismatch:
    again with worker ``FAILED`` failed in step 2, parameters and losses
    bitwise that mode's healthy run; and one ``uncoded`` step of the full
    granite cell
-   (its host time; step 1's losses those of the f32 run);
+   (its host time; step 1's losses those of the f32 run). Then
+   ``phase_oracle``: one ``camr_spmd`` step with ``spmd_oracle=True`` at
+   ``MODES_CFG`` on each lane, the numpy engine beside the shuffle (no
+   assertion, its loads and bytes those of a ``camr`` step, the lane's
+   kernels once each); ``phase_checkpoint``: the single-model
+   ``Trainer`` on the granite cell, 4 steps saving at steps 2 and 4, a
+   leaf file of step 4 deleted, a resume from another seed that warns
+   "failed verification" and lands on step 2 bitwise, then 2 steps
+   bitwise the first run's (no kernel launch); ``phase_process_group``:
+   two child processes (``chip_smoke.py --process-group-child <rank>
+   <port>``) joined by a gloo group on the one card, 4 of the 8 workers
+   each at ``TOPO_QKH``'s (q, k) and d = ``TOPO_D``, the shuffle's
+   process lane flat and two-level, f32 and bf16, both routers and the
+   multipass codec, every row bitwise the single-process shuffle's, the
+   bytes across processes ``camr_edge_bytes``' inter-host bytes, each
+   child's launches exact (added to the ``kernels`` line);
 4. **serve** — seven models served through ``DecodeEngine(slots=4,
    page_size=16, max_ctx=1056)`` behind ``ServeStream(wave_len=8)``,
    each on random bf16 weights from seed 0: ``granite_3_2b`` at full
@@ -171,7 +186,8 @@ result line) on any mismatch:
 
 The last lines are the card's name and power limit, the ``kernels`` JSON
 line (eleven kernels, each with its main-path launches: the granite
-training runs' counts, ``flash_attention``'s summed over the granite,
+training runs' counts, the codec kernels' plus the process lane's
+children's, ``flash_attention``'s summed over the granite,
 gemma2, zamba2, moonshot, mixtral, internlm2, seamless and internvl2
 serving runs,
 ``ssd_scan``'s over the mamba2 and zamba2 runs; and a twelfth entry,
@@ -743,13 +759,15 @@ SSD_F32_REL = 1e-5
 SSD_SERVE_RTOL = 2 ** -6
 
 
-def _ssd_work(B, T, H, P, S, C=64):
+def _ssd_work(B, T, H, P, S, C=64, itemsize=2):
     """(FLOPs, bytes) of one scan: per head and step, the Pallas kernel's
     products (c b^T over the chunk, M x, c h and the state update:
-    C*S + C*P + 2*S*P multiply-adds); x and y in bf16, a in f32, b and c
-    group-shared in bf16, each read or written once."""
+    C*S + C*P + 2*S*P multiply-adds); x and y in bf16 (``itemsize`` 2) or
+    f32 (4), a in f32, b and c group-shared in x's dtype, each read or
+    written once."""
     flops = 2 * B * H * T * (C * S + C * P + 2 * S * P)
-    nbytes = 2 * 2 * B * T * H * P + 4 * B * T * H + 2 * 2 * B * T * S
+    nbytes = (2 * itemsize * B * T * H * P + 4 * B * T * H
+              + 2 * itemsize * B * T * S)
     return flops, nbytes
 
 
@@ -801,6 +819,21 @@ def check_ssd(gen):
             fail(f"ssd_scan at {shape} (f32): max abs err {f32_err} x max|y| "
                  f"against an f64 evaluation > {SSD_F32_REL}")
         del exact, k32, p32
+        if shape == SSD_MAIN:      # the f32 body (CUDA cores), timed once
+            a32 = (x.float(), a, b.float(), c.float())
+            flops, nbytes = _ssd_work(B, T, H, P, S, itemsize=4)
+            t_ops, t_bytes = (flops / PEAK_FLOPS["float32"],
+                              nbytes / HBM_BYTES_PER_S)
+            log(f"kernels: ssd_scan f32 body at {shape} (x, b, c f32; "
+                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB): "
+                f"{time_ms(lambda: ssd_scan(*a32)):.3f} ms, device time "
+                f"(torch.profiler) "
+                f"{_ms_txt(device_ms(lambda: ssd_scan(*a32)))} (plain "
+                f"{time_ms(lambda: ref.ssd_chunked(*a32), warmup=1, reps=3):.3f}"
+                f" ms, library none, bound {max(t_ops, t_bytes) * 1e3:.4f} ms"
+                f" by {'operations' if t_ops >= t_bytes else 'bytes'} at 67 "
+                "TFLOP/s / 3.35 TB/s)")
+            del a32
         got, want = ssd_scan(*args), ref.ssd_chunked(*args)
         torch.cuda.synchronize()
         g, w = got.float(), want.float()
@@ -1925,6 +1958,366 @@ def phase_modes(rep32):
         f"== camr_spmd's within rtol 1e-6 (bitwise: "
         f"{rep.losses[0] == rep32.losses[0]})")
     del tr, pipe
+    return {lane: (runs[lane, "camr"][1].loads,
+                   runs[lane, "camr"][1].bytes_total // 2)
+            for lane in ("float32", "bfloat16")}
+
+
+def phase_oracle(camr):
+    """One ``camr_spmd`` step with ``spmd_oracle=True`` at ``MODES_CFG`` on
+    the f32 and the bf16 lane: the numpy engine runs beside the shuffle
+    on the same memo rows and asserts the synced gradient bitwise (no
+    assertion may fire); the step's loads and bytes must be those of a
+    ``camr`` step of ``phase_modes`` (``camr``: its loads, bytes per
+    step), and the lane's kernels launch once each a coded stage and once
+    a worker. Prints the step's split: its "shuffle" phase is the device
+    sync plus the oracle's host engine."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import ShardedTokenPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.cell import ARCH, Q, K
+    from repro_torch.runtime import MultiModelCAMRTrainer
+
+    cfg = get_config(ARCH).replace(**MODES_CFG)
+    pipe = ShardedTokenPipeline(vocab=cfg.vocab, seq_len=MODES_SEQ_LEN,
+                                global_batch=1)
+    for lane in ("float32", "bfloat16"):
+        tag = f"oracle[{lane}]"
+        tr = MultiModelCAMRTrainer(cfg, q=Q, k=K, seed=0, device=DEVICE,
+                                   grad_sync_dtype=lane, spmd_oracle=True)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            rep = tr.train_steps(pipe, 1, mode="camr_spmd")
+        except AssertionError as e:
+            fail(f"{tag}: {e}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        want = dict.fromkeys(counts, 0)
+        want.update(lane_kernels(lane, tr.K))
+        if counts != want:
+            fail(f"{tag}: launch counts {counts} != expected {want}")
+        loads, nbytes = camr[lane]
+        if rep.loads != loads or rep.bytes_total != nbytes:
+            fail(f"{tag}: loads {rep.loads}, bytes {rep.bytes_total} != the "
+                 f"camr step's {loads}, {nbytes}")
+        if not np.isfinite(np.asarray(rep.losses)).all():
+            fail(f"{tag}: losses not finite: {rep.losses}")
+        ms = rep.phase_ms[0]
+        log(f"{tag}: D={tr.D}, synced gradient bitwise == the engine's; "
+            f"loads and bytes ({rep.bytes_total}) == the camr step's; "
+            f"launches {dict((n, c) for n, c in counts.items() if c)}; "
+            f"step {wall:.2f} s wall = "
+            + ", ".join(f"{p} {v:.1f}" for p, v in ms.items())
+            + " ms (shuffle: the device sync and the oracle's host engine; "
+            "aggregate: the combiner and the memo's copy to the host)")
+        del tr
+
+
+#: the single-model checkpoint run: the cell's model, four steps, a save
+#: every second one
+CKPT_STEPS, CKPT_EVERY = 4, 2
+
+
+def phase_checkpoint():
+    """The single-model ``Trainer`` on the card with checkpoints: the
+    cell's ``granite_3_2b`` (full width, ``N_LAYERS`` layers, ``SEQ_LEN``
+    tokens, batch 1) in a temporary directory. Run A: ``CKPT_STEPS``
+    steps saving every ``CKPT_EVERY`` (async writes), its state copied to
+    the host as each save returns. The crash: one leaf file of the last
+    step is deleted. Run B, from another seed: ``resume()`` must warn
+    "failed verification" and land on step 2 with A's row and moments
+    bitwise; after 2 more steps its state must be bitwise A's last. No
+    kernel launches (the single-model loop trains on the plain lane).
+    Prints the bytes a checkpoint holds, the host copy's ms on the
+    training thread, the writer's seconds and GB/s, the load-and-verify
+    seconds of a step, and A's step ms with a save and without."""
+    import shutil
+    import tempfile
+    import warnings
+    import torch
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import ShardedTokenPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.cell import ARCH, N_LAYERS, SEQ_LEN
+    from repro_torch.runtime import Trainer
+
+    cfg = get_config(ARCH).replace(n_layers=N_LAYERS)
+    pipe = ShardedTokenPipeline(vocab=cfg.vocab, seq_len=SEQ_LEN,
+                                global_batch=1)
+    state = lambda tr: [t.to("cpu", copy=True)
+                        for t in (tr.flat, tr.opt.mu, tr.opt.nu, tr.opt.step)]
+    same = lambda x, y: all(bitwise_equal(a, b) for a, b in zip(x, y))
+    root = tempfile.mkdtemp(prefix="camr_ckpt_")
+    try:
+        a = Trainer(cfg, ckpt_dir=root, seed=0, device=DEVICE)
+        snaps, marks, snap_s = {}, [], {}
+        step_fn, save_fn = a._train_step, a.ckpt.save
+
+        def timed_step(batch):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            return step_fn(batch)
+
+        def save(tree, *, step, metadata=None):
+            save_fn(tree, step=step, metadata=metadata)
+            t0 = time.perf_counter()
+            snaps[step] = state(a)      # the check's copy, not timed
+            snap_s[step] = time.perf_counter() - t0
+
+        a._train_step, a.ckpt.save = timed_step, save
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        a.run(pipe, CKPT_STEPS, ckpt_every=CKPT_EVERY)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if any(launch_counts().values()):
+            fail(f"checkpoint: kernel launches {launch_counts()}")
+        stats = a.ckpt.stats
+        a.ckpt.close()
+        del a._train_step, a.ckpt.save, a
+        gc.collect()
+        torch.cuda.empty_cache()
+        if sorted(snaps) != [2, 4]:
+            fail(f"checkpoint: saves at steps {sorted(snaps)}, want [2, 4]")
+        last = os.path.join(root, "step_00000004")
+        os.remove(os.path.join(last, "params.embed.npy"))
+
+        b = Trainer(cfg, ckpt_dir=root, seed=1, device=DEVICE)
+        if bitwise_equal(b.flat.cpu(), snaps[2][0]):
+            fail("checkpoint: run B's initial row is run A's")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            ok = b.resume()
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+        warned = [str(w.message) for w in caught
+                  if "failed verification" in str(w.message)]
+        if not ok or b.step != 2 or len(warned) != 1 \
+                or "step_00000004" not in warned[0]:
+            fail(f"checkpoint: resume() {ok} at step {b.step}, warnings "
+                 f"{[str(w.message) for w in caught]} (want step 2 and one "
+                 "'failed verification' of step_00000004)")
+        if not same(state(b), snaps[2]):
+            fail("checkpoint: resumed row and moments != run A's at step 2")
+        t0 = time.perf_counter()
+        load_checkpoint(root, b.state_tree(), step=2)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        b.run(pipe, CKPT_STEPS - 2)
+        if not same(state(b), snaps[4]):
+            fail("checkpoint: row and moments after the resumed steps 3-4 "
+                 "!= run A's after step 4")
+        del b
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = [(y - x - snap_s.get(i + 1, 0.0)) * 1e3
+          for i, (x, y) in enumerate(zip(marks, marks[1:]))]
+    nbytes = stats[0]["bytes"]
+    log(f"checkpoint: {cfg.name} {cfg.n_layers} layers, {nbytes} bytes a "
+        "checkpoint (parameters in their dtypes, f32 moments); saves at "
+        f"steps {[r['step'] for r in stats]}: host copy on the training "
+        "thread " + ", ".join(f"{r['copy_s'] * 1e3:.1f}" for r in stats)
+        + " ms; writer " + ", ".join(
+            f"{r['write_s']:.2f} s ({nbytes / r['write_s'] / 1e9:.2f} GB/s)"
+            for r in stats))
+    log(f"checkpoint: step ms (host clock, synchronized; the check's own "
+        f"copies of the state left out) "
+        + ", ".join(f"{i + 1}: {v:.1f}" for i, v in enumerate(ms))
+        + f" (step 2 with a save, step 3 without while the writer runs, "
+        f"step 4 with a save and the run's final wait); load and verify "
+        f"of step 2 {load_s:.2f} s ({nbytes / load_s / 1e9:.2f} GB/s); "
+        f"resume with the corrupt step 4 skipped {resume_s:.2f} s")
+    log("checkpoint: step 4 with a deleted leaf file skipped with a "
+        "'failed verification' warning; resumed at step 2 bitwise run A's "
+        "row and moments; after steps 3-4 bitwise run A's; no kernel "
+        "launch")
+
+
+#: the process lane's case: TOPO_QKH's (q, k), two processes of 4
+#: workers, d = TOPO_D; the seconds a child may take
+PG_TIMEOUT = 300
+
+
+def _pg_cases():
+    """(layout, dtype, router, codec) of the process lane's runs."""
+    fused = [(lay, dt, router, "fused")
+             for lay in ("flat", "two_level")
+             for dt in ("float32", "bfloat16")
+             for router in ("all_to_all", "ppermute")]
+    return fused + [(lay, dt, "all_to_all", "multipass")
+                    for lay in ("flat", "two_level")
+                    for dt in ("float32", "bfloat16")]
+
+
+def _pg_kernels(dtype: str, codec: str) -> dict:
+    """Kernel launches of one process-lane shuffle: an encode and a
+    decode a coded stage (the aggregate is not on this path)."""
+    import torch
+    if codec == "multipass":
+        return {"xor_fold": 2, "xor_decode": 2}
+    return dict.fromkeys(_gathers(getattr(torch, dtype)), 2)
+
+
+def process_group_child(rank: int, port: int) -> int:
+    """One process of ``phase_process_group``: joins the gloo group, owns
+    4 of the 8 workers, and runs every case of :func:`_pg_cases` twice
+    through ``camr_shuffle(mesh=)``, each output bitwise this process's
+    rows of the single-process shuffle of the same contributions on the
+    card (computed first; those launches are not counted). Prints one
+    JSON line: its launch counts, each case's ``plan.process_stats`` of the
+    second call and whether gloo takes CUDA tensors for
+    ``all_to_all_single``."""
+    import torch
+    sys.path.insert(0, SRC)
+    from repro_torch.core.collective import camr_shuffle, make_plan
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import (detect_topology, init_distributed,
+                                         make_camr_mesh)
+    if not init_distributed(coordinator=f"localhost:{port}",
+                            num_processes=2, process_id=rank):
+        fail(f"process {rank}: init_distributed() returned False")
+    q, k, hosts = TOPO_QKH
+    d, K = TOPO_D, q * k
+    mesh = make_camr_mesh(K, device=DEVICE)
+    topo = detect_topology(k)
+    if topo.key() != (hosts, 4.0) or mesh.workers != range(
+            rank * K // 2, (rank + 1) * K // 2):
+        fail(f"process {rank}: topology {topo.key()}, workers "
+             f"{mesh.workers}")
+    probe = torch.zeros(2, device=DEVICE)
+    try:
+        torch.distributed.all_to_all_single(torch.empty_like(probe), probe)
+        gloo_cuda = "accepted"
+    except RuntimeError as e:
+        gloo_cuda = f"refused: {str(e).splitlines()[0][:160]}"
+    plans = {"flat": make_plan(q, k, d), "two_level": make_plan(q, k, d,
+                                                                topo)}
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    waves = {dt: _device_waves(gen, plans["flat"], getattr(torch, dt), 1)[0]
+             for dt in ("float32", "bfloat16")}
+    refs = {case: camr_shuffle(plans[case[0]], waves[case[1]],
+                               router=case[2], codec=case[3])
+            [mesh.lo:mesh.hi].clone() for case in _pg_cases()}
+    mine = {dt: w[mesh.lo:mesh.hi].contiguous() for dt, w in waves.items()}
+    del waves
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    cases = {}
+    for case in _pg_cases():
+        lay, dt, router, codec = case
+        for _ in range(2):
+            out = camr_shuffle(plans[lay], mine[dt], router=router,
+                               codec=codec, mesh=mesh)
+            if not bitwise_equal(out, refs[case]):
+                fail(f"process {rank}: {case} != the single-process "
+                     "shuffle's rows")
+        cases["/".join(case)] = dict(plans[lay].process_stats)
+        del out
+    counts = {n: c for n, c in launch_counts().items() if c}
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print(json.dumps({"rank": rank, "counts": counts, "cases": cases,
+                      "gloo_cuda": gloo_cuda}), flush=True)
+    return 0
+
+
+def phase_process_group():
+    """The process lane of the coded shuffle: two child processes on the
+    one card (``python3 chip_smoke.py --process-group-child <rank>
+    <port>``, ``PYTHONPATH=src``, a free port), each owning 4 of the 8
+    workers at ``TOPO_QKH``'s (q, k) and d = ``TOPO_D``, over a gloo
+    group. Every case of :func:`_pg_cases` (flat and the detected
+    two-level topology, f32 and bf16, both routers on the fused codec,
+    the multipass codec on all_to_all) runs twice in each child, bitwise
+    the single-process shuffle's rows; the bytes both children send in
+    stages 1 and 2 must equal ``camr_edge_bytes``' inter-host bytes of
+    the layout; each child's launch counts must be exact. A child that
+    fails or outlives ``PG_TIMEOUT`` fails the smoke. Logs each case's
+    per-stage encode / exchange (host staging and gloo) / decode ms;
+    returns the children's launch counts, summed."""
+    import socket
+    from repro_torch.core.collective import camr_edge_bytes, make_plan
+    from repro_torch.core.schedule import Topology
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--process-group-child",
+         str(rank), str(port)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=PG_TIMEOUT))
+            except subprocess.TimeoutExpired:
+                fail(f"process_group: a child ran past {PG_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"process_group: child {rank} exit {p.returncode}:\n"
+                 f"{out[-2000:]}\n{err[-3000:]}")
+    reports = [json.loads(out.splitlines()[-1]) for out, _ in outs]
+    wall = time.perf_counter() - t0
+    q, k, hosts = TOPO_QKH
+    two = make_plan(q, k, TOPO_D, Topology.two_level(hosts))
+    want = {}
+    for lay, dt, router, codec in _pg_cases():
+        for n, c in _pg_kernels(dt, codec).items():
+            want[n] = want.get(n, 0) + 2 * c
+    total = {}
+    for r in reports:
+        if r["counts"] != want:
+            fail(f"process_group: child {r['rank']} launched {r['counts']}, "
+                 f"want {want}")
+        for n, c in r["counts"].items():
+            total[n] = total.get(n, 0) + c
+    for tag in reports[0]["cases"]:
+        lay, dt = tag.split("/")[:2]
+        eb = camr_edge_bytes(two, dtype=dt)[f"{lay}_inter_bytes"]
+        sent = sum(r["cases"][tag][s]["bytes"] for r in reports
+                   for s in ("stage1", "stage2"))
+        s3 = sum(r["cases"][tag]["stage3"]["bytes"] for r in reports)
+        if sent != eb or s3:
+            fail(f"process_group: {tag} sent {sent} bytes across processes "
+                 f"in stages 1-2 ({s3} in stage 3), camr_edge_bytes {eb}")
+        for r in reports:
+            st = r["cases"][tag]
+            log(f"process_group[{tag}] rank {r['rank']}: " + "; ".join(
+                f"stage {i} encode {st[f'stage{i}']['encode_ms']:.3f}, "
+                f"exchange {st[f'stage{i}']['exchange_ms']:.3f} (staging "
+                f"{st[f'stage{i}']['staging_ms']:.3f}, gloo "
+                f"{st[f'stage{i}']['gloo_ms']:.3f}), decode "
+                f"{st[f'stage{i}']['decode_ms']:.3f}, "
+                f"{st[f'stage{i}']['bytes']} bytes" for i in (1, 2))
+                + f"; stage 3 + assembly {st['stage3']['ms']:.3f} ms")
+    log(f"process_group: 2 processes x 4 workers at (q, k) = ({q}, {k}), "
+        f"d {TOPO_D}, gloo; {len(reports[0]['cases'])} cases x 2 calls each "
+        "bitwise the single-process shuffle's rows; stage 1-2 bytes across "
+        "processes == camr_edge_bytes (flat "
+        f"{camr_edge_bytes(two)['flat_inter_bytes']}, two-level "
+        f"{camr_edge_bytes(two)['two_level_inter_bytes']} f32); launches a "
+        f"child {want} (exact); gloo and CUDA tensors: "
+        f"{reports[0]['gloo_cuda']}; {wall:.1f} s wall")
+    return total
 
 
 # --------------------------------------------------------------------- #
@@ -2425,6 +2818,8 @@ def phase_legacy(arch, runs, seed=0, max_new=32):
 
 def main() -> int:
     import torch
+    if sys.argv[1:2] == ["--process-group-child"]:
+        return process_group_child(int(sys.argv[2]), int(sys.argv[3]))
     t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2507,9 +2902,16 @@ def main() -> int:
     phase_chunked()
     gc.collect()
     torch.cuda.empty_cache()
-    phase_modes(rep32)
+    camr = phase_modes(rep32)
     gc.collect()
     torch.cuda.empty_cache()
+    phase_oracle(camr)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_checkpoint()
+    pg_counts = phase_process_group()
+    for name, c in pg_counts.items():
+        counts[name] += c
     served = [phase_serve(arch, depth, lens)
               for arch, depth, lens in SERVE_RUNS]
     served += [phase_legacy(arch, runs) for arch, runs in LEGACY_RUNS]

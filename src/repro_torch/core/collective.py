@@ -46,10 +46,19 @@ shift) lane (:func:`_route_rows_two_level`). The rebuilt receive buffer
 is word for word the flat one, so the output is bitwise the flat
 schedule's. ``verify_wire=True`` widens every packet row by one u32
 checksum word and counts the decoded rows whose checksum mismatches.
+
+Process lane (``camr_shuffle(..., mesh=)``, a
+:class:`~repro_torch.launch.mesh.CAMRMesh`): each ``torch.distributed``
+process holds one block of workers and runs the same body with every
+table sliced to its block; the rows whose sender and receiver lie in
+different processes cross over one ``all_to_all_single`` a stage (the JAX
+executor's ``shard_map`` over a mesh that spans processes), and the
+outputs are bitwise the stacked executor's.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -94,6 +103,11 @@ class CAMRPlan:
     permutations: dict = field(
         default_factory=lambda: {"stage12": 0, "stage3": 0}, repr=False,
         compare=False)
+    #: the process lane's record of its last shuffle with this plan, by
+    #: stage: bytes and rows sent to other processes, the exchange's host
+    #: staging and gloo ms, and the encode / exchange / decode ms
+    process_stats: dict = field(default_factory=dict, repr=False,
+                                compare=False)
 
     @property
     def owned_jobs(self) -> np.ndarray:
@@ -635,13 +649,51 @@ def _fold_stored(vals, ar, shard):
     return acc
 
 
+def _stage3(vals, ar, dst, deliver, permutations):
+    """Stage 3, the intra-class unicasts, for the workers ``ar``: for each
+    offset ``o`` every worker folds its stored batches of shard
+    ``dst[o]`` (its classmate's at that offset), and ``deliver(o, pay)``
+    hands each worker the fold its sender made for it -> ``[len(ar), q-1,
+    J_own, d]``. One permutation an offset (``permutations``)."""
+    s3_out = torch.empty((len(ar), len(dst), vals.shape[1], vals.shape[-1]),
+                         dtype=vals.dtype, device=vals.device)
+    for o, shard in enumerate(dst):
+        pay = _fold_stored(vals, ar, shard)
+        s3_out[:, o] = deliver(o, pay)
+        permutations["stage3"] += 1
+        del pay             # free before the next offset's payload
+    return s3_out
+
+
+def _assemble(stage_vals, s3_out, vals, ar, own, t, *, J, d):
+    """Reduce-side assembly of the workers ``ar``: an owner adds its own
+    fold (its stored batches of shard ``own``) to its stage-1 value, the
+    others add the stage-3 unicast to their stage-2 value -> ``[len(ar),
+    J, d]`` in the arithmetic dtype. ``t`` holds the block's rows
+    (``own_rows``, ``own_sum_rows``, ``non_rows``, ``non_s2_rows``,
+    ``non_s3_rows``); each stage's value is popped from ``stage_vals``,
+    and freed, once used."""
+    own_sum = _fold_stored(vals, ar, own)                   # [., J_own, d]
+    out = torch.empty((len(ar) * J, d), dtype=vals.dtype, device=vals.device)
+    s1 = stage_vals.pop(1).reshape(-1, d)
+    out[t["own_rows"]] = (s1.index_select(0, t["own_rows"])
+                          + own_sum.reshape(-1, d).index_select(
+                              0, t["own_sum_rows"]))
+    del s1, own_sum         # free before the non-owner gathers
+    s2 = stage_vals.pop(2).reshape(-1, d)
+    out[t["non_rows"]] = (s2.index_select(0, t["non_s2_rows"])
+                          + s3_out.reshape(-1, d).index_select(
+                              0, t["non_s3_rows"]))
+    return out.view(len(ar), J, d)
+
+
 # --------------------------------------------------------------------- #
 # the shuffle
 # --------------------------------------------------------------------- #
 def camr_shuffle(plan: CAMRPlan, contribs: torch.Tensor, *,
                  mode: str = "batched", router: str = "all_to_all",
                  codec: str = "fused", debug: bool = False,
-                 verify_wire: bool = False, corrupt=None):
+                 verify_wire: bool = False, corrupt=None, mesh=None):
     """3-stage CAMR coded shuffle of all K virtual devices at once:
     ``contribs [K, J_own, k-1, K, d] -> [K, J, d]``.
 
@@ -674,10 +726,18 @@ def camr_shuffle(plan: CAMRPlan, contribs: torch.Tensor, *,
     the u32 pattern ``bits`` into word ``word`` of row ``row`` of
     ``device``'s Δ in coded stage ``stage``, after the encode. Both need
     the fused codec and the batched mode.
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.CAMRMesh`) runs the
+    process lane: this process holds only its block of workers,
+    ``contribs [K_local, J_own, k-1, K, d] -> [K_local, J, d]``, bitwise
+    the same rows as the single-process shuffle, and the rows that cross
+    processes go over ``torch.distributed`` (:func:`_shuffle_process`).
     """
-    prog = plan.program
-    q, k, K, J, J_own, d = (plan.q, plan.k, plan.K, plan.J, plan.J_own,
-                            plan.d)
+    if mesh is not None:
+        return _shuffle_process(plan, contribs, mesh, mode=mode,
+                                router=router, codec=codec, debug=debug,
+                                verify_wire=verify_wire, corrupt=corrupt)
+    k, K, J, J_own, d = plan.k, plan.K, plan.J, plan.J_own, plan.d
     check_codec_dtype(contribs.dtype, "camr_shuffle")
     if tuple(contribs.shape) != (K, J_own, k - 1, K, d):
         raise ValueError(f"contribs shape {tuple(contribs.shape)} != "
@@ -750,44 +810,335 @@ def camr_shuffle(plan: CAMRPlan, contribs: torch.Tensor, *,
     vals = contribs.view(arith)
 
     # ========== stage 3: intra-class unicasts (q-1 permutations) ======= #
-    s3_out = torch.empty((K, q - 1, J_own, d), dtype=arith,
-                         device=contribs.device)
-    for o in range(q - 1):
-        pay = _fold_stored(vals, tabs["ar"], tabs["s3_dst"][o])
+    def deliver(o, pay):
         got = pay.index_select(0, tabs["s3_src"][o])
         if tabs["s3_zero"][o] is not None:
             got.masked_fill_(tabs["s3_zero"][o][:, None, None], 0)
-        plan.permutations["stage3"] += 1
-        s3_out[:, o] = got
-        del pay, got        # free before the next offset's payload
+        return got
 
-    # ========== assemble (reduce-side tables of the program) ========== #
-    own_sum = _fold_stored(vals, tabs["ar"], tabs["ar"])   # [K, J_own, d]
-    s1 = stage_vals.pop(1)                                  # [K, J, d]
-    s2 = stage_vals.pop(2)                                  # [K, n_s2, d]
+    s3_out = _stage3(vals, tabs["ar"], tabs["s3_dst"], deliver,
+                     plan.permutations)                  # [K, q-1, J_own, d]
     if debug:
         ar = tabs["ar"][:, None]
         slot = tabs["own_slot"]
-        info = dict(stage1=s1, stage2=s2[ar, tabs["s2_ord"]],
+        own_sum = _fold_stored(vals, tabs["ar"], tabs["ar"])
+        info = dict(stage1=stage_vals[1],
+                    stage2=stage_vals[2][ar, tabs["s2_ord"]],
                     stage3=s3_out[ar, tabs["s3_off"], slot],
                     own_sum=own_sum[ar, slot])
         info = {key: v.contiguous().view(dtype) for key, v in info.items()}
-    out = torch.empty((K * J, d), dtype=arith, device=contribs.device)
-    s1 = s1.reshape(K * J, d)
-    out[tabs["own_rows"]] = (s1.index_select(0, tabs["own_rows"])
-                             + own_sum.reshape(-1, d).index_select(
-                                 0, tabs["own_sum_rows"]))
-    del s1, own_sum         # free before the non-owner gathers
-    s2 = s2.reshape(K * prog.n_s2, d)
-    out[tabs["non_rows"]] = (s2.index_select(0, tabs["non_s2_rows"])
-                             + s3_out.reshape(-1, d).index_select(
-                                 0, tabs["non_s3_rows"]))
-    out = out.view(K, J, d).view(dtype)
+        del own_sum
+
+    # ========== assemble (reduce-side tables of the program) ========== #
+    out = _assemble(stage_vals, s3_out, vals, tabs["ar"], tabs["ar"], tabs,
+                    J=J, d=d).view(dtype)
     if debug:
         return dict(out=out, **info, is_own=tabs["is_own"])
     if verify_wire:
         return out, bad
     return out
+
+
+# --------------------------------------------------------------------- #
+# the process lane: one block of workers per torch.distributed process
+# --------------------------------------------------------------------- #
+#: per-device stage tables, sliced to a process's block of workers
+_PER_DEVICE = ("src_ok", "valid", "enc_src", "dec_recv", "dec_src",
+               "dec_mask", "src_jslot", "src_bslot", "delta_pos",
+               "cancel_pos", "dec_order")
+
+
+def _local_stage(st: dict, lo: int, hi: int, k: int) -> dict:
+    """A coded stage's codec tables for the workers ``[lo, hi)`` only
+    (views of the stacked executor's tables)."""
+    out = {name: st[name][lo:hi] for name in _PER_DEVICE if name in st}
+    out["n"] = st["n"]
+    if "shard" in st:
+        out["shard"] = st["shard"]
+    if "cancel_mask" in st:
+        out["cancel_mask"] = st["cancel_mask"].view(
+            -1, st["n"] * (k - 1), k)[lo:hi].reshape(-1, k)
+    return out
+
+
+def _blocks(rows: np.ndarray, proc: np.ndarray, me: int, world: int,
+            per: int):
+    """Split routed rows by the process that holds their source.
+
+    ``rows [world, m]`` holds, for every process's ``m`` receive slots in
+    order, ``per`` slots a worker, the source row in its sender's
+    numbering, ``proc`` the sender's process (-1: a zero slot). A row
+    crosses once for each worker that takes it (one delivery of the
+    lowered send tables; slots of groups a worker does not decode may
+    take a delivered row again). Returns this process's local ``(slots,
+    rows)``; the slots it fills from each other process in rank order
+    with, for each, its index among the rows received (``recv_index``)
+    and their counts; and the rows it sends to each, in the order their
+    receiver takes them."""
+    def deliveries(dst, src):
+        slots = np.nonzero(proc[dst] == src)[0]
+        got = rows[dst][slots]
+        key = (slots // per) * (int(rows.max()) + 1) + got
+        _, first, inv = np.unique(key, return_index=True,
+                                  return_inverse=True)
+        return slots, got[first], inv.reshape(-1)
+
+    others = [p for p in range(world) if p != me]
+    local = np.nonzero(proc[me] == me)[0]
+    recv = {p: deliveries(me, p) for p in others}
+    send = {p: deliveries(p, me)[1] for p in others}
+    rcount = [len(recv[p][1]) if p != me else 0 for p in range(world)]
+    cat = lambda xs: np.concatenate(list(xs) or [np.zeros(0, np.int64)])
+    start = np.cumsum([0] + rcount)
+    return dict(local_slots=local, local_rows=rows[me][local],
+                recv_slots=cat(recv[p][0] for p in others),
+                recv_index=cat(recv[p][2] + start[p] for p in others),
+                recv_counts=rcount,
+                send_rows=cat(send[p] for p in others),
+                send_counts=[len(send[p]) if p != me else 0
+                             for p in range(world)])
+
+
+def _process_tables(plan: CAMRPlan, mesh, router: str, glob: dict,
+                    device: torch.device) -> dict:
+    """The process lane's exchange tables, cached on the plan per (world,
+    rank, device, router): for each coded stage, the slots of this
+    block's receive buffer filled from its own Δ rows, those filled by
+    each other process and the rows it sends to each (the batched or
+    two-level exchange of every worker, run on row ids, split by the
+    process of the source), and the relay lanes of phase B (inside a
+    process: host blocks must nest in process blocks); for each stage-3
+    offset the same split of its intra-class unicasts; the assembly rows
+    of the block, from the stacked executor's tables ``glob``."""
+    key = ("process", mesh.world, mesh.rank, str(device), router)
+    tabs = plan._tables.get(key)
+    if tabs is not None:
+        return tabs
+    prog = plan.program
+    q, k, K, W, me = plan.q, plan.k, plan.K, mesh.world, mesh.rank
+    Kl = K // W
+    lo = me * Kl
+    proc_of = np.arange(K) // Kl
+
+    def idx(a):
+        return torch.as_tensor(a, dtype=torch.int64, device=device)
+
+    def on(x):      # a _blocks split, its index arrays on the device
+        return {name: v if name.endswith("counts") else idx(v)
+                for name, v in x.items()}
+
+    stages = {}
+    for stage in (1, 2):
+        T = prog.stage_tables(stage)
+        n, S = T.n, T.n * (k - 1)
+        if plan.topology is None:
+            rows, lanes = _route_rows(T, router, q, k, K), []
+        else:
+            rows, lanes = _route_rows_two_level(
+                T, prog.host_tables(stage), router, q, k, K)
+        rows = rows.reshape(W, Kl * S)
+        proc = np.where(rows >= 0, proc_of[np.clip(rows, 0, None) // n], -1)
+        x = _blocks(np.where(rows >= 0, rows - proc * Kl * n, -1), proc, me,
+                    W, S)
+        relay = []
+        for dst, src in lanes:
+            if (proc_of[dst // S] != proc_of[src // S]).any():
+                raise ValueError(
+                    "the process lane needs each host block of the "
+                    "two-level topology inside one process's block of "
+                    f"workers (hosts {plan.topology.hosts}, {W} "
+                    "processes)")
+            m = proc_of[dst // S] == me
+            if m.any():
+                relay.append((idx(dst[m] - lo * S), idx(src[m] - lo * S)))
+        stages[stage] = dict(on(x), n=n, relay=relay)
+    # stage 3, per offset: receiver b takes sender a's fold of shard b,
+    # row a-lo of the sender's block payload
+    s3 = []
+    for perms in prog.s3_perms:
+        src = np.full(K, -1, np.int64)
+        for a, b in perms:
+            src[b] = a
+        proc = np.where(src >= 0, proc_of[np.clip(src, 0, None)], -1)
+        rows = np.where(src >= 0, src % Kl, -1)
+        s3.append(on(_blocks(rows.reshape(W, Kl), proc.reshape(W, Kl), me,
+                             W, 1)))
+    # assembly: the stacked executor's rows of this block's workers,
+    # renumbered from the block's first
+    J, J_own = plan.J, plan.J_own
+    own = glob["own_rows"] // J
+    own = (own >= lo) & (own < lo + Kl)
+    non = glob["non_rows"] // J
+    non = (non >= lo) & (non < lo + Kl)
+    tabs = plan._tables[key] = dict(
+        stages=stages, s3=s3,
+        own_rows=glob["own_rows"][own] - lo * J,
+        own_sum_rows=glob["own_sum_rows"][own] - lo * J_own,
+        non_rows=glob["non_rows"][non] - lo * J,
+        non_s2_rows=glob["non_s2_rows"][non] - lo * prog.n_s2,
+        non_s3_rows=glob["non_s3_rows"][non] - lo * (q - 1) * J_own)
+    return tabs
+
+
+class Marks:
+    """Time marks without synchronising the card: CUDA events there, the
+    host clock on the CPU; read once, at the end (of a shuffle, or of a
+    training step)."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks: list = []
+
+    def mark(self) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def read(self) -> list:
+        """Milliseconds between consecutive marks."""
+        if self.cuda:
+            self.marks[-1].synchronize()
+            return [a.elapsed_time(b)
+                    for a, b in zip(self.marks, self.marks[1:])]
+        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+
+
+def _all_to_all(send: torch.Tensor, send_counts, recv_counts):
+    """One ``all_to_all_single`` of whole rows over the default group:
+    ``send`` holds the rows for each other process in rank order
+    (``send_counts``), the result the rows from each (``recv_counts``),
+    on ``send``'s device. The group is gloo, so rows on a card are
+    staged through pinned host buffers here, explicitly: ``staging_ms``
+    is the device-to-host and host-to-device copy, ``gloo_ms`` the
+    collective. No collective runs when no process sends anything (every
+    process knows it from the same tables)."""
+    rec = dict(bytes=0, rows=int(sum(send_counts)), staging_ms=0.0,
+               gloo_ms=0.0)
+    if not any(send_counts) and not any(recv_counts):
+        return send[:0], rec
+    shape = send.shape[1:]
+    dev = send.device
+    rows = send.reshape(len(send), math.prod(shape)).view(torch.uint8)
+    pin = dev.type == "cuda"
+    t0 = time.perf_counter()
+    host = torch.empty(rows.shape, dtype=torch.uint8, pin_memory=pin)
+    host.copy_(rows)
+    got = torch.empty((sum(recv_counts), rows.shape[1]), dtype=torch.uint8,
+                      pin_memory=pin)
+    t1 = time.perf_counter()
+    torch.distributed.all_to_all_single(
+        got, host, output_split_sizes=list(recv_counts),
+        input_split_sizes=list(send_counts))
+    t2 = time.perf_counter()
+    got = got.to(dev)
+    t3 = time.perf_counter()
+    rec.update(bytes=host.numel(), staging_ms=(t1 - t0 + t3 - t2) * 1e3,
+               gloo_ms=(t2 - t1) * 1e3)
+    return got.view(send.dtype).view(-1, *shape), rec
+
+
+def _shuffle_process(plan: CAMRPlan, contribs: torch.Tensor, mesh, *,
+                     mode, router, codec, debug, verify_wire, corrupt):
+    """:func:`camr_shuffle`'s process lane: the stacked executor's body
+    (encode, exchange, relay, decode, stage 3, the fold) for this
+    process's block of workers only, every table sliced to the block, so
+    the codec kernels launch over ``K_local`` workers. Only rows whose
+    sender and receiver lie in different processes cross, one
+    ``all_to_all_single`` a coded stage (one row per delivery of the
+    lowered send tables: ``camr_edge_bytes``' inter-host bytes when the
+    hosts are the processes; a two-level plan's phase B stays inside the
+    process), and one a stage-3 offset where a class straddles two
+    blocks. Records, in ``plan.process_stats``, each stage's bytes and
+    rows sent and its encode / exchange / decode ms (the exchange's host
+    staging and gloo time apart)."""
+    if mode != "batched" or verify_wire or corrupt is not None or debug:
+        raise ValueError(
+            "the process lane runs mode='batched' without verify_wire, "
+            "corrupt or debug; the looped exchange and the self-verifying "
+            "wire across processes are still to port (ROADMAP.md, Queue "
+            "1)")
+    if codec not in CODECS:
+        raise ValueError(f"unknown codec {codec!r}")
+    if router not in ("all_to_all", "ppermute"):
+        raise ValueError(f"unknown router {router!r}")
+    k, K, J, J_own, d = plan.k, plan.K, plan.J, plan.J_own, plan.d
+    if mesh.K != K:
+        raise ValueError(f"mesh of {mesh.K} workers for a plan of {K}")
+    Kl, lo, hi = mesh.K_local, mesh.lo, mesh.hi
+    check_codec_dtype(contribs.dtype, "camr_shuffle")
+    if tuple(contribs.shape) != (Kl, J_own, k - 1, K, d):
+        raise ValueError(f"contribs shape {tuple(contribs.shape)} != "
+                         f"{(Kl, J_own, k - 1, K, d)} (this process's "
+                         f"workers {lo}..{hi - 1})")
+    dtype, dev = contribs.dtype, contribs.device
+    contribs = contribs.contiguous()
+    glob = _device_tables(plan, dev, router, codec, "batched")
+    px = _process_tables(plan, mesh, router, glob, dev)
+    wp = payload_words(d, contribs.element_size(), k)
+    pk = wp // (k - 1)
+    wire = _wire_buffer(contribs, wp, codec)
+    clock, stats, stage_vals = Marks(dev), {}, {}
+    for stage in (1, 2):
+        st = _local_stage(glob["stages"][stage], lo, hi, k)
+        x = px["stages"][stage]
+        n = x["n"]
+        clock.mark()
+        ctx, delta = _encode_stage(wire, st, K=Kl, k=k, pk=pk, codec=codec)
+        clock.mark()
+        flat = delta.reshape(-1, pk)
+        recv = torch.zeros((Kl * n * (k - 1), pk), dtype=flat.dtype,
+                           device=dev)
+        recv.index_copy_(0, x["local_slots"],
+                         flat.index_select(0, x["local_rows"]))
+        got, stats[f"stage{stage}"] = _all_to_all(
+            flat.index_select(0, x["send_rows"]), x["send_counts"],
+            x["recv_counts"])
+        recv.index_copy_(0, x["recv_slots"],
+                         got.index_select(0, x["recv_index"]))
+        recv = _relay(recv.view(Kl, n * (k - 1), pk), x, plan.permutations,
+                      pk=pk)
+        del delta, flat, got
+        clock.mark()
+        if codec == "multipass":
+            ctx = _cancellations(ctx, st, K=Kl, k=k)
+        dec = _decode_stage(recv, ctx, st, K=Kl, k=k, pk=pk, codec=codec)
+        stage_vals[stage] = _from_wire(dec, dtype, d)
+    del wire
+    clock.mark()
+    vals = contribs.view(_arith_dtype(dtype))
+    s3_recs = []
+
+    def deliver(o, pay):
+        x = px["s3"][o]
+        got = torch.zeros_like(pay)
+        got.index_copy_(0, x["local_slots"],
+                        pay.index_select(0, x["local_rows"]))
+        moved, rec = _all_to_all(pay.index_select(0, x["send_rows"]),
+                                 x["send_counts"], x["recv_counts"])
+        got.index_copy_(0, x["recv_slots"],
+                        moved.index_select(0, x["recv_index"]))
+        s3_recs.append(rec)
+        return got
+
+    ar = torch.arange(Kl, device=dev)
+    s3_out = _stage3(vals, ar, [t[lo:hi] for t in glob["s3_dst"]], deliver,
+                     plan.permutations)
+    out = _assemble(stage_vals, s3_out, vals, ar, ar + lo, px, J=J, d=d)
+    clock.mark()
+    ms = clock.read()
+    for i, stage in enumerate((1, 2)):
+        stats[f"stage{stage}"].update(encode_ms=ms[3 * i],
+                                      exchange_ms=ms[3 * i + 1],
+                                      decode_ms=ms[3 * i + 2])
+    # stage 3 and the assembly
+    stats["stage3"] = dict({key: sum(r[key] for r in s3_recs)
+                            for key in s3_recs[0]}, ms=ms[6])
+    plan.process_stats.clear()
+    plan.process_stats.update(stats)
+    return out.view(dtype)
 
 
 def expected_collective_calls(plan: CAMRPlan, mode: str = "batched",

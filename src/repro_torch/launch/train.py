@@ -37,21 +37,36 @@ fused codec's oracle). Without ``--multi-model`` the single-model
 ``--failed 2`` (comma-separated worker ids) trains the multi-model
 setting with those workers silent in the shuffle: the degraded
 survivor-set executor on ``camr_spmd``, the ``DegradedCAMREngine`` on
-``camr`` (``uncoded`` has no degraded mode). ``--ckpt-dir`` /
-``--resume`` (checkpointing, ROADMAP.md Queue 1 item 9) exit with a
-pointer.
+``camr`` (``uncoded`` has no degraded mode).
+
+The single-model loop checkpoints and resumes as JAX's does:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite_3_2b \\
+        --reduced --steps 4 --seq-len 16 --batch 4 --device cpu \\
+        --ckpt-dir /tmp/ckpt --ckpt-every 2 --resume
+
+saves every ``--ckpt-every`` steps into ``--ckpt-dir`` (the JAX package's
+format: either package's ``Trainer`` resumes the other's) and, with
+``--resume``, first restores the newest intact step. With
+``--multi-model`` these options exit with a message (the JAX launcher
+ignores them there). With ``WORLD_SIZE`` > 1 in the environment the
+launcher first joins the ``torch.distributed`` group
+(:func:`repro_torch.launch.mesh.init_distributed`, from ``MASTER_ADDR``,
+``MASTER_PORT`` and ``RANK``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import torch
 
 from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.data.pipeline import ShardedTokenPipeline
+from repro_torch.launch.mesh import init_distributed
 from repro_torch.runtime import MultiModelCAMRTrainer, Trainer
 
 
@@ -60,9 +75,13 @@ def _run_single_model(cfg, pipe, args) -> None:
     allreduce or camr names the data-parallel wire of a multi-device
     run; on one device there is none)."""
     tr = Trainer(cfg, lr=args.lr, total_steps=args.steps, seed=args.seed,
-                 microbatches=args.microbatches, device=args.device)
+                 microbatches=args.microbatches, device=args.device,
+                 ckpt_dir=args.ckpt_dir)
+    if args.resume and tr.resume():
+        print(f"resumed from step {tr.step}")
     t0 = time.time()
-    metrics = tr.run(pipe, steps=args.steps, log_every=1)
+    metrics = tr.run(pipe, steps=args.steps, log_every=1,
+                     ckpt_every=args.ckpt_every if args.ckpt_dir else 0)
     dt = time.time() - t0
     for m in metrics:
         print(json.dumps(m))
@@ -103,15 +122,23 @@ def main(argv=None):
     ap.add_argument("--failed", default=None,
                     help="comma-separated failed worker ids "
                          "(--multi-model)")
-    ap.add_argument("--ckpt-dir", default=None, help="(not ported)")
-    ap.add_argument("--resume", action="store_true", help="(not ported)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (single-model)")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest intact checkpoint first")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device)")
     args = ap.parse_args(argv)
 
-    if args.ckpt_dir or args.resume:
-        raise SystemExit("--ckpt-dir/--resume: checkpointing is not ported "
-                         "yet (ROADMAP.md, Queue 1 item 9)")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and \
+            not init_distributed():
+        raise SystemExit("WORLD_SIZE > 1 but the torch.distributed group "
+                         "did not start (gloo, env://)")
+    if args.multi_model and (args.ckpt_dir or args.resume):
+        raise SystemExit("--ckpt-dir/--resume belong to the single-model "
+                         "loop; the multi-model trainer does not "
+                         "checkpoint")
     if args.multi_model and args.grad_sync == "allreduce":
         raise SystemExit("--multi-model needs --grad-sync "
                          "camr|camr_spmd|uncoded (allreduce is the "

@@ -3,7 +3,7 @@
 * :class:`Trainer` — the single-model loop, the twin of
   ``repro.runtime.train_loop.Trainer``: microbatch gradient accumulation,
   the cosine schedule and AdamW (global-norm clip), on the trainer's
-  device. Checkpointing is not ported yet (ROADMAP.md, Queue 1 item 9).
+  device, async checkpoints in the JAX trainer's format and crash-resume.
 * :class:`MultiModelCAMRTrainer` — the paper's setting: J = q^(k-1)
   models whose per-batch gradients are aggregated through the CAMR
   coded shuffle, on the f32 or the bf16 grad-sync lane.
@@ -64,24 +64,24 @@ tolerance (the clip norm sums in another order).
 from __future__ import annotations
 
 import contextlib
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from ..checkpoint import CheckpointManager
 from ..configs import ModelConfig
 from ..core import loads as Lo
 from ..core.baselines import UncodedAggregatedEngine
-from ..core.collective import (CODECS, ShuffleStream, camr_collective_bytes,
-                               make_plan)
-from ..core.engine import CAMRConfig
+from ..core.collective import (CODECS, Marks, ShuffleStream,
+                               camr_collective_bytes, make_plan)
+from ..core.engine import CAMRConfig, CAMREngine
 from ..data.pipeline import ShardedTokenPipeline, make_camr_job_datasets
 from ..device import resolve_device
 from ..kernels.aggregate import aggregate
 from ..models import lm
 from ..optim import AdamWState, adamw_update, cosine_schedule
-from ..weights import flat_spec, ravel, split, tree, unravel
+from ..weights import flat_spec, leaves, ravel, split, tree, unravel
 from .jobstream import JobSpec, JobStream
 
 __all__ = ["CAMRTrainReport", "MultiModelCAMRTrainer", "PHASES", "Trainer",
@@ -150,30 +150,12 @@ def _full_f32(device: torch.device):
          mm.allow_bf16_reduced_precision_reduction) = saved
 
 
-class _PhaseClock:
-    """Marks phase boundaries without synchronising the card: CUDA events
-    there, ``time.perf_counter`` on the CPU; read once per step."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks: list = []
-
-    def mark(self) -> None:
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter())
+class _PhaseClock(Marks):
+    """Marks phase boundaries without synchronising the card; read once
+    per step, as a dict of :data:`PHASES`."""
 
     def read(self) -> dict:
-        if self.cuda:
-            self.marks[-1].synchronize()
-            ms = [a.elapsed_time(b)
-                  for a, b in zip(self.marks, self.marks[1:])]
-        else:
-            ms = [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
-        return dict(zip(PHASES, ms))
+        return dict(zip(PHASES, super().read()))
 
 
 class MultiModelCAMRTrainer:
@@ -197,6 +179,13 @@ class MultiModelCAMRTrainer:
     degraded mode and raises. Recovery is exact: a degraded step leaves
     the parameters bitwise those of the healthy step.
 
+    ``spmd_oracle=True`` makes every ``camr_spmd`` step also run the
+    numpy :class:`~repro_torch.core.engine.CAMREngine` on the same
+    memoized gradients (the host rows the host wires take) and assert
+    that the device's synced gradient equals it bitwise; the step's
+    loads and bytes are then the engine's measured ones. Off by default:
+    the engine is the oracle, not the fast path.
+
     ``grad_sync_dtype`` is the shuffle payload dtype: ``"float32"`` or
     ``"bfloat16"`` (mixed-precision grad sync: gradients rounded to bf16
     once at the map memo, synced on the packed 16-bit wire lane at half
@@ -213,7 +202,7 @@ class MultiModelCAMRTrainer:
                  lr: float = 1e-3, seed: int = 0, params=None,
                  codec: str = "fused", router: str = "all_to_all",
                  device=None, grad_sync_dtype: str | None = None,
-                 failed=None):
+                 failed=None, spmd_oracle: bool = False):
         gsd = (cfg.grad_sync_dtype if grad_sync_dtype is None
                else grad_sync_dtype)
         name = str(gsd).removeprefix("torch.")
@@ -230,6 +219,7 @@ class MultiModelCAMRTrainer:
         if codec not in CODECS:
             raise ValueError(f"unknown codec {codec!r}")
         self.failed = set(failed) if failed else None
+        self.spmd_oracle = spmd_oracle
         self.device = resolve_device(device)
         self.grad_sync_dtype = name
         self._sync_dtype = getattr(torch, name)
@@ -345,13 +335,31 @@ class MultiModelCAMRTrainer:
             self._stream.degrade(want) if want else self._stream.restore()
         return self._stream
 
-    def _sync_spmd(self, contribs, report) -> torch.Tensor:
+    def _sync_spmd(self, contribs, report, datasets=None,
+                   host=None) -> torch.Tensor:
+        """The coded shuffle on the device; given the memo's ``host``
+        rows, the engine oracle checks it bitwise and measures the
+        step's loads and bytes."""
         stream = self._spmd_stream()
         out = stream.sync(contribs)             # [K, J, d] on the card
-        report.loads = {"L_total_bus": Lo.camr_load(self.q, self.k),
-                        "L_total_p2p": Lo.camr_load_p2p(self.q, self.k)}
-        report.bytes_total += camr_collective_bytes(
-            self.plan, dtype=self._sync_dtype)["camr_total"]
+        if host is None:
+            report.loads = {"L_total_bus": Lo.camr_load(self.q, self.k),
+                            "L_total_p2p": Lo.camr_load_p2p(self.q, self.k)}
+            report.bytes_total += camr_collective_bytes(
+                self.plan, dtype=self._sync_dtype)["camr_total"]
+        else:
+            eng = CAMREngine(self.camr, lambda j, sf: host[(j, sf[0])],
+                             combine=self._combine)
+            want = self._assemble(eng.run(datasets))
+            if out.dtype == torch.bfloat16:
+                got = out.view(torch.int16).cpu().numpy().view(np.uint16)
+            else:
+                got = out.cpu().numpy().view(np.uint32)
+            np.testing.assert_array_equal(
+                got, want.view(got.dtype),
+                err_msg="camr_spmd shuffle diverged from the engine oracle")
+            report.loads = eng.measured_loads()
+            report.bytes_total += eng.trace.total_bytes()
         report.sync = stream.stats()
         return out
 
@@ -474,15 +482,18 @@ class MultiModelCAMRTrainer:
             for n in range(N):
                 map_fn(j, datasets[j][n])
         clock.mark()
+        # the host wires and the oracle take each memo row on the host once
+        host = ({key: self._host_row(row) for key, row in cache.items()}
+                if mode != "camr_spmd" or self.spmd_oracle else None)
         if mode == "camr_spmd":
             contribs = self._build_contribs(map_fn, datasets)
             cache.clear()                 # drop the memo: contribs hold it
             clock.mark()
-            gsync = self._sync_spmd(contribs, report)
-            del contribs
+            gsync = (self._sync_spmd(contribs, report) if host is None
+                     else self._sync_spmd(contribs, report, datasets, host))
+            del contribs, host
         else:
-            host = {key: self._host_row(row) for key, row in cache.items()}
-            cache.clear()                 # each row went to the host once
+            cache.clear()
             clock.mark()
             sync = (self._sync_interpreter if mode == "camr"
                     else self._sync_uncoded)
@@ -512,16 +523,22 @@ class Trainer:
     the flat f32 row of ``ravel(params)`` with its moments; after each
     update every leaf is rounded back to its own dtype, as the JAX loop
     keeps its parameters in theirs. ``device=None`` is the current CUDA
-    device. ``ckpt_dir`` and :meth:`resume` are refused: checkpointing is
-    ROADMAP.md, Queue 1 item 9.
+    device.
+
+    ``ckpt_dir`` turns on checkpointing (:class:`~repro_torch.checkpoint
+    .CheckpointManager`): ``run(ckpt_every=n)`` saves every n-th step
+    asynchronously, and :meth:`resume` restores the newest intact step.
+    What is saved is the JAX trainer's tree, ``{"params": <the parameter
+    tree, each leaf in its dtype>, "opt": AdamWState(step=<() int32>,
+    mu=<f32 tree>, nu=<f32 tree>)}`` with metadata ``{"pipeline_step":
+    step}``, so a directory written by either package's ``Trainer``
+    resumes in the other's.
     """
 
     def __init__(self, cfg: ModelConfig, *, lr: float = 3e-4,
                  warmup: int = 20, total_steps: int = 1000,
                  ckpt_dir: str | None = None, seed: int = 0, params=None,
                  microbatches: int = 1, device=None):
-        if ckpt_dir is not None:
-            raise NotImplementedError(_NO_CKPT)
         if microbatches < 1:
             raise ValueError(f"microbatches must be >= 1, got "
                              f"{microbatches}")
@@ -540,10 +557,23 @@ class Trainer:
             step=torch.zeros((1,), dtype=torch.int32, device=self.device),
             mu=torch.zeros_like(self.flat), nu=torch.zeros_like(self.flat))
         self.step = 0
+        self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
 
     @property
     def params(self) -> dict:
         return unravel(self.flat[0], self._spec)
+
+    def state_tree(self) -> dict:
+        """The JAX trainer's checkpoint tree of this state: views of the
+        flat row and moments (the parameters cast to their dtypes)."""
+        spec = self._spec
+        f32 = lambda row: tree(spec, [
+            row[off:off + int(np.prod(shape, dtype=np.int64))].view(shape)
+            for off, shape in zip(spec.offsets, spec.shapes)])
+        return {"params": self.params,
+                "opt": AdamWState(step=self.opt.step[0],
+                                  mu=f32(self.opt.mu[0]),
+                                  nu=f32(self.opt.nu[0]))}
 
     def _loss_grad(self, batch: dict):
         """Loss and the flat f32 gradient of one microbatch."""
@@ -592,9 +622,11 @@ class Trainer:
         return {"loss": loss, "gnorm": gnorm, "lr": lr}
 
     def run(self, pipeline: ShardedTokenPipeline, steps: int,
-            log_every: int = 10) -> list:
+            log_every: int = 10, ckpt_every: int = 0) -> list:
         """``steps`` steps; returns the metrics of step 1 and of every
-        ``log_every``-th step."""
+        ``log_every``-th step. With a ``ckpt_dir``, every step that
+        ``ckpt_every`` divides is saved, and the run ends by waiting for
+        the writes (re-raising a failed one)."""
         metrics = []
         with _full_f32(self.device):
             for _ in range(steps):
@@ -605,11 +637,26 @@ class Trainer:
                 if self.step % log_every == 0 or self.step == 1:
                     metrics.append({key: float(v) for key, v in m.items()}
                                    | {"step": self.step})
+                if self.ckpt and ckpt_every and self.step % ckpt_every == 0:
+                    self.ckpt.save(self.state_tree(), step=self.step,
+                                   metadata={"pipeline_step": self.step})
+        if self.ckpt:
+            # the last chance to learn that an async write failed
+            self.ckpt.wait()
         return metrics
 
-    def resume(self):
-        raise NotImplementedError(_NO_CKPT)
-
-
-_NO_CKPT = ("checkpointing (ckpt_dir=, resume()) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 9: checkpoint/ckpt.py)")
+    def resume(self) -> bool:
+        """Crash-resume from the newest intact checkpoint (its data
+        cursor included): False when there is none. The restored state
+        replaces the constructor's, whatever its seed."""
+        if not self.ckpt or self.ckpt.latest_step() is None:
+            return False
+        got, meta = self.ckpt.restore(self.state_tree())
+        row = lambda t: torch.cat([leaf.reshape(-1).float()
+                                   for _, leaf in leaves(t)])
+        self.flat[0] = row(got["params"])
+        self.opt.mu[0] = row(got["opt"].mu)
+        self.opt.nu[0] = row(got["opt"].nu)
+        self.opt.step[0] = got["opt"].step
+        self.step = meta["step"]
+        return True

@@ -930,3 +930,108 @@ def test_cuda_moe_trainer_step_matches_cpu(cuda_device, arch):
                     "xor_decode_gather16": 0, "aggregate_bf16": 0,
                     "xor_fold": 0, "xor_decode": 0, "xor_encode": 0,
                     "flash_attention": 0, "ssd_scan": 0}
+
+
+def test_cuda_checkpoint_roundtrip_and_crash_resume(cuda_device, tmp_path):
+    """Tensors on the card save and load bitwise (f32, bf16, int32), back
+    onto the card; the single-model ``Trainer`` on the card resumes from
+    its step-2 checkpoint bitwise and continues bitwise its own
+    uninterrupted run."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.runtime import Trainer
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+    tree = {"w": torch.randn((5, 7), generator=gen, device=cuda_device),
+            "h": torch.randn((9,), generator=gen, device=cuda_device)
+            .to(torch.bfloat16),
+            "n": torch.arange(4, dtype=torch.int32, device=cuda_device)}
+    save_checkpoint(str(tmp_path / "t"), tree, step=1)
+    got, meta = load_checkpoint(str(tmp_path / "t"),
+                                {k: torch.zeros_like(v)
+                                 for k, v in tree.items()})
+    assert meta["step"] == 1
+    for k, v in tree.items():
+        assert got[k].device == v.device and got[k].dtype == v.dtype
+        assert torch.equal(got[k].view(torch.int16 if v.element_size() == 2
+                                       else torch.int32),
+                           v.view(torch.int16 if v.element_size() == 2
+                                  else torch.int32))
+    cfg = reduced(get_config("granite_3_2b")).replace(n_layers=2, vocab=64,
+                                                      loss_chunk=16)
+    pipe = ShardedTokenPipeline(vocab=64, seq_len=16, global_batch=4)
+    straight = Trainer(cfg, seed=2, device=cuda_device)
+    straight.run(pipe, 4)
+    a = Trainer(cfg, seed=2, device=cuda_device,
+                ckpt_dir=str(tmp_path / "tr"))
+    a.run(pipe, 3, ckpt_every=2)
+    b = Trainer(cfg, seed=5, device=cuda_device,
+                ckpt_dir=str(tmp_path / "tr"))
+    assert b.resume() and b.step == 2
+    b.run(pipe, 2)
+    for x, y in ((b.flat, straight.flat), (b.opt.mu, straight.opt.mu),
+                 (b.opt.nu, straight.opt.nu)):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+_PG_CHILD = """
+import sys
+import numpy as np
+import torch
+from repro_torch.core.collective import (camr_shuffle, make_plan,
+                                         scatter_contributions)
+from repro_torch.launch.mesh import (detect_topology, init_distributed,
+                                     make_camr_mesh)
+rank, port = int(sys.argv[1]), int(sys.argv[2])
+assert init_distributed(coordinator=f"localhost:{port}", num_processes=2,
+                        process_id=rank)
+q, k, d = 2, 4, 4098
+mesh = make_camr_mesh(q * k)
+assert mesh.device.type == "cuda"
+plan0 = make_plan(q, k, d)
+bg = np.random.default_rng(1).standard_normal(
+    (plan0.J, k, q * k, d)).astype(np.float32)
+full = torch.from_numpy(scatter_contributions(plan0, bg)).to(mesh.device)
+for plan in (plan0, make_plan(q, k, d, detect_topology(k))):
+    for dt in (torch.float32, torch.bfloat16):
+        for router in ("all_to_all", "ppermute"):
+            for codec in ("fused", "multipass"):
+                c = full.to(dt)
+                want = camr_shuffle(plan, c, router=router, codec=codec)
+                got = camr_shuffle(plan, c[mesh.lo:mesh.hi].contiguous(),
+                                   router=router, codec=codec, mesh=mesh)
+                v = torch.int16 if dt == torch.bfloat16 else torch.int32
+                assert torch.equal(got.view(v),
+                                   want[mesh.lo:mesh.hi].view(v)), \\
+                    (plan.topology, dt, router, codec)
+torch.distributed.destroy_process_group()
+print("OK", rank)
+"""
+
+
+def test_cuda_process_lane_two_children_on_one_card(cuda_device):
+    """Two processes on the one card over gloo, 4 of the 8 workers each at
+    (2, 4): flat and two-level, both lanes, routers and codecs, every
+    process's rows bitwise the single-process shuffle's on the card."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", _PG_CHILD, str(r),
+                               str(port)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"OK {r}" in out, err[-3000:]

@@ -423,8 +423,9 @@ def test_trainer_own_init_runs_and_launcher_points_at_roadmap(capsys):
                        "--grad-sync", "camr_spmd", "--steps", "1",
                        "--seq-len", "8", "--batch", "2", "--device", "cpu"])
     assert '"mode": "camr_spmd"' in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        launch_train.main(["--arch", "granite_3_2b", "--ckpt-dir", "ckpt"])
+    with pytest.raises(SystemExit, match="single-model"):
+        launch_train.main(["--arch", "granite_3_2b", "--multi-model",
+                           "--grad-sync", "camr", "--ckpt-dir", "ckpt"])
     with pytest.raises(SystemExit, match="--multi-model options"):
         launch_train.main(["--arch", "granite_3_2b", "--failed", "1"])
 
@@ -543,22 +544,97 @@ def test_multipass_synced_gradient_bitwise_equals_jax_mesh(tmp_path):
 
 
 def test_unported_modes_point_at_their_roadmap_item(jax_run):
-    """The pointers name what is still unported: checkpointing (item 9).
-    Failed workers (Queue 1 items 5-6) are ported: the trainer takes a
-    failed set at construction and between steps."""
-    for argv, item in ((["--resume"], "item 9"),
-                       (["--ckpt-dir", "ckpt"], "item 9")):
-        with pytest.raises(SystemExit, match=f"Queue 1 {item}"):
-            launch_train.main(["--arch", "granite_3_2b", *argv])
+    """The pointers name what is still unported: the process lane's
+    looped exchange, self-verifying wire and fault injection (ROADMAP.md,
+    Queue 1). Checkpointing (item 9) is ported: the multi-model launcher
+    refuses its options, as it does not checkpoint. Failed workers
+    (items 5-6) are ported: the trainer takes a failed set at
+    construction and between steps."""
+    from repro_torch.core.collective import camr_shuffle
+    from repro_torch.launch.mesh import CAMRMesh
+    mesh = CAMRMesh(K=6, world=2, rank=0, device=torch.device("cpu"))
+    contribs = torch.zeros((3, 2, 2, 6, 6))
+    for kw in (dict(mode="looped"), dict(verify_wire=True),
+               dict(verify_wire=True, corrupt=(1, 0, 0, 0, 1))):
+        with pytest.raises(ValueError, match="ROADMAP.md, Queue 1"):
+            camr_shuffle(make_plan(2, 3, 6), contribs, mesh=mesh, **kw)
+    with pytest.raises(SystemExit, match="single-model"):
+        launch_train.main(["--arch", "granite_3_2b", "--multi-model",
+                           "--grad-sync", "camr", "--resume"])
     tr = _port_trainer(jax_run)
     tr.set_failed({0})
     assert tr.failed == {0}
     assert _port_trainer(jax_run, failed=[3]).failed == {3}
-    cfg = jax_run["cfg"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        Trainer(cfg, device="cpu", ckpt_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        Trainer(cfg, device="cpu").resume()
+    assert Trainer(jax_run["cfg"], device="cpu",
+                   ckpt_dir="ckpt").ckpt is not None
+
+
+_JAX_ORACLE = textwrap.dedent("""
+    import json
+    from repro.configs import get_config, reduced
+    from repro.data.pipeline import ShardedTokenPipeline
+    from repro.runtime.train_loop import MultiModelCAMRTrainer
+
+    cfg = reduced(get_config("granite_3_2b")).replace(**{tiny})
+    pipe = ShardedTokenPipeline(vocab=64, seq_len=8, global_batch=2)
+    out = {{}}
+    for lane in ("float32", "bfloat16"):
+        tr = MultiModelCAMRTrainer(cfg, q=2, k=3, seed=0, spmd_oracle=True,
+                                   grad_sync_dtype=lane)
+        rep = tr.train_steps(pipe, 2, mode="camr_spmd")
+        out[lane] = dict(loads=rep.loads, bytes_total=rep.bytes_total)
+    print(json.dumps(out))
+""")
+
+
+@pytest.fixture(scope="module")
+def jax_oracle():
+    """JAX's ``spmd_oracle=True`` trainer, 2 ``camr_spmd`` steps on a
+    6-device subprocess mesh, per lane: its loads and bytes."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=6")
+    res = subprocess.run([sys.executable, "-c",
+                          _JAX_ORACLE.format(tiny=repr(TINY))],
+                         capture_output=True, text=True, env=env,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.splitlines()[-1])
+
+
+@pytest.mark.parametrize("lane", ["float32", "bfloat16"])
+def test_spmd_oracle_matches_jax_and_catches_a_flipped_bit(lane, jax_oracle,
+                                                          monkeypatch):
+    """``spmd_oracle=True``: 2 ``camr_spmd`` steps with the numpy engine
+    beside the shuffle give the JAX oracle run's loads and bytes, the
+    parameters of the run without the oracle bitwise, and a device result
+    with one flipped bit raises the engine oracle's ``AssertionError``."""
+    _, cfg = _cfgs(**TINY)
+    pipe = ShardedTokenPipeline(vocab=64, seq_len=8, global_batch=2)
+    trs = {}
+    for oracle in (True, False):
+        tr = MultiModelCAMRTrainer(cfg, q=2, k=3, device="cpu", seed=0,
+                                   grad_sync_dtype=lane, spmd_oracle=oracle)
+        trs[oracle] = (tr, tr.train_steps(pipe, 2, mode="camr_spmd"))
+    tr, rep = trs[True]
+    assert rep.loads == jax_oracle[lane]["loads"]
+    assert rep.bytes_total == jax_oracle[lane]["bytes_total"]
+    assert rep.loads["L_total_bus"] == pytest.approx(1.0)
+    assert torch.equal(tr.flat.view(torch.int32),
+                       trs[False][0].flat.view(torch.int32))
+    assert rep.losses == trs[False][1].losses
+    stream = tr._spmd_stream()
+    sync = stream.sync
+
+    def flipped(contribs):
+        out = sync(contribs).clone()
+        out.view(torch.int16).view(-1)[7] ^= 1
+        return out
+
+    monkeypatch.setattr(stream, "sync", flipped)
+    with pytest.raises(AssertionError, match="diverged from the engine "
+                                             "oracle"):
+        tr.train_steps(pipe, 1, mode="camr_spmd")
 
 
 def test_chunked_lane_loss_and_flat_gradient_match_jax():
