@@ -136,8 +136,23 @@ result line) on any mismatch:
    each at ``TOPO_QKH``'s (q, k) and d = ``TOPO_D``, the shuffle's
    process lane flat and two-level, f32 and bf16, both routers and the
    multipass codec, every row bitwise the single-process shuffle's, the
-   bytes across processes ``camr_edge_bytes``' inter-host bytes, each
-   child's launches exact (added to the ``kernels`` line);
+   bytes across processes ``camr_edge_bytes``' inter-host bytes, and the
+   lane's other modes on the f32 flat plan: the looped exchange, the
+   verified wire clean and with one corrupted word (its mismatch counts
+   the single-process rows'), a verified ``ShuffleStream(mesh=)`` wave
+   with that fault (one replay in both processes) and a degraded wave,
+   each bitwise; each child's launches exact (added to the ``kernels``
+   line); ``phase_compare``: the paper's camr-vs-uncoded-vs-allreduce
+   comparison (``repro_torch.launch.camr_compare``) at the cell's shard
+   width, at the CLI's (4, 4) and at the two-level cell, the collective
+   ledger's counts and wire bytes gated against
+   ``expected_collective_calls`` and their closed form, each scheme
+   timed by CUDA events, then ``measure_stream`` at (2, 3), d 1,048,576,
+   8 waves with a kill and a rejoin (its launches exact, added to the
+   ``kernels`` line); ``phase_examples``: ``examples/torch/
+   multimodel_camr.py --steps 3``, ``serve_lm.py`` and ``train_lm.py
+   --steps 40`` as subprocesses on the card, each exit 0 and ``OK``,
+   ``train_lm.py``'s loss falling;
 4. **serve** — seven models served through ``DecodeEngine(slots=4,
    page_size=16, max_ctx=1056)`` behind ``ServeStream(wave_len=8)``,
    each on random bf16 weights from seed 0: ``granite_3_2b`` at full
@@ -187,11 +202,10 @@ result line) on any mismatch:
 The last lines are the card's name and power limit, the ``kernels`` JSON
 line (eleven kernels, each with its main-path launches: the granite
 training runs' counts, the codec kernels' plus the process lane's
-children's, ``flash_attention``'s summed over the granite,
-gemma2, zamba2, moonshot, mixtral, internlm2, seamless and internvl2
-serving runs,
-``ssd_scan``'s over the mamba2 and zamba2 runs; and a twelfth entry,
-``flash_attention_f32``, for ``flash_attention``'s f32 body at
+children's and ``phase_compare``'s, ``flash_attention``'s summed over
+the granite, gemma2, zamba2, moonshot, mixtral, internlm2, seamless and
+internvl2 serving runs, ``ssd_scan``'s over the mamba2 and zamba2 runs;
+and a twelfth entry, ``flash_attention_f32``, for ``flash_attention``'s f32 body at
 seamless's encoder shape, its launches those of the f32 body alone,
 3,168 in the four seamless requests on f32 frames) and ``{"ok": true,
 "device": {...}}``. Needs one CUDA card, the CUDA toolkit (``nvcc``) and
@@ -2167,15 +2181,37 @@ def _pg_kernels(dtype: str, codec: str) -> dict:
     return dict.fromkeys(_gathers(getattr(torch, dtype)), 2)
 
 
+#: the device whose Δ the process lane's verified runs corrupt (in
+#: process 0), and the u32 pattern
+PG_CORRUPT_DEV = 1
+PG_CORRUPT_BITS = 0x00000001
+
+
+def _pg_mode_kernels() -> dict:
+    """Kernel launches of the process lane's other modes in one child:
+    the u32 gathers once each a coded stage in the looped shuffle, the
+    clean and the corrupted verified shuffles, and the streamed wave's
+    dispatch and its one replay; the degraded waves launch none."""
+    return {"xor_encode_gather": 10, "xor_decode_gather": 10}
+
+
 def process_group_child(rank: int, port: int) -> int:
     """One process of ``phase_process_group``: joins the gloo group, owns
     4 of the 8 workers, and runs every case of :func:`_pg_cases` twice
     through ``camr_shuffle(mesh=)``, each output bitwise this process's
     rows of the single-process shuffle of the same contributions on the
-    card (computed first; those launches are not counted). Prints one
-    JSON line: its launch counts, each case's ``plan.process_stats`` of the
-    second call and whether gloo takes CUDA tensors for
-    ``all_to_all_single``."""
+    card (computed first; those launches are not counted). Then the
+    lane's other modes on the f32 flat plan, each bitwise the
+    single-process rows: the looped exchange (its permutations
+    ``expected_collective_calls(mode="looped")``'), the verified wire
+    clean and with one corrupted word of device ``PG_CORRUPT_DEV`` in
+    stage 1 (``bad`` the single-process rows'), a verified
+    ``ShuffleStream(mesh=)`` wave with that fault injected (one fault,
+    exactly one replay, in both processes) and two degraded waves
+    (worker ``FAILED`` failed, then the last worker). Prints one JSON line: its launch counts, each
+    case's ``plan.process_stats`` of the second call, the modes' records
+    and whether gloo takes CUDA tensors for ``all_to_all_single``."""
+    import numpy as np
     import torch
     sys.path.insert(0, SRC)
     from repro_torch.core.collective import camr_shuffle, make_plan
@@ -2208,8 +2244,19 @@ def process_group_child(rank: int, port: int) -> int:
     refs = {case: camr_shuffle(plans[case[0]], waves[case[1]],
                                router=case[2], codec=case[3])
             [mesh.lo:mesh.hi].clone() for case in _pg_cases()}
+    flat, w32 = plans["flat"], waves["float32"]
+    row = int(np.flatnonzero(
+        flat.program.stage_tables(1).valid[PG_CORRUPT_DEV])[0])
+    spec = (1, PG_CORRUPT_DEV, row, 1, PG_CORRUPT_BITS)
+    block = lambda t: t[mesh.lo:mesh.hi].clone()
+    mode_refs = dict(
+        looped=block(camr_shuffle(flat, w32, mode="looped")),
+        verified=[block(t) for t in camr_shuffle(flat, w32,
+                                                 verify_wire=True)],
+        corrupt=[block(t) for t in camr_shuffle(flat, w32, verify_wire=True,
+                                                corrupt=spec)])
     mine = {dt: w[mesh.lo:mesh.hi].contiguous() for dt, w in waves.items()}
-    del waves
+    del waves, w32
     torch.cuda.synchronize()
     reset_launch_counts()
     cases = {}
@@ -2223,12 +2270,78 @@ def process_group_child(rank: int, port: int) -> int:
                      "shuffle's rows")
         cases["/".join(case)] = dict(plans[lay].process_stats)
         del out
+    modes = _pg_modes(rank, mesh, mine["float32"], mode_refs,
+                      refs[("flat", "float32", "all_to_all", "fused")], spec)
     counts = {n: c for n, c in launch_counts().items() if c}
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     print(json.dumps({"rank": rank, "counts": counts, "cases": cases,
-                      "gloo_cuda": gloo_cuda}), flush=True)
+                      "modes": modes, "gloo_cuda": gloo_cuda}), flush=True)
     return 0
+
+
+def _pg_modes(rank, mesh, m32, mode_refs, healthy, spec) -> dict:
+    """The process lane's other modes in one child (see
+    :func:`process_group_child`); fails on any mismatch; returns each
+    mode's record: its ``process_stats`` and host ms, the mismatch
+    counts, the stream's ``stats()``."""
+    import torch
+    from repro_torch.core.collective import (ShuffleStream, camr_shuffle,
+                                             expected_collective_calls,
+                                             make_plan)
+    q, k, _ = TOPO_QKH
+    out = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    lp = make_plan(q, k, TOPO_D)
+    got, ms = timed(lambda: camr_shuffle(lp, m32, mode="looped", mesh=mesh))
+    want = expected_collective_calls(lp, mode="looped")
+    if not bitwise_equal(got, mode_refs["looped"]):
+        fail(f"process {rank}: looped != the single-process looped rows")
+    if lp.permutations != {"stage12": want["stage12"],
+                           "stage3": want["stage3"]}:
+        fail(f"process {rank}: looped permutations {lp.permutations}, "
+             f"want {want}")
+    out["looped"] = dict(lp.process_stats, host_ms=ms,
+                         permutations=want["total"])
+    for name, kw in (("verified", {}), ("corrupt", dict(corrupt=spec))):
+        (got, bad), ms = timed(lambda: camr_shuffle(
+            lp, m32, verify_wire=True, mesh=mesh, **kw))
+        ref, ref_bad = mode_refs[name]
+        if not (bitwise_equal(got, ref) and torch.equal(bad, ref_bad)):
+            fail(f"process {rank}: {name} wire != the single-process rows "
+                 f"(bad {bad.tolist()} vs {ref_bad.tolist()})")
+        out[name] = dict(lp.process_stats, host_ms=ms, bad=int(bad.sum()))
+    st = ShuffleStream(q, k, TOPO_D, mesh=mesh, verify_wire=True)
+    st.inject_corruption(stage=spec[0], device=spec[1], row=spec[2],
+                         word=spec[3], bits=spec[4])
+    (got,), ms = timed(lambda: st.run_waves([m32]))
+    if not bitwise_equal(got, healthy.cpu()):
+        fail(f"process {rank}: the streamed wave != the healthy rows")
+    if (st.wire_faults, st.wire_replays) != (1, 1):
+        fail(f"process {rank}: stream faults {st.wire_faults}, replays "
+             f"{st.wire_replays}, want 1 and 1")
+    out["stream"] = dict(host_ms=ms, **{n: st.stats()[n] for n in (
+        "dispatches", "wire_faults", "wire_replays")})
+    # worker FAILED, then the last worker, whose rows the degraded plan
+    # reads nowhere (the exchange must still find each row's process)
+    ms = []
+    for failed in (FAILED, q * k - 1):
+        st.degrade({failed})
+        (got,), t = timed(lambda: st.run_waves([m32]))
+        if not bitwise_equal(got, healthy.cpu()):
+            fail(f"process {rank}: the wave with worker {failed} failed != "
+                 "the healthy rows")
+        ms.append(t)
+    st.restore()
+    out["degraded"] = dict(host_ms=ms, swaps=st.stats()["swaps"])
+    return out
 
 
 def phase_process_group():
@@ -2241,10 +2354,12 @@ def phase_process_group():
     the multipass codec on all_to_all) runs twice in each child, bitwise
     the single-process shuffle's rows; the bytes both children send in
     stages 1 and 2 must equal ``camr_edge_bytes``' inter-host bytes of
-    the layout; each child's launch counts must be exact. A child that
-    fails or outlives ``PG_TIMEOUT`` fails the smoke. Logs each case's
-    per-stage encode / exchange (host staging and gloo) / decode ms;
-    returns the children's launch counts, summed."""
+    the layout; the lane's other modes (:func:`_pg_modes`) bitwise, with
+    no mismatching row on the clean wire and some on the corrupted one;
+    each child's launch counts must be exact. A child that fails or
+    outlives ``PG_TIMEOUT`` fails the smoke. Logs each case's per-stage
+    encode / exchange (host staging and gloo) / decode ms and each
+    mode's host ms; returns the children's launch counts, summed."""
     import socket
     from repro_torch.core.collective import camr_edge_bytes, make_plan
     from repro_torch.core.schedule import Topology
@@ -2279,7 +2394,7 @@ def phase_process_group():
     wall = time.perf_counter() - t0
     q, k, hosts = TOPO_QKH
     two = make_plan(q, k, TOPO_D, Topology.two_level(hosts))
-    want = {}
+    want = dict(_pg_mode_kernels())
     for lay, dt, router, codec in _pg_cases():
         for n, c in _pg_kernels(dt, codec).items():
             want[n] = want.get(n, 0) + 2 * c
@@ -2309,15 +2424,250 @@ def phase_process_group():
                 f"{st[f'stage{i}']['decode_ms']:.3f}, "
                 f"{st[f'stage{i}']['bytes']} bytes" for i in (1, 2))
                 + f"; stage 3 + assembly {st['stage3']['ms']:.3f} ms")
+    modes = [r["modes"] for r in reports]
+    bad = {name: sum(m[name]["bad"] for m in modes)
+           for name in ("verified", "corrupt")}
+    if bad["verified"] or not bad["corrupt"]:
+        fail(f"process_group: mismatching rows {bad} (clean, one corrupted "
+             "word)")
+    for r, m in zip(reports, modes):
+        lp = m["looped"]
+        log(f"process_group[modes] rank {r['rank']}: looped "
+            f"{lp['host_ms']:.1f} ms ({lp['permutations']} permutations, "
+            f"{lp['stage1']['exchanges'] + lp['stage2']['exchanges']} "
+            "stage-1/2 gloo exchanges, "
+            f"{lp['stage1']['bytes'] + lp['stage2']['bytes']} bytes, gloo "
+            f"{lp['stage1']['gloo_ms'] + lp['stage2']['gloo_ms']:.1f} ms); "
+            f"verified {m['verified']['host_ms']:.1f} ms clean, "
+            f"{m['corrupt']['host_ms']:.1f} ms with the corrupted word "
+            f"({m['corrupt']['bad']} rows flagged here); streamed wave "
+            f"{m['stream']['host_ms']:.1f} ms ({m['stream']['dispatches']} "
+            f"dispatches, faults {m['stream']['wire_faults']}, replays "
+            f"{m['stream']['wire_replays']}); degraded waves (worker "
+            f"{FAILED}, worker {q * k - 1} failed) " + ", ".join(
+                f"{t:.1f}" for t in m['degraded']['host_ms']) + " ms")
     log(f"process_group: 2 processes x 4 workers at (q, k) = ({q}, {k}), "
         f"d {TOPO_D}, gloo; {len(reports[0]['cases'])} cases x 2 calls each "
         "bitwise the single-process shuffle's rows; stage 1-2 bytes across "
         "processes == camr_edge_bytes (flat "
         f"{camr_edge_bytes(two)['flat_inter_bytes']}, two-level "
-        f"{camr_edge_bytes(two)['two_level_inter_bytes']} f32); launches a "
+        f"{camr_edge_bytes(two)['two_level_inter_bytes']} f32); looped, "
+        f"verified (mismatching rows {bad}), streamed with one replay and "
+        f"degraded f32 waves (worker {FAILED}, then worker {q * k - 1} "
+        "failed) bitwise the single-process rows; launches a "
         f"child {want} (exact); gloo and CUDA tensors: "
         f"{reports[0]['gloo_cuda']}; {wall:.1f} s wall")
     return total
+
+
+#: phase_compare's points (name, q, k, d, hosts): the training cell's
+#: shard width (set at run time from the cell), the CLI's (q, k) at the
+#: width of its default 4096 cut to a multiple of k-1 = 3 (both packages'
+#: make_plan refuse 4096 there), and phase_topology's two-level cell
+COMPARE_POINTS = (("cell", 2, 3, None, None), ("cli", 4, 4, 4095, None),
+                  ("two_level", 2, 4, TOPO_D, 2))
+#: measure_stream's run: (2, 3) at 0.6 GB of contributions a wave
+STREAM_ARGS = dict(q=2, k=3, d=1_048_576, waves=8, wave_batch=2, depth=2,
+                   kill_at=3, rejoin_at=6)
+
+
+def _stream_shuffles(waves, wave_batch, kill_at, rejoin_at) -> int:
+    """Coded shuffles (each two launches of each gather) of
+    ``measure_stream``: one build and ``waves`` serial ones, the stream's
+    warm-up and timed dispatches, and the churn pass's healthy ones (a
+    batch dispatched while the worker is failed goes to the degraded
+    executor, which launches no kernel)."""
+    stream = -(-waves // wave_batch)
+    warm = 1 + (1 if waves % wave_batch else 0)
+    healthy, pending = 0, 0
+    failed = False
+    for i in range(waves):
+        if i == kill_at:
+            failed = True
+        if rejoin_at is not None and i == rejoin_at:
+            failed = False
+        pending += 1
+        if pending == wave_batch:
+            healthy += not failed
+            pending = 0
+    healthy += bool(pending) and not failed
+    return 1 + waves + warm + stream + healthy
+
+
+def _cpu_width(d: int, k: int, lane_bytes: int, cap: int = 1 << 28) -> int:
+    """The smallest ``m`` dividing ``d`` with ``k-1 | d/m`` whose
+    contributions (``lane_bytes`` a unit of width) fit in ``cap`` bytes
+    on the host: every collective the ledger notes is ``d`` or
+    ``d/(k-1)`` whole words wide there, so the CPU's ledger at ``d/m``
+    times ``m`` is the ledger at ``d``
+    (``tests/test_torch_compare.py::test_ledger_linear_in_width``)."""
+    for m in range(1, d + 1):
+        if d % m == 0 and (d // m) % (k - 1) == 0 \
+                and lane_bytes * (d // m) <= cap:
+            return m
+    fail(f"no width of the host's ledger divides d = {d}")
+
+
+def phase_compare(d_cell: int):
+    """The paper's comparison (``repro_torch.launch.camr_compare``) on the
+    card. At each of ``COMPARE_POINTS`` (the cell's at ``d_cell``):
+    ``lower_schedules`` runs the coded shuffle, the uncoded masked psum
+    and the dense all-reduce once each on zero contributions, and its
+    ledger must give ``expected_collective_calls``' counts and the CPU
+    executors' ledger at the same point (the numbers the CPU tests hold
+    equal to the JAX package's HLO parse; where the point's contributions
+    would not fit the host, at the divisor of ``_cpu_width``, scaled),
+    edge bytes too on the two-level point; then each scheme's ms by CUDA
+    events. One
+    card times the executors' device work, not a network: the uncoded
+    baseline may well be faster; the paper's gain is in the bytes. Then
+    ``measure_stream`` at ``STREAM_ARGS`` (its own checks: outputs close
+    to the reference, bitwise the serial ones, the churn pass bitwise
+    with ``compiles`` flat). Launch counts exact; returns them."""
+    import torch
+    from repro_torch.core.collective import (expected_collective_calls,
+                                             make_plan)
+    from repro_torch.core.schedule import Topology
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import camr_compare
+    total = {}
+    t_phase = time.perf_counter()
+    for name, q, k, d, hosts in COMPARE_POINTS:
+        d = d_cell if d is None else d
+        topo = None if hosts is None else Topology.two_level(hosts)
+        plan = make_plan(q, k, d, topo)
+        K, J, J_own = plan.K, plan.J, plan.J_own
+        contrib = K * J_own * (k - 1) * K * d * 4
+        dense = J * K * d * 4
+        # the uncoded scheme's peak: the contributions, their masked copy,
+        # the stored-batch sums [K, J_own, K, d], the [J, K, d] sum and
+        # the outputs
+        reckoned = 2 * contrib + K * J_own * K * d * 4 + 2 * dense
+        log(f"compare[{name}] (q, k, d) = ({q}, {k}, {d})"
+            f"{'' if topo is None else f', two-level hosts {hosts}'}: "
+            f"contributions {contrib / 1e9:.2f} GB, a [J, K, d] sum "
+            f"{dense / 1e9:.2f} GB; reckoned peak {reckoned / 1e9:.2f} GB")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        res = camr_compare.lower_schedules(q, k, d, topology=topo)
+        exp = expected_collective_calls(plan)
+        ops = {"all-to-all": 2 * (k - 1),
+               "collective-permute": exp["total"] - 2 * (k - 1)}
+        if (res["camr_ops"] != ops
+                or res["uncoded_ops"] != {"all-reduce": 1}
+                or res["allreduce_ops"] != {"all-reduce": 1}):
+            fail(f"compare[{name}]: ops {res['camr_ops']}, "
+                 f"{res['uncoded_ops']}, {res['allreduce_ops']}; want {ops}")
+        div = _cpu_width(d, k, contrib // d)
+        cpu = camr_compare.lower_schedules(q, k, d // div, topology=topo,
+                                           device="cpu")
+        got = {s: res[f"{s}_wire"] for s in ("camr", "uncoded", "allreduce")}
+        want = {s: div * cpu[f"{s}_wire"] for s in got}
+        if got != want or any(res[f"{s}_ops"] != cpu[f"{s}_ops"]
+                              for s in got):
+            fail(f"compare[{name}]: wire bytes {got} != the CPU ledger's at "
+                 f"d / {div}, times {div}: {want}")
+        if topo is not None and res["edge_bytes"] != {
+                n: v if n == "hosts" else div * v
+                for n, v in cpu["edge_bytes"].items()}:
+            fail(f"compare[{name}]: edge bytes {res['edge_bytes']}")
+        c = torch.zeros((K, J_own, k - 1, K, d), device=DEVICE)
+        ms = {m: time_ms(lambda: fn(c), warmup=1, reps=3)
+              for m, fn in camr_compare.schemes(plan).items()}
+        del c
+        counts = {n: v for n, v in launch_counts().items() if v}
+        # each shuffle launches each gather once a coded stage
+        want = dict.fromkeys(_gathers(torch.float32), 2 * (1 + 1 + 3))
+        if counts != want:
+            fail(f"compare[{name}]: launched {counts}, want {want}")
+        for n, v in counts.items():
+            total[n] = total.get(n, 0) + v
+        peak = torch.cuda.max_memory_allocated()
+        base = got["allreduce"]
+        log(f"compare[{name}]: " + "; ".join(
+            f"{m} {got[m]:,} wire bytes ({got[m] / base:.3f}x of "
+            f"allreduce), {res[f'{m}_ops']}, {ms[m]:.3f} ms (CUDA events)"
+            for m in got) + f"; analytic camr_total "
+            f"{res['analytic']['camr_total']:,}; the CPU ledger at d / "
+            f"{div}, times {div}, equal; peak {peak / 1e9:.2f} GB "
+            f"(reckoned {reckoned / 1e9:.2f})")
+        if topo is not None:
+            log(f"compare[{name}]: edge bytes {res['edge_bytes']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    a = STREAM_ARGS
+    r = camr_compare.measure_stream(a["q"], a["k"], a["d"], a["waves"],
+                                    wave_batch=a["wave_batch"],
+                                    depth=a["depth"], kill_at=a["kill_at"],
+                                    rejoin_at=a["rejoin_at"])
+    counts = {n: v for n, v in launch_counts().items() if v}
+    want = dict.fromkeys(_gathers(torch.float32), 2 * _stream_shuffles(
+        a["waves"], a["wave_batch"], a["kill_at"], a["rejoin_at"]))
+    if counts != want:
+        fail(f"compare[stream]: launched {counts}, want {want}")
+    if r["churn"]["swaps"] != 2:
+        fail(f"compare[stream]: churn {r['churn']}")
+    for n, v in counts.items():
+        total[n] = total.get(n, 0) + v
+    log(f"compare[stream] {STREAM_ARGS}: serial {r['serial_s'] * 1e3:.1f} "
+        f"ms, streamed {r['stream_s'] * 1e3:.1f} ms ({r['speedup']:.2f}x, "
+        f"{r['stream_wps']:.1f} waves/s); outputs close to the reference and "
+        f"bitwise the serial ones; churn {r['churn']} bitwise; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+#: the examples of examples/torch that run on the card: (file, arguments)
+EXAMPLES = (("multimodel_camr.py", ("--steps", "3")),
+            ("serve_lm.py", ()),
+            ("train_lm.py", ("--steps", "40")))
+
+
+def phase_examples():
+    """The user entry points that touch the card, each a subprocess
+    (``PYTHONPATH=src``, on the current CUDA device) that must exit 0 and
+    print ``OK``; ``train_lm.py`` must reduce its loss (its own assert;
+    the ``loss a -> b`` line is read too) and checkpoints into a fresh
+    temporary directory."""
+    import re
+    import shutil
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+    try:
+        for name, args in EXAMPLES:
+            extra = ("--ckpt-dir", ckpt) if name == "train_lm.py" else ()
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "examples", "torch",
+                                              name), *args, *extra],
+                capture_output=True, text=True, env=env, cwd=ROOT,
+                timeout=600)
+            lines = res.stdout.splitlines()
+            if res.returncode != 0 or not any(ln.startswith("OK")
+                                              for ln in lines):
+                fail(f"examples: {name} exit {res.returncode}:\n"
+                     f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+            note = ""
+            if name == "train_lm.py":
+                m = [re.match(r"loss (\S+) -> (\S+) over", ln)
+                     for ln in lines]
+                m = [x for x in m if x]
+                if not m or not float(m[0][2]) < float(m[0][1]):
+                    fail(f"examples: train_lm.py's loss did not fall: "
+                         f"{lines[-3:]}")
+                note = f"; {m[0][0]}"
+            log(f"examples[{name} {' '.join(args)}]: exit 0, OK, "
+                f"{time.perf_counter() - t0:.1f} s wall{note}; last lines "
+                f"{lines[-2:]}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
 
 
 # --------------------------------------------------------------------- #
@@ -2846,6 +3196,7 @@ def main() -> int:
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     tr, pipe = build_cell("float32")   # its d_shard sets the kernels' shapes
+    d_cell = tr.d_shard
     results = phase_kernels(gen, tr)
     phase_shuffle()
     phase_waves(gen)
@@ -2912,6 +3263,9 @@ def main() -> int:
     pg_counts = phase_process_group()
     for name, c in pg_counts.items():
         counts[name] += c
+    for name, c in phase_compare(d_cell).items():
+        counts[name] += c
+    phase_examples()
     served = [phase_serve(arch, depth, lens)
               for arch, depth, lens in SERVE_RUNS]
     served += [phase_legacy(arch, runs) for arch, runs in LEGACY_RUNS]

@@ -102,6 +102,29 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def param_count(self, active_only: bool = False) -> int:
+        """The JAX config's closed-form parameter count (the examples
+        print it); ``active_only`` counts an MoE layer's routed experts
+        only."""
+        d, f, hd = self.d_model, self.d_ff, self.hd
+        attn = d * self.n_heads * hd * 2 + d * self.n_kv_heads * hd * 2
+        mlp = 3 * d * f
+        if self.n_experts:
+            e = self.experts_per_token if active_only else self.n_experts
+            mlp = 3 * d * f * e + d * self.n_experts  # experts + router
+        di, H, S = self.ssm_d_inner, self.ssm_heads, self.ssm_state
+        ssm = 2 * d * di + d * 2 * S + d * H + di * d  # B/C group-shared
+        per = {"attn": attn + mlp, "local": attn + mlp,
+               "shared_attn": attn + mlp, "ssm": ssm + d}
+        reps = self.repeats
+        total = 0
+        for kind in self.pattern:
+            n = reps if kind != "shared_attn" else 1  # shared weights
+            total += per[kind] * n
+        total += self.n_enc_layers * (attn + 3 * d * f)
+        total += self.vocab * d * (1 if self.tie_embeddings else 2)
+        return int(total)
+
 
 ARCHS = [
     "internvl2_26b", "mixtral_8x7b", "moonshot_v1_16b_a3b", "internlm2_20b",

@@ -50,10 +50,18 @@ checksum word and counts the decoded rows whose checksum mismatches.
 Process lane (``camr_shuffle(..., mesh=)``, a
 :class:`~repro_torch.launch.mesh.CAMRMesh`): each ``torch.distributed``
 process holds one block of workers and runs the same body with every
-table sliced to its block; the rows whose sender and receiver lie in
-different processes cross over one ``all_to_all_single`` a stage (the JAX
-executor's ``shard_map`` over a mesh that spans processes), and the
-outputs are bitwise the stacked executor's.
+table sliced to its block, in every mode and option; the rows whose
+sender and receiver lie in different processes cross over
+``all_to_all_single`` (one a batched stage, one a looped permutation
+that crosses; the JAX executor's ``shard_map`` over a mesh that spans
+processes), and the outputs are bitwise the stacked executor's.
+``ShuffleStream(mesh=)`` streams a block's waves.
+
+Collective ledger: each place that stands in for a collective of the
+JAX executor reports its kind and per-device result bytes to
+:func:`repro_torch.core.collective_stats.note`, which records them
+only inside a ``record_collectives()`` block (the counterpart of the JAX
+package's HLO parse).
 """
 
 from __future__ import annotations
@@ -71,6 +79,7 @@ from ..device import resolve_device
 from ..kernels.xor_code import (xor_decode, xor_decode_gather,
                                 xor_decode_gather16, xor_encode_gather,
                                 xor_encode_gather16, xor_fold)
+from .collective_stats import note
 from .schedule import (EXEC_CACHE, SCHEDULE_CACHE, HostTables,
                        ShuffleProgram, StageTables, Topology, payload_words,
                        resolve_topology)
@@ -346,10 +355,23 @@ def _multipass_tables(plan: CAMRPlan, stage: int, router: str, t) -> dict:
                             torch.int64))
 
 
+def _round_ops(T: StageTables, router: str, K: int, q: int) -> list:
+    """The collectives of one round of the JAX executor's batched
+    exchange, as ``(kind, packet rows of its per-device result)``: one
+    ``all_to_all`` of ``[K, R, pk]``, or ``q`` ppermutes of ``[R, pk]``
+    (the ledger of :mod:`repro_torch.core.collective_stats`)."""
+    R = int(T.R)
+    if router == "all_to_all":
+        return [("all-to-all", K * R)]
+    return [("collective-permute", R)] * q
+
+
 def _batched_tables(plan: CAMRPlan, stage: int, router: str, t) -> dict:
     """Batched exchange: the routed row of every received round packet."""
     T = plan.program.stage_tables(stage)
-    return _recv_tables(_route_rows(T, router, plan.q, plan.k, plan.K), t)
+    return dict(_recv_tables(_route_rows(T, router, plan.q, plan.k, plan.K),
+                             t),
+                round_ops=_round_ops(T, router, plan.K, plan.q))
 
 
 def _recv_tables(rows: np.ndarray, t) -> dict:
@@ -365,12 +387,14 @@ def _two_level_tables(plan: CAMRPlan, stage: int, router: str, t) -> dict:
     exchange's names, as :func:`_exchange` runs it) and phase B's relay
     lanes."""
     prog = plan.program
+    T = prog.stage_tables(stage)
     a_rows, lanes = _route_rows_two_level(
-        prog.stage_tables(stage), prog.host_tables(stage), router, plan.q,
-        plan.k, plan.K)
+        T, prog.host_tables(stage), router, plan.q, plan.k, plan.K)
     return dict(_recv_tables(a_rows, t),
+                round_ops=_round_ops(T, router, plan.K, plan.q),
                 relay=[(t(d, torch.int64), t(s, torch.int64))
-                       for d, s in lanes])
+                       for d, s in lanes],
+                relay_rows=int(prog.host_tables(stage).Rb))
 
 
 def _looped_tables(plan: CAMRPlan, stage: int, router: str, t) -> dict:
@@ -506,10 +530,18 @@ def _cancellations(packets, st, *, K, k):
     return packets[dev, row, pos, st["cancel_pos"]]
 
 
+def _note_rounds(st, *, k, pk) -> None:
+    """The ledger's record of a stage's ``k-1`` batched rounds."""
+    for _ in range(k - 1):
+        for kind, rows in st["round_ops"]:
+            note(kind, rows * pk * 4)
+
+
 def _exchange(delta, st, *, K, k, pk):
     """The batched round exchange (phase A of the two-level one):
     ``recv [K, n*(k-1), pk]``, round packets in the ``[n, k-1]`` order the
     decode indexes."""
+    _note_rounds(st, k=k, pk=pk)
     recv = delta.reshape(-1, pk).index_select(0, st["recv_rows"])
     if st["recv_zero"] is not None:
         recv.masked_fill_(st["recv_zero"][:, None], 0)
@@ -526,6 +558,8 @@ def _relay(recv, st, calls, *, pk):
     for dst, src in st["relay"]:
         rows.index_copy_(0, dst, rows.index_select(0, src))
         calls["stage12"] += 1
+        note("collective-permute",
+             st["relay_rows"] * pk * rows.element_size())
     return recv
 
 
@@ -544,6 +578,7 @@ def _exchange_looped(delta, st, calls, *, K, k, pk):
             got = payload.index_select(0, st["loop_src"][gi, r])
             got.masked_fill_(st["loop_zero"][gi, r][:, None], 0)
             calls["stage12"] += 1
+            note("collective-permute", pk * got.element_size())
             recv[:, gi, r] = torch.where(valid, got, recv[:, gi, r])
     return recv.view(K, n * (k - 1), pk)
 
@@ -577,9 +612,7 @@ def _stage_coded(wire, st, calls, *, K, k, pk, mode, codec, corrupt=None):
     after the encode, as a bit flip in transit would: every receiver of
     the packet, relayed ones included, gets the tampered word."""
     ctx, delta = _encode_stage(wire, st, K=K, k=k, pk=pk, codec=codec)
-    if corrupt is not None:
-        cdev, crow, cword, cbits = corrupt
-        delta[cdev, crow, cword] ^= cbits
+    _tamper(delta, corrupt, 0, K)
     if mode == "looped":
         recv = _exchange_looped(delta, st, calls, K=K, k=k, pk=pk)
     else:
@@ -590,6 +623,14 @@ def _stage_coded(wire, st, calls, *, K, k, pk, mode, codec, corrupt=None):
     if codec == "multipass":    # rebinding frees the chunk table
         ctx = _cancellations(ctx, st, K=K, k=k)
     return _decode_stage(recv, ctx, st, K=K, k=k, pk=pk, codec=codec)
+
+
+def _tamper(delta, corrupt, lo: int, hi: int) -> None:
+    """XOR a fault spec ``(device, row, word, bits)`` into Δ ``[hi-lo, n,
+    pk]`` of the workers ``[lo, hi)``, when its device is one of them."""
+    if corrupt is not None and lo <= corrupt[0] < hi:
+        cdev, crow, cword, cbits = corrupt
+        delta[cdev - lo, crow, cword] ^= cbits
 
 
 def _xor_reduce(x: torch.Tensor) -> torch.Tensor:
@@ -638,6 +679,60 @@ def _int32_bits(bits: int) -> int:
     return bits - 2 ** 32 if bits >= 2 ** 31 else bits
 
 
+def _check_call(plan: CAMRPlan, *, mode, router, codec, debug,
+                verify_wire, corrupt) -> None:
+    """The argument checks of :func:`camr_shuffle`, shared by both
+    lanes."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    if codec not in CODECS:
+        raise ValueError(f"unknown codec {codec!r}")
+    if router not in ("all_to_all", "ppermute"):
+        raise ValueError(f"unknown router {router!r}")
+    if plan.topology is not None and mode != "batched":
+        raise ValueError("two-level topology requires mode='batched' "
+                         "(the looped legacy router has no host-aware "
+                         "relay lane)")
+    if verify_wire:
+        if codec != "fused" or mode != "batched":
+            raise ValueError("verify_wire requires codec='fused' and "
+                             "mode='batched' (the checksum word rides "
+                             "the row-oriented fused index tables)")
+        if debug:
+            raise ValueError("verify_wire and debug are mutually "
+                             "exclusive (different return shapes)")
+    elif corrupt is not None:
+        raise ValueError("corrupt injection without verify_wire would "
+                         "silently mis-reduce — exactly the failure mode "
+                         "the integrity lane exists to rule out")
+
+
+def _corrupt_spec(corrupt, K: int, n_rows, pkv: int) -> dict:
+    """``corrupt=(stage, device, row, word, bits)`` -> ``{stage: (device,
+    row, word, int32 bits)}``, range-checked (``{}`` for None)."""
+    if corrupt is None:
+        return {}
+    cst, cdev, crow, cword, cbits = (int(x) for x in corrupt)
+    _check_corrupt(cst, cdev, crow, cbits, K, n_rows)
+    if not 0 <= cword < pkv:
+        raise ValueError(f"corrupt word {cword} outside packet "
+                         f"[0, {pkv})")
+    return {cst: (cdev, crow, cword, _int32_bits(cbits))}
+
+
+def _verify_rows(dec, st, bad, *, k, pk, wp):
+    """The receiver's check of a verified stage: recompute each decoded
+    row's checksum and add the mismatching rows of groups the worker is
+    a member of (the others decode garbage) to ``bad``; returns the
+    payload words ``[K_b, n, wp]``, bit for bit the unverified decode's."""
+    Kb, n = dec.shape[0], st["n"]
+    dec = dec.view(Kb, n, k - 1, pk + 1)
+    payload = dec[..., :pk]
+    wrong = (_xor_reduce(payload) != dec[..., pk]) & st["valid"][..., None]
+    bad += wrong.sum(dim=(1, 2), dtype=torch.int32)
+    return payload.reshape(Kb, n, wp).contiguous()
+
+
 def _fold_stored(vals, ar, shard):
     """``vals[s, :, :, shard[s]]`` folded over the stored-batch axis ->
     ``[K, J_own, d]``: a sequential ascending left fold, the canonical
@@ -661,6 +756,7 @@ def _stage3(vals, ar, dst, deliver, permutations):
         pay = _fold_stored(vals, ar, shard)
         s3_out[:, o] = deliver(o, pay)
         permutations["stage3"] += 1
+        note("collective-permute", pay[0].numel() * pay.element_size())
         del pay             # free before the next offset's payload
     return s3_out
 
@@ -733,37 +829,17 @@ def camr_shuffle(plan: CAMRPlan, contribs: torch.Tensor, *,
     the same rows as the single-process shuffle, and the rows that cross
     processes go over ``torch.distributed`` (:func:`_shuffle_process`).
     """
+    _check_call(plan, mode=mode, router=router, codec=codec, debug=debug,
+                verify_wire=verify_wire, corrupt=corrupt)
+    check_codec_dtype(contribs.dtype, "camr_shuffle")
     if mesh is not None:
         return _shuffle_process(plan, contribs, mesh, mode=mode,
                                 router=router, codec=codec, debug=debug,
                                 verify_wire=verify_wire, corrupt=corrupt)
     k, K, J, J_own, d = plan.k, plan.K, plan.J, plan.J_own, plan.d
-    check_codec_dtype(contribs.dtype, "camr_shuffle")
     if tuple(contribs.shape) != (K, J_own, k - 1, K, d):
         raise ValueError(f"contribs shape {tuple(contribs.shape)} != "
                          f"{(K, J_own, k - 1, K, d)}")
-    if mode not in MODES:
-        raise ValueError(f"unknown mode {mode!r}")
-    if codec not in CODECS:
-        raise ValueError(f"unknown codec {codec!r}")
-    if router not in ("all_to_all", "ppermute"):
-        raise ValueError(f"unknown router {router!r}")
-    if plan.topology is not None and mode != "batched":
-        raise ValueError("two-level topology requires mode='batched' "
-                         "(the looped legacy router has no host-aware "
-                         "relay lane)")
-    if verify_wire:
-        if codec != "fused" or mode != "batched":
-            raise ValueError("verify_wire requires codec='fused' and "
-                             "mode='batched' (the checksum word rides "
-                             "the row-oriented fused index tables)")
-        if debug:
-            raise ValueError("verify_wire and debug are mutually "
-                             "exclusive (different return shapes)")
-    elif corrupt is not None:
-        raise ValueError("corrupt injection without verify_wire would "
-                         "silently mis-reduce — exactly the failure mode "
-                         "the integrity lane exists to rule out")
     dtype = contribs.dtype
     contribs = contribs.contiguous()
     tabs = _device_tables(plan, contribs.device, router, codec, mode)
@@ -775,39 +851,22 @@ def camr_shuffle(plan: CAMRPlan, contribs: torch.Tensor, *,
     # [K, J_own, k-1, K, ...]; the verify lane takes every payload as its
     # int32 wire words (the multipass codec's view) and widens the rows
     wire = _wire_buffer(contribs, wp, "multipass" if verify_wire else codec)
-    spec = {}
+    spec = _corrupt_spec(corrupt, K, lambda s: tabs["stages"][s]["n"], pkv)
     if verify_wire:
         wire = _widen(wire, k, pk)
-        if corrupt is not None:
-            cst, cdev, crow, cword, cbits = (int(x) for x in corrupt)
-            _check_corrupt(cst, cdev, crow, cbits, K,
-                           lambda s: tabs["stages"][s]["n"])
-            if not 0 <= cword < pkv:
-                raise ValueError(f"corrupt word {cword} outside packet "
-                                 f"[0, {pkv})")
-            spec[cst] = (cdev, crow, cword, _int32_bits(cbits))
         bad = torch.zeros(K, dtype=torch.int32, device=contribs.device)
 
     # ========== stages 1 + 2: one shared coded-exchange machine ======== #
-    arith = _arith_dtype(dtype)
     stage_vals = {}
     for stage in (1, 2):
         st = tabs["stages"][stage]
         dec = _stage_coded(wire, st, plan.permutations, K=K, k=k, pk=pkv,
                            mode=mode, codec=codec, corrupt=spec.get(stage))
         if verify_wire:
-            # recompute each decoded row's checksum; rows of groups the
-            # device is not a member of decode garbage and are masked
-            dec = dec.view(K, st["n"], k - 1, pkv)
-            payload = dec[..., :pk]
-            wrong = ((_xor_reduce(payload) != dec[..., pk])
-                     & st["valid"][..., None])
-            bad += wrong.sum(dim=(1, 2), dtype=torch.int32)
-            # the payload words are bit for bit the unverified decode's
-            dec = payload.reshape(K, st["n"], wp).contiguous()
+            dec = _verify_rows(dec, st, bad, k=k, pk=pk, wp=wp)
         stage_vals[stage] = _from_wire(dec, dtype, d)   # [K, n, d]
     del wire
-    vals = contribs.view(arith)
+    vals = contribs.view(_arith_dtype(dtype))
 
     # ========== stage 3: intra-class unicasts (q-1 permutations) ======= #
     def deliver(o, pay):
@@ -819,24 +878,34 @@ def camr_shuffle(plan: CAMRPlan, contribs: torch.Tensor, *,
     s3_out = _stage3(vals, tabs["ar"], tabs["s3_dst"], deliver,
                      plan.permutations)                  # [K, q-1, J_own, d]
     if debug:
-        ar = tabs["ar"][:, None]
-        slot = tabs["own_slot"]
-        own_sum = _fold_stored(vals, tabs["ar"], tabs["ar"])
-        info = dict(stage1=stage_vals[1],
-                    stage2=stage_vals[2][ar, tabs["s2_ord"]],
-                    stage3=s3_out[ar, tabs["s3_off"], slot],
-                    own_sum=own_sum[ar, slot])
-        info = {key: v.contiguous().view(dtype) for key, v in info.items()}
-        del own_sum
+        info = _debug_info(stage_vals, s3_out, vals, tabs["ar"], tabs, 0, K,
+                           dtype)
 
     # ========== assemble (reduce-side tables of the program) ========== #
     out = _assemble(stage_vals, s3_out, vals, tabs["ar"], tabs["ar"], tabs,
                     J=J, d=d).view(dtype)
     if debug:
-        return dict(out=out, **info, is_own=tabs["is_own"])
+        return dict(out=out, **info)
     if verify_wire:
         return out, bad
     return out
+
+
+def _debug_info(stage_vals, s3_out, vals, ar, tabs, lo: int, hi: int,
+                dtype) -> dict:
+    """The JAX executor's debug dict of the workers ``[lo, hi)`` (rows
+    ``ar`` of the block's tensors): ``stage1``, ``stage2``, ``stage3``,
+    ``own_sum`` ``[., J, d]`` (each worker's selections of every job
+    row) and ``is_own``."""
+    r = ar[:, None]
+    slot = tabs["own_slot"][lo:hi]
+    own_sum = _fold_stored(vals, ar, ar + lo)
+    info = dict(stage1=stage_vals[1],
+                stage2=stage_vals[2][r, tabs["s2_ord"][lo:hi]],
+                stage3=s3_out[r, tabs["s3_off"][lo:hi], slot],
+                own_sum=own_sum[r, slot])
+    info = {key: v.contiguous().view(dtype) for key, v in info.items()}
+    return dict(info, is_own=tabs["is_own"][lo:hi])
 
 
 # --------------------------------------------------------------------- #
@@ -873,8 +942,10 @@ def _blocks(rows: np.ndarray, proc: np.ndarray, me: int, world: int,
     take a delivered row again). Returns this process's local ``(slots,
     rows)``; the slots it fills from each other process in rank order
     with, for each, its index among the rows received (``recv_index``)
-    and their counts; and the rows it sends to each, in the order their
-    receiver takes them."""
+    and their counts; the rows it sends to each, in the order their
+    receiver takes them; and whether any process receives a row from
+    another (``active``: the exchange runs, in every process, or in
+    none)."""
     def deliveries(dst, src):
         slots = np.nonzero(proc[dst] == src)[0]
         got = rows[dst][slots]
@@ -896,7 +967,17 @@ def _blocks(rows: np.ndarray, proc: np.ndarray, me: int, world: int,
                 recv_counts=rcount,
                 send_rows=cat(send[p] for p in others),
                 send_counts=[len(send[p]) if p != me else 0
-                             for p in range(world)])
+                             for p in range(world)],
+                active=bool(((proc >= 0) & (proc != np.arange(world)[:, None])
+                             ).any()))
+
+
+def _perm_blocks(src: np.ndarray, Kl: int, W: int, me: int) -> dict:
+    """A device-axis permutation, ``src[b]`` the sender of receiver ``b``
+    (-1: none), split by process (:func:`_blocks`, one slot a worker)."""
+    proc = np.where(src >= 0, src // Kl, -1)
+    rows = np.where(src >= 0, src % Kl, -1)
+    return _blocks(rows.reshape(W, Kl), proc.reshape(W, Kl), me, W, 1)
 
 
 def _process_tables(plan: CAMRPlan, mesh, router: str, glob: dict,
@@ -924,8 +1005,8 @@ def _process_tables(plan: CAMRPlan, mesh, router: str, glob: dict,
         return torch.as_tensor(a, dtype=torch.int64, device=device)
 
     def on(x):      # a _blocks split, its index arrays on the device
-        return {name: v if name.endswith("counts") else idx(v)
-                for name, v in x.items()}
+        return {name: v if name.endswith("counts") or name == "active"
+                else idx(v) for name, v in x.items()}
 
     stages = {}
     for stage in (1, 2):
@@ -940,6 +1021,8 @@ def _process_tables(plan: CAMRPlan, mesh, router: str, glob: dict,
         proc = np.where(rows >= 0, proc_of[np.clip(rows, 0, None) // n], -1)
         x = _blocks(np.where(rows >= 0, rows - proc * Kl * n, -1), proc, me,
                     W, S)
+        # every relay lane, also one with no slot in this block: each
+        # process runs (and counts) the lanes of the JAX executor
         relay = []
         for dst, src in lanes:
             if (proc_of[dst // S] != proc_of[src // S]).any():
@@ -949,9 +1032,20 @@ def _process_tables(plan: CAMRPlan, mesh, router: str, glob: dict,
                     f"workers (hosts {plan.topology.hosts}, {W} "
                     "processes)")
             m = proc_of[dst // S] == me
-            if m.any():
-                relay.append((idx(dst[m] - lo * S), idx(src[m] - lo * S)))
-        stages[stage] = dict(on(x), n=n, relay=relay)
+            relay.append((idx(dst[m] - lo * S), idx(src[m] - lo * S)))
+        stages[stage] = dict(on(x), n=n, relay=relay,
+                             round_ops=_round_ops(T, router, K, q))
+        if plan.topology is not None:
+            stages[stage]["relay_rows"] = int(prog.host_tables(stage).Rb)
+        # the looped exchange, per (group, round): the permutation's
+        # deliveries split by process, as stage 3's below
+        loop = np.full((n, k - 1, K), -1, np.int64)
+        for gi, rounds in enumerate(prog.round_perms(stage)):
+            for r, pairs in enumerate(rounds):
+                for a, b in pairs:
+                    loop[gi, r, b] = a
+        stages[stage]["loop"] = [[on(_perm_blocks(src, Kl, W, me))
+                                  for src in rounds] for rounds in loop]
     # stage 3, per offset: receiver b takes sender a's fold of shard b,
     # row a-lo of the sender's block payload
     s3 = []
@@ -959,10 +1053,7 @@ def _process_tables(plan: CAMRPlan, mesh, router: str, glob: dict,
         src = np.full(K, -1, np.int64)
         for a, b in perms:
             src[b] = a
-        proc = np.where(src >= 0, proc_of[np.clip(src, 0, None)], -1)
-        rows = np.where(src >= 0, src % Kl, -1)
-        s3.append(on(_blocks(rows.reshape(W, Kl), proc.reshape(W, Kl), me,
-                             W, 1)))
+        s3.append(on(_perm_blocks(src, Kl, W, me)))
     # assembly: the stacked executor's rows of this block's workers,
     # renumbered from the block's first
     J, J_own = plan.J, plan.J_own
@@ -1006,18 +1097,18 @@ class Marks:
         return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
 
 
-def _all_to_all(send: torch.Tensor, send_counts, recv_counts):
+def _all_to_all(send: torch.Tensor, send_counts, recv_counts, active):
     """One ``all_to_all_single`` of whole rows over the default group:
     ``send`` holds the rows for each other process in rank order
     (``send_counts``), the result the rows from each (``recv_counts``),
     on ``send``'s device. The group is gloo, so rows on a card are
     staged through pinned host buffers here, explicitly: ``staging_ms``
     is the device-to-host and host-to-device copy, ``gloo_ms`` the
-    collective. No collective runs when no process sends anything (every
-    process knows it from the same tables)."""
+    collective. No collective runs when no process sends anything
+    (``active`` False: every process knows it from the same tables)."""
     rec = dict(bytes=0, rows=int(sum(send_counts)), staging_ms=0.0,
-               gloo_ms=0.0)
-    if not any(send_counts) and not any(recv_counts):
+               gloo_ms=0.0, exchanges=int(active))
+    if not active:
         return send[:0], rec
     shape = send.shape[1:]
     dev = send.device
@@ -1040,35 +1131,131 @@ def _all_to_all(send: torch.Tensor, send_counts, recv_counts):
     return got.view(send.dtype).view(-1, *shape), rec
 
 
+def _deliver(pay: torch.Tensor, x: dict, recs: list,
+             slots: int | None = None) -> torch.Tensor:
+    """One exchange of the block's rows ``pay`` by a :func:`_blocks`
+    split ``x`` into ``slots`` receive slots (default: one a row of
+    ``pay``, a device-axis permutation): each slot gets its row from
+    this process's ``pay`` or over ``torch.distributed``, zeros where it
+    has none; the exchange's record goes to ``recs``."""
+    got = pay.new_zeros((len(pay) if slots is None else slots,)
+                        + pay.shape[1:])
+    got.index_copy_(0, x["local_slots"], pay.index_select(0, x["local_rows"]))
+    moved, rec = _all_to_all(pay.index_select(0, x["send_rows"]),
+                             x["send_counts"], x["recv_counts"], x["active"])
+    got.index_copy_(0, x["recv_slots"], moved.index_select(0, x["recv_index"]))
+    recs.append(rec)
+    return got
+
+
+def _sum_recs(recs: list) -> dict:
+    return {key: sum(r[key] for r in recs) for key in recs[0]}
+
+
+def _exchange_process(delta, x, calls, *, k, pk):
+    """The batched (phase A of the two-level) exchange of the block:
+    ``recv [K_local, n*(k-1), pk]`` filled from the block's own Δ rows
+    and those of the other processes (one ``all_to_all_single``), then
+    phase B's relay lanes, inside the process. Returns ``(recv,
+    record)``."""
+    _note_rounds(x, k=k, pk=pk)
+    Kl, S = delta.shape[0], x["n"] * (k - 1)
+    recs = []
+    recv = _deliver(delta.reshape(-1, pk), x, recs, slots=Kl * S)
+    return _relay(recv.view(Kl, S, pk), x, calls, pk=pk), recs[0]
+
+
+def _exchange_looped_process(delta, st, x, calls, *, k, pk):
+    """The looped exchange of the block: :func:`_exchange_looped` with
+    each (group, round) permutation run by :func:`_deliver`, one
+    ``all_to_all_single`` for each permutation that has a pair across
+    processes. Returns ``(recv, record)``."""
+    Kl, n = delta.shape[0], st["n"]
+    recv = torch.zeros((Kl, n, k - 1, pk), dtype=delta.dtype,
+                       device=delta.device)
+    recs = []
+    for gi in range(n):
+        valid = st["valid"][:, gi, None]
+        payload = torch.where(valid, delta[:, gi], 0)
+        for r in range(k - 1):
+            got = _deliver(payload, x["loop"][gi][r], recs)
+            calls["stage12"] += 1
+            note("collective-permute", pk * got.element_size())
+            recv[:, gi, r] = torch.where(valid, got, recv[:, gi, r])
+    return recv.view(Kl, n * (k - 1), pk), _sum_recs(recs)
+
+
+def degraded_block_rows(a_idx, g_idx, g_mask, mesh, J: int, device):
+    """The process lane of the degraded executor
+    (``runtime.fault.build_degraded_executor(mesh=)``): the dense plan's
+    rows of this process's block of outputs, their indices renumbered
+    into a buffer of the flat rows they read, and ``gather(flat_local)
+    -> buffer``, which takes this process's own rows and receives the
+    others' in one ``all_to_all_single`` (sending each other process the
+    rows of its block's needs that this one holds). Every process works
+    out every block's needs from the same plan. Padding indices point at
+    row 0 of the buffer (their selects keep the accumulator)."""
+    W, me, Kl = mesh.world, mesh.rank, mesh.K_local
+    per = J * Kl                         # flat rows a process holds
+    rows = a_idx.shape[0] // W           # output rows of a block
+
+    def needs(p):
+        r = slice(p * rows, (p + 1) * rows)
+        return np.unique(np.concatenate([a_idx[r], g_idx[r][g_mask[r]]]))
+
+    need = [needs(p) for p in range(W)]
+    mine, others = need[me], [p for p in range(W) if p != me]
+    owner = mine // per
+    order = np.concatenate([mine[owner == me]]
+                           + [mine[owner == p] for p in others])
+    pos = np.zeros(J * mesh.K, np.int64)
+    pos[order] = np.arange(len(order))
+    sl = slice(me * rows, (me + 1) * rows)
+    g_m = g_mask[sl]
+    idx = lambda a: torch.as_tensor(a.astype(np.int64), device=device)
+    local = idx(mine[owner == me] - me * per)
+    send = [need[p][need[p] // per == me] - me * per for p in others]
+    send_idx = idx(np.concatenate(send or [np.zeros(0, np.int64)]))
+    send_counts = [0] * W
+    for p, x in zip(others, send):
+        send_counts[p] = len(x)
+    recv_counts = [int((owner == p).sum()) if p != me else 0
+                   for p in range(W)]
+    active = any((need[p] // per != p).any() for p in range(W))
+
+    def gather(flat: torch.Tensor) -> torch.Tensor:
+        got, _ = _all_to_all(flat.index_select(0, send_idx), send_counts,
+                             recv_counts, active)
+        return torch.cat([flat.index_select(0, local), got])
+
+    return (pos[a_idx[sl]], np.where(g_m, pos[g_idx[sl]], 0), g_m, gather)
+
+
 def _shuffle_process(plan: CAMRPlan, contribs: torch.Tensor, mesh, *,
                      mode, router, codec, debug, verify_wire, corrupt):
     """:func:`camr_shuffle`'s process lane: the stacked executor's body
     (encode, exchange, relay, decode, stage 3, the fold) for this
     process's block of workers only, every table sliced to the block, so
     the codec kernels launch over ``K_local`` workers. Only rows whose
-    sender and receiver lie in different processes cross, one
-    ``all_to_all_single`` a coded stage (one row per delivery of the
-    lowered send tables: ``camr_edge_bytes``' inter-host bytes when the
-    hosts are the processes; a two-level plan's phase B stays inside the
-    process), and one a stage-3 offset where a class straddles two
-    blocks. Records, in ``plan.process_stats``, each stage's bytes and
-    rows sent and its encode / exchange / decode ms (the exchange's host
-    staging and gloo time apart)."""
-    if mode != "batched" or verify_wire or corrupt is not None or debug:
-        raise ValueError(
-            "the process lane runs mode='batched' without verify_wire, "
-            "corrupt or debug; the looped exchange and the self-verifying "
-            "wire across processes are still to port (ROADMAP.md, Queue "
-            "1)")
-    if codec not in CODECS:
-        raise ValueError(f"unknown codec {codec!r}")
-    if router not in ("all_to_all", "ppermute"):
-        raise ValueError(f"unknown router {router!r}")
+    sender and receiver lie in different processes cross: in the batched
+    mode one ``all_to_all_single`` a coded stage (one row per delivery
+    of the lowered send tables: ``camr_edge_bytes``' inter-host bytes
+    when the hosts are the processes; a two-level plan's phase B stays
+    inside the process), in the looped mode one for each (group, round)
+    permutation with a pair across processes, and one a stage-3 offset
+    where a class straddles two blocks. The verified wire moves its rows
+    of ``pk+1`` words the same way; a fault spec is XORed in by the
+    process that holds its device, and ``bad`` comes back as
+    ``int32[K_local]``. Every mode, codec and option of the stacked
+    executor runs, with its bits, its permutation counts and its ledger.
+    Records, in ``plan.process_stats``, each stage's bytes and rows sent,
+    its ``all_to_all_single`` calls (``exchanges``) and its encode /
+    exchange / decode ms (the exchange's host staging and gloo time
+    apart)."""
     k, K, J, J_own, d = plan.k, plan.K, plan.J, plan.J_own, plan.d
     if mesh.K != K:
         raise ValueError(f"mesh of {mesh.K} workers for a plan of {K}")
     Kl, lo, hi = mesh.K_local, mesh.lo, mesh.hi
-    check_codec_dtype(contribs.dtype, "camr_shuffle")
     if tuple(contribs.shape) != (Kl, J_own, k - 1, K, d):
         raise ValueError(f"contribs shape {tuple(contribs.shape)} != "
                          f"{(Kl, J_own, k - 1, K, d)} (this process's "
@@ -1079,53 +1266,44 @@ def _shuffle_process(plan: CAMRPlan, contribs: torch.Tensor, mesh, *,
     px = _process_tables(plan, mesh, router, glob, dev)
     wp = payload_words(d, contribs.element_size(), k)
     pk = wp // (k - 1)
-    wire = _wire_buffer(contribs, wp, codec)
+    pkv = pk + 1 if verify_wire else pk
+    wire = _wire_buffer(contribs, wp, "multipass" if verify_wire else codec)
+    spec = _corrupt_spec(corrupt, K, lambda s: glob["stages"][s]["n"], pkv)
+    if verify_wire:
+        wire = _widen(wire, k, pk)
+        bad = torch.zeros(Kl, dtype=torch.int32, device=dev)
     clock, stats, stage_vals = Marks(dev), {}, {}
     for stage in (1, 2):
         st = _local_stage(glob["stages"][stage], lo, hi, k)
         x = px["stages"][stage]
-        n = x["n"]
         clock.mark()
-        ctx, delta = _encode_stage(wire, st, K=Kl, k=k, pk=pk, codec=codec)
+        ctx, delta = _encode_stage(wire, st, K=Kl, k=k, pk=pkv, codec=codec)
+        _tamper(delta, spec.get(stage), lo, hi)
         clock.mark()
-        flat = delta.reshape(-1, pk)
-        recv = torch.zeros((Kl * n * (k - 1), pk), dtype=flat.dtype,
-                           device=dev)
-        recv.index_copy_(0, x["local_slots"],
-                         flat.index_select(0, x["local_rows"]))
-        got, stats[f"stage{stage}"] = _all_to_all(
-            flat.index_select(0, x["send_rows"]), x["send_counts"],
-            x["recv_counts"])
-        recv.index_copy_(0, x["recv_slots"],
-                         got.index_select(0, x["recv_index"]))
-        recv = _relay(recv.view(Kl, n * (k - 1), pk), x, plan.permutations,
-                      pk=pk)
-        del delta, flat, got
+        if mode == "looped":
+            recv, stats[f"stage{stage}"] = _exchange_looped_process(
+                delta, st, x, plan.permutations, k=k, pk=pkv)
+        else:
+            recv, stats[f"stage{stage}"] = _exchange_process(
+                delta, x, plan.permutations, k=k, pk=pkv)
+        del delta
         clock.mark()
         if codec == "multipass":
             ctx = _cancellations(ctx, st, K=Kl, k=k)
-        dec = _decode_stage(recv, ctx, st, K=Kl, k=k, pk=pk, codec=codec)
+        dec = _decode_stage(recv, ctx, st, K=Kl, k=k, pk=pkv, codec=codec)
+        if verify_wire:
+            dec = _verify_rows(dec, st, bad, k=k, pk=pk, wp=wp)
         stage_vals[stage] = _from_wire(dec, dtype, d)
     del wire
     clock.mark()
     vals = contribs.view(_arith_dtype(dtype))
     s3_recs = []
-
-    def deliver(o, pay):
-        x = px["s3"][o]
-        got = torch.zeros_like(pay)
-        got.index_copy_(0, x["local_slots"],
-                        pay.index_select(0, x["local_rows"]))
-        moved, rec = _all_to_all(pay.index_select(0, x["send_rows"]),
-                                 x["send_counts"], x["recv_counts"])
-        got.index_copy_(0, x["recv_slots"],
-                        moved.index_select(0, x["recv_index"]))
-        s3_recs.append(rec)
-        return got
-
     ar = torch.arange(Kl, device=dev)
-    s3_out = _stage3(vals, ar, [t[lo:hi] for t in glob["s3_dst"]], deliver,
+    s3_out = _stage3(vals, ar, [t[lo:hi] for t in glob["s3_dst"]],
+                     lambda o, pay: _deliver(pay, px["s3"][o], s3_recs),
                      plan.permutations)
+    if debug:
+        info = _debug_info(stage_vals, s3_out, vals, ar, glob, lo, hi, dtype)
     out = _assemble(stage_vals, s3_out, vals, ar, ar + lo, px, J=J, d=d)
     clock.mark()
     ms = clock.read()
@@ -1134,11 +1312,15 @@ def _shuffle_process(plan: CAMRPlan, contribs: torch.Tensor, mesh, *,
                                       exchange_ms=ms[3 * i + 1],
                                       decode_ms=ms[3 * i + 2])
     # stage 3 and the assembly
-    stats["stage3"] = dict({key: sum(r[key] for r in s3_recs)
-                            for key in s3_recs[0]}, ms=ms[6])
+    stats["stage3"] = dict(_sum_recs(s3_recs), ms=ms[6])
     plan.process_stats.clear()
     plan.process_stats.update(stats)
-    return out.view(dtype)
+    out = out.view(dtype)
+    if debug:
+        return dict(out=out, **info)
+    if verify_wire:
+        return out, bad
+    return out
 
 
 def expected_collective_calls(plan: CAMRPlan, mode: str = "batched",
@@ -1211,6 +1393,7 @@ def uncoded_reduce_scatter(contribs: torch.Tensor, *,
                            device=dev)
     total.index_put_((jobs,), part.reshape(K * J_own, K, plan.d),
                      accumulate=True)
+    note("all-reduce", total.numel() * total.element_size())
     return total.transpose(0, 1).contiguous()
 
 
@@ -1337,6 +1520,23 @@ class ShuffleStream:
       :meth:`inject_corruption` arms a one-shot fault on the next
       dispatch.
 
+    * **process lane** — ``mesh`` (a
+      :class:`~repro_torch.launch.mesh.CAMRMesh`) runs every dispatch
+      through ``camr_shuffle(mesh=)``: each process submits and gets
+      back its block's rows, ``[K_local, J_own, k-1, K, d] -> [K_local,
+      J, d]``, every process makes the same calls in the same order
+      (``inject_corruption`` with the same arguments: the process that
+      holds the device XORs the fault in), a verified wave's mismatch
+      count is summed over the processes before the replay decision,
+      and the degraded lane exchanges the rows each block's survivors
+      need before its fold (``build_degraded_executor(mesh=)``; the
+      ``"host"`` lane needs every row and is refused). Outputs and
+      :meth:`stats` are bitwise the single-process stream's rows. The
+      group is gloo, whose calls block the host thread: a dispatch
+      returns only after its exchanges, so ``depth`` overlaps the host
+      work of the next wave with the card's work of this one only past
+      the last exchange of the shuffle.
+
     ``compiles`` counts healthy executor builds (one plan and one set of
     device tables per stacked width, topology and gateway set; a fault
     spec is an argument of the executor, not a build of its own),
@@ -1351,7 +1551,8 @@ class ShuffleStream:
                  mode: str = "batched", router: str = "all_to_all",
                  codec: str = "fused", degraded_lane: str = "device",
                  topology=None, gateway_avoid=frozenset(),
-                 verify_wire: bool = False, max_replays: int = 2):
+                 verify_wire: bool = False, max_replays: int = 2,
+                 mesh=None):
         if k < 3:
             raise ValueError("the coded collective path requires k >= 3")
         if d % (k - 1):
@@ -1373,6 +1574,19 @@ class ShuffleStream:
             raise ValueError(f"unknown degraded_lane {degraded_lane!r}")
         self.q, self.k, self.d = q, k, d
         self.K = q * k
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.K != self.K:
+                raise ValueError(f"mesh of {mesh.K} workers for a stream "
+                                 f"of {self.K}")
+            if degraded_lane == "host":
+                raise ValueError("degraded_lane='host' interprets every "
+                                 "worker's rows on one host; the process "
+                                 "lane holds a block of them")
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.mode, self.router, self.codec = mode, router, codec
         self.topology = self._checked_topology(topology)
         self._gateway_avoid = self._checked_avoid(gateway_avoid)
@@ -1425,7 +1639,8 @@ class ShuffleStream:
         stream."""
         return camr_shuffle(self._executor(W), buf, mode=self.mode,
                             router=self.router, codec=self.codec,
-                            verify_wire=self.verify_wire, corrupt=corrupt)
+                            verify_wire=self.verify_wire, corrupt=corrupt,
+                            mesh=self.mesh)
 
     def _program(self, W: int = 1):
         return SCHEDULE_CACHE.program(self.q, self.k, Q=self.K,
@@ -1517,12 +1732,13 @@ class ShuffleStream:
         return spec
 
     def _verified(self, res, bad, buf, W: int) -> torch.Tensor:
-        """Read the per-device mismatch counts (a host sync); on a fault,
-        run the SAME wave again through the clean executor, up to
-        ``max_replays`` times, then raise ``WireCorruptionError``. A
-        clean pass decodes exactly the unverified lane's payload words,
-        so a replay is bitwise."""
-        total = int(bad.sum())
+        """Read the per-device mismatch counts (a host sync; on the
+        process lane summed over the processes, so that every process
+        takes the same decision); on a fault, run the SAME wave again
+        through the clean executor, up to ``max_replays`` times, then
+        raise ``WireCorruptionError``. A clean pass decodes exactly the
+        unverified lane's payload words, so a replay is bitwise."""
+        total = self._mesh_total(bad)
         if total:
             self.wire_faults += 1
         replays = 0
@@ -1538,8 +1754,17 @@ class ShuffleStream:
             self.wire_replays += 1
             self.dispatches += 1
             res, bad = self._shuffle(buf, W)
-            total = int(bad.sum())
+            total = self._mesh_total(bad)
         return res
+
+    def _mesh_total(self, bad: torch.Tensor) -> int:
+        """The mismatching rows of a wave over every worker."""
+        total = int(bad.sum())
+        if self.mesh is not None and self.mesh.world > 1:
+            t = torch.tensor([total], dtype=torch.int64)
+            torch.distributed.all_reduce(t)
+            total = int(t)
+        return total
 
     # -- live elasticity ------------------------------------------------ #
     @property
@@ -1577,14 +1802,17 @@ class ShuffleStream:
         from ..runtime.fault import build_degraded_executor
         failed = self._failed if failed is None else failed
         topo = None if self.topology is None else self.topology.key()
+        block = (None if self.mesh is None
+                 else (self.mesh.world, self.mesh.rank))
         key = ("spmd_degraded", self.q, self.k, self.K, W * self.d,
                _dtype_name(dtype), tuple(sorted(failed)), topo,
-               str(self.device))
+               str(self.device), block)
 
         def build():
             self.degraded_compiles += 1
             return build_degraded_executor(self._program(W), failed,
-                                           W * self.d, dtype, self.device)
+                                           W * self.d, dtype, self.device,
+                                           mesh=self.mesh)
 
         return EXEC_CACHE.get(key, build)
 
@@ -1634,8 +1862,8 @@ class ShuffleStream:
             self.device)
 
     def _check_wave(self, contribs) -> None:
-        shape = (self.K, self.q ** (self.k - 2), self.k - 1, self.K,
-                 self.d)
+        shape = (self.K if self.mesh is None else self.mesh.K_local,
+                 self.q ** (self.k - 2), self.k - 1, self.K, self.d)
         if tuple(contribs.shape) != shape:
             raise ValueError(f"wave shape {tuple(contribs.shape)} != "
                              f"{shape}")

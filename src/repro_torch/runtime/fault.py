@@ -906,7 +906,8 @@ def degraded_dense_plan(program, failed):
     return a_idx, g_idx, g_mask
 
 
-def build_degraded_executor(program, failed, d: int, dtype, device=None):
+def build_degraded_executor(program, failed, d: int, dtype, device=None, *,
+                            mesh=None):
     """Build the dense degraded plan into ONE device executor
     ``contribs [K, J_own, k-1, K, d] -> out [K, J, d]`` (DESIGN.md §15)
     — the :class:`~repro_torch.core.collective.ShuffleStream` degraded
@@ -925,8 +926,18 @@ def build_degraded_executor(program, failed, d: int, dtype, device=None):
     ``[R, d]`` slab is gathered per (group, element) inside the fold, so
     the ``[R, G, E, d]`` element tensor is never materialized, and a slot
     that is padding on every row is skipped (the select would keep
-    ``acc``). ``uint32`` values add on their ``int32`` view (the same
-    wrapped bits; torch has no ``uint32`` add).
+    ``acc``; likewise a group that is padding on every row of a block).
+    ``uint32`` values add on their ``int32`` view (the same wrapped bits;
+    torch has no ``uint32`` add).
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.CAMRMesh`) builds the
+    process lane's executor of this process's block, ``[K_local, J_own,
+    k-1, K, d] -> [K_local, J, d]``: the plan's rows of the block's
+    outputs, the flat rows they read exchanged first (one
+    ``all_to_all_single`` of the rows each process's survivors hold for
+    the others; every process works out every block's needs from the
+    same plan), then the same fold over the gathered rows, bitwise the
+    single-process executor's rows.
     """
     device = resolve_device(device)
     a_idx, g_idx, g_mask = degraded_dense_plan(program, failed)
@@ -936,6 +947,13 @@ def build_degraded_executor(program, failed, d: int, dtype, device=None):
     Gm, Em = g_idx.shape[1], g_idx.shape[2]
     shape = (K, J_own, k - 1, K, d)
     arith = torch.int32 if dtype == torch.uint32 else dtype
+    gather = None
+    if mesh is not None:
+        from repro_torch.core.collective import degraded_block_rows
+        a_idx, g_idx, g_mask, gather = degraded_block_rows(
+            a_idx, g_idx, g_mask, mesh, J_own * (k - 1) * K, device)
+        shape = (mesh.K_local,) + shape[1:]
+    rows_out = a_idx.shape[0] // shape[0]
 
     def idx(a):
         return torch.as_tensor(a.astype(np.int64), device=device)
@@ -962,8 +980,12 @@ def build_degraded_executor(program, failed, d: int, dtype, device=None):
                 f"{tuple(contribs.shape)} {contribs.dtype} on "
                 f"{contribs.device}")
         flat = contribs.reshape(-1, d).view(arith)       # [F, d]
+        if gather is not None:
+            flat = gather(flat)
         B = None
         for g, (rows, masks, valid) in enumerate(groups):
+            if g and valid is None:     # padding on every row: B stays
+                continue
             acc = flat.index_select(0, rows[0])
             for e in range(1, Em):
                 if masks[e] is not None:
@@ -973,6 +995,6 @@ def build_degraded_executor(program, failed, d: int, dtype, device=None):
             B = acc if g == 0 else torch.where(valid, B + acc, B)
             del acc
         A = flat.index_select(0, ai)
-        return A.add_(B).view(K, J, d).view(dtype)       # A + B
+        return A.add_(B).view(shape[0], rows_out, d).view(dtype)  # A + B
 
     return run

@@ -1003,6 +1003,19 @@ for plan in (plan0, make_plan(q, k, d, detect_topology(k))):
                 assert torch.equal(got.view(v),
                                    want[mesh.lo:mesh.hi].view(v)), \\
                     (plan.topology, dt, router, codec)
+# the lane's other modes on the f32 flat plan
+mine = full[mesh.lo:mesh.hi].contiguous()
+for kw in (dict(mode="looped"), dict(verify_wire=True), dict(debug=True),
+           dict(verify_wire=True, corrupt=(1, 1, 0, 1, 1))):
+    want = camr_shuffle(plan0, full, **kw)
+    got = camr_shuffle(plan0, mine, mesh=mesh, **kw)
+    if isinstance(want, dict):
+        want, got = [want[n] for n in sorted(want)], [got[n] for n in
+                                                      sorted(got)]
+    elif not isinstance(want, tuple):
+        want, got = [want], [got]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w[mesh.lo:mesh.hi]), kw
 torch.distributed.destroy_process_group()
 print("OK", rank)
 """
@@ -1010,8 +1023,10 @@ print("OK", rank)
 
 def test_cuda_process_lane_two_children_on_one_card(cuda_device):
     """Two processes on the one card over gloo, 4 of the 8 workers each at
-    (2, 4): flat and two-level, both lanes, routers and codecs, every
-    process's rows bitwise the single-process shuffle's on the card."""
+    (2, 4): flat and two-level, both lanes, routers and codecs, then the
+    looped, verified, corrupted and debug modes on the f32 flat plan,
+    every process's rows bitwise the single-process shuffle's on the
+    card."""
     import os
     import socket
     import subprocess
@@ -1035,3 +1050,14 @@ def test_cuda_process_lane_two_children_on_one_card(cuda_device):
                 p.kill()
     for r, (p, (out, err)) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"OK {r}" in out, err[-3000:]
+
+
+@pytest.mark.parametrize("q,k,d,hosts", [(2, 3, 64, None), (3, 3, 8, None),
+                                         (2, 4, 9, 2)])
+def test_cuda_compare_ledger_equals_cpu(cuda_device, q, k, d, hosts):
+    """``camr_compare.lower_schedules`` on the card gives the CPU's dict:
+    the ledger's counts depend on shapes only."""
+    from repro_torch.launch.camr_compare import lower_schedules
+    topo = None if hosts is None else Topology.two_level(hosts)
+    assert lower_schedules(q, k, d, topology=topo, device=cuda_device) == \
+        lower_schedules(q, k, d, topology=topo, device="cpu")

@@ -58,6 +58,8 @@ def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    ex = os.path.join(ROOT, "examples", "torch")
+    out += [os.path.join(ex, f) for f in os.listdir(ex) if f.endswith(".py")]
     return sorted(out)
 
 

@@ -544,20 +544,35 @@ def test_multipass_synced_gradient_bitwise_equals_jax_mesh(tmp_path):
 
 
 def test_unported_modes_point_at_their_roadmap_item(jax_run):
-    """The pointers name what is still unported: the process lane's
-    looped exchange, self-verifying wire and fault injection (ROADMAP.md,
-    Queue 1). Checkpointing (item 9) is ported: the multi-model launcher
+    """Nothing of the process lane is left unported (ROADMAP.md, Queue 1
+    item 10b, done): it refuses exactly what the stacked lane refuses,
+    with the same messages, and on a one-process mesh its looped
+    exchange, verified wire and fault injection are the stacked
+    shuffle's. Checkpointing (item 9) is ported: the multi-model launcher
     refuses its options, as it does not checkpoint. Failed workers
     (items 5-6) are ported: the trainer takes a failed set at
     construction and between steps."""
     from repro_torch.core.collective import camr_shuffle
-    from repro_torch.launch.mesh import CAMRMesh
+    from repro_torch.launch.mesh import CAMRMesh, make_camr_mesh
+    plan = make_plan(2, 3, 6)
     mesh = CAMRMesh(K=6, world=2, rank=0, device=torch.device("cpu"))
-    contribs = torch.zeros((3, 2, 2, 6, 6))
+    block, full = torch.zeros((3, 2, 2, 6, 6)), torch.zeros((6, 2, 2, 6, 6))
+    for kw, what in ((dict(mode="looped", codec="x"), "unknown codec"),
+                     (dict(verify_wire=True, codec="multipass"),
+                      "verify_wire requires"),
+                     (dict(verify_wire=True, debug=True), "exclusive"),
+                     (dict(corrupt=(1, 0, 0, 0, 1)), "without verify_wire")):
+        for c, m in ((block, mesh), (full, None)):
+            with pytest.raises(ValueError, match=what):
+                camr_shuffle(plan, c, mesh=m, **kw)
+    one = make_camr_mesh(6, device="cpu")
     for kw in (dict(mode="looped"), dict(verify_wire=True),
                dict(verify_wire=True, corrupt=(1, 0, 0, 0, 1))):
-        with pytest.raises(ValueError, match="ROADMAP.md, Queue 1"):
-            camr_shuffle(make_plan(2, 3, 6), contribs, mesh=mesh, **kw)
+        got, want = (camr_shuffle(plan, full, mesh=m, **kw)
+                     for m in (one, None))
+        for g, w in zip(*((x if isinstance(x, tuple) else (x,))
+                          for x in (got, want))):
+            assert torch.equal(g, w), kw
     with pytest.raises(SystemExit, match="single-model"):
         launch_train.main(["--arch", "granite_3_2b", "--multi-model",
                            "--grad-sync", "camr", "--resume"])
