@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-then runs all four phases, always in full, and fails (nonzero exit, no
+then runs all five phases, always in full, and fails (nonzero exit, no
 result line) on any mismatch:
 
 1. **kernels** — each kernel against its plain PyTorch version on the
@@ -199,12 +199,33 @@ result line) on any mismatch:
    prefill ms by length, the host loop's tok/s and step p50/p99, and
    peak memory.
 
+5. **dryrun** — ``phase_dryrun``: the dry run of
+   ``repro_torch.launch.dryrun`` against the card. First each kernel at
+   the shapes its prefills here give it (32,768 tokens: ``flash_attention``
+   at granite's heads against the materialized plain attention a block
+   of queries at a time, ``ssd_scan`` at mamba2's against the plain
+   chunked scan, both in bf16 at the serving limits of phase 1). Then
+   for each of ``DRYRUN_CELLS`` (mamba2 at ``long_500k`` and
+   ``decode_32k`` and zamba2 at ``long_500k``, JAX's shapes as they
+   stand; mamba2's and granite's prefill at 32,768 tokens and granite's
+   train step at 4,096, each at batch 1) the step of
+   ``repro_torch.launch.steps`` traced on ``meta``, then built on the
+   card from seed 0 and run twice: its FLOPs (``FlopCounterMode`` plus
+   the kernels' formulas of ``repro_torch.kernels.cost``) equal to the
+   trace's exactly, its peak memory within 10% or 256 MiB of the
+   trace's, its result finite (a train step's loss and norm, the
+   logits of the others), its step ms printed beside the roofline's
+   ``step_time_s``. ``python3 chip_smoke.py --dryrun-only`` builds the
+   kernels and runs this phase alone (no result line).
+
 The last lines are the card's name and power limit, the ``kernels`` JSON
 line (eleven kernels, each with its main-path launches: the granite
 training runs' counts, the codec kernels' plus the process lane's
 children's and ``phase_compare``'s, ``flash_attention``'s summed over
 the granite, gemma2, zamba2, moonshot, mixtral, internlm2, seamless and
-internvl2 serving runs, ``ssd_scan``'s over the mamba2 and zamba2 runs;
+internvl2 serving runs and ``phase_dryrun``'s granite prefill,
+``ssd_scan``'s over the mamba2 and zamba2 runs and ``phase_dryrun``'s
+mamba2 prefill;
 and a twelfth entry, ``flash_attention_f32``, for ``flash_attention``'s f32 body at
 seamless's encoder shape, its launches those of the f32 body alone,
 3,168 in the four seamless requests on f32 frames) and ``{"ok": true,
@@ -620,15 +641,6 @@ FLASH_SERVE_TOL = dict(rtol=2 ** -6, atol=1e-5)
 MIXED_TOL = dict(rtol=2 ** -7, atol=2e-5)
 
 
-def _visible_pairs(Tq, Tk, causal, window) -> int:
-    """(query, key) pairs the masks leave visible, per (batch, head)."""
-    import numpy as np
-    qpos = np.arange(Tq) + (Tk - Tq)
-    hi = np.minimum(qpos + 1, Tk) if causal else np.full(Tq, Tk)
-    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(Tq, int)
-    return int(np.maximum(hi - lo, 0).sum())
-
-
 def _sdpa_fn(q, k, v, causal, window, softcap):
     """The one PyTorch call that computes the same function, or None
     (SDPA has no softcap and no sliding window; its causal mask is the
@@ -658,7 +670,7 @@ def check_flash(gen):
     ``ops.attention`` (one launch of the f32 body), within one bf16 ulp
     of its plain version plus 2e-5 (``MIXED_TOL``)."""
     import torch
-    from repro_torch.kernels import flash_attention, ops, ref
+    from repro_torch.kernels import cost, flash_attention, ops, ref
     timed = {}
     cases = [(c, dt) for c in ATTN_CASES for dt in ("float32", "bfloat16")]
     cases += [(c, "bfloat16") for c in FLASH_SHAPES]
@@ -687,8 +699,8 @@ def check_flash(gen):
         share = float(((got.float() - want.float()).abs() / (
             tol["atol"] + tol["rtol"] * want.float().abs())).max())
         del got, want
-        flops = 4 * D * B * Hq * _visible_pairs(Tq, Tk, causal, window)
-        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        flops, nbytes = cost.flash_attention(B, Hq, Hkv, Tq, Tk, D, causal,
+                                             window, q.element_size())
         bound = max(flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S)
         lib = _sdpa_fn(q, k, v, causal, window, softcap)
         r = dict(ms=time_ms(lambda: flash_attention(q, k, v, **kw)),
@@ -774,15 +786,13 @@ SSD_SERVE_RTOL = 2 ** -6
 
 
 def _ssd_work(B, T, H, P, S, C=64, itemsize=2):
-    """(FLOPs, bytes) of one scan: per head and step, the Pallas kernel's
-    products (c b^T over the chunk, M x, c h and the state update:
-    C*S + C*P + 2*S*P multiply-adds); x and y in bf16 (``itemsize`` 2) or
-    f32 (4), a in f32, b and c group-shared in x's dtype, each read or
-    written once."""
-    flops = 2 * B * H * T * (C * S + C * P + 2 * S * P)
-    nbytes = (2 * itemsize * B * T * H * P + 4 * B * T * H
-              + 2 * itemsize * B * T * S)
-    return flops, nbytes
+    """(FLOPs, bytes) of one scan (``repro_torch.kernels.cost.ssd_scan``):
+    per head and step, the Pallas kernel's products (c b^T over the
+    chunk, M x, c h and the state update: C*S + C*P + 2*S*P
+    multiply-adds); x and y in bf16 (``itemsize`` 2) or f32 (4), a in
+    f32, b and c group-shared in x's dtype, each read or written once."""
+    from repro_torch.kernels import cost
+    return cost.ssd_scan(B, T, H, P, S, itemsize, False, C)
 
 
 def check_ssd(gen):
@@ -3166,10 +3176,184 @@ def phase_legacy(arch, runs, seed=0, max_new=32):
     return counts
 
 
+#: the dry run's cells driven on the card: (arch, shape); a shape name
+#: is a key of ``SHAPES`` (JAX's shape as it stands), a tuple a reduced
+#: batch ``(name, seq_len, global_batch, kind)`` of one of them
+DRYRUN_CELLS = (
+    ("mamba2_1p3b", "long_500k"),
+    ("mamba2_1p3b", "decode_32k"),
+    ("zamba2_2p7b", "long_500k"),
+    ("mamba2_1p3b", ("prefill_32k_b1", 32768, 1, "prefill")),
+    ("granite_3_2b", ("prefill_32k_b1", 32768, 1, "prefill")),
+    ("granite_3_2b", ("train_4k_b1", 4096, 1, "train")),
+)
+#: measured peak against the trace's: within 10% or 256 MiB
+PEAK_REL, PEAK_ABS = 0.10, 256 * 2 ** 20
+
+
+def check_path_kernels(gen):
+    """The two kernels at the shapes ``phase_dryrun``'s prefills give
+    them (32,768 tokens) against their plain versions on the card:
+    ``flash_attention`` at granite's heads in bf16 against the plain
+    attention (``FLASH_SERVE_TOL``), ``ssd_scan`` at mamba2's in
+    bf16 against the plain chunked scan (``SSD_SERVE_RTOL`` plus twice
+    ``SSD_F32_REL`` of the largest output). The attention's plain version
+    is the materialized one, a block of queries at a time (the plain
+    chunked lane rounds its probabilities to bf16)."""
+    import torch
+    from repro_torch.kernels import flash_attention, ref, ssd_scan
+    B, Hq, Hkv, T, D = 1, 32, 8, 32768, 64
+    q, k, v = (torch.randn(s, device=DEVICE, generator=gen).bfloat16()
+               for s in ((B, Hq, T, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+    got = flash_attention(q, k, v).float()
+    # the materialized plain version, 1024 queries at a time over the
+    # keys they see (its [rows, keys] scores fit where [T, T] would not)
+    want = torch.cat([ref.flash_attention_ref(
+        q[:, :, i:i + 1024], k[:, :, :i + 1024], v[:, :, :i + 1024]).float()
+        for i in range(0, T, 1024)], dim=2)
+    share = float(((got - want).abs() / (
+        FLASH_SERVE_TOL["atol"]
+        + FLASH_SERVE_TOL["rtol"] * want.abs())).max())
+    if not share <= 1:
+        fail(f"flash_attention != plain at q [{B},{Hq},{T},{D}] bf16 (the "
+             f"worst element at {share} of its limit)")
+    log(f"dryrun: flash_attention q [{B},{Hq},{T},{D}] k/v [{B},{Hkv},{T},"
+        f"{D}] bf16 causal within rtol 2**-6 + atol 1e-5 of the plain "
+        f"attention (max abs err {max_abs_err(got, want):.2e}; the "
+        f"worst element at {share:.3f} of its limit)")
+    del q, k, v, got, want
+    B, T, H, P, S = 1, 32768, 64, 64, 128
+    x = torch.randn((B, T, H, P), device=DEVICE, generator=gen).bfloat16()
+    a = -torch.nn.functional.softplus(
+        torch.randn((B, T, H), device=DEVICE, generator=gen))
+    b, c = (torch.randn((B, T, S), device=DEVICE, generator=gen).bfloat16()
+            for _ in range(2))
+    got = ssd_scan(x, a, b, c).float()
+    want = ref.ssd_chunked(x, a, b, c).float()
+    limit = (2 * SSD_F32_REL * float(want.abs().max())
+             + SSD_SERVE_RTOL * want.abs())
+    share = float(((got - want).abs() / limit).max())
+    if not torch.isfinite(got).all() or not share <= 1:
+        fail(f"ssd_scan != plain at x [{B},{T},{H},{P}] bf16 (the worst "
+             f"element at {share} of its limit)")
+    log(f"dryrun: ssd_scan x [{B},{T},{H},{P}] b/c [{B},{T},{S}] bf16 within "
+        f"rtol 2**-6 + {2 * SSD_F32_REL} x max|y| of the plain chunked scan "
+        f"(max abs err {max_abs_err(got, want):.2e}; the worst element at "
+        f"{share:.3f} of its limit)")
+    del x, a, b, c, got, want, limit
+    torch.cuda.empty_cache()
+
+
+def _card_flops(bundle) -> int:
+    """FLOPs of one run of a step on the card, counted as the dry run
+    counts them: aten matrix products plus the kernels' formulas."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels import cost
+    with cost.counting() as kc, FlopCounterMode(display=False) as fc:
+        out = bundle.fn(*bundle.args)
+    del out
+    return fc.get_total_flops() + kc.flops
+
+
+def phase_dryrun(gen):
+    """The dry run (``repro_torch.launch.dryrun``) against the card, cell
+    by cell (``DRYRUN_CELLS``): trace the step on ``meta`` (a reduced
+    batch halved in length until its trace fits), build the same step on
+    the card from seed 0, run it twice (the first run under the FLOP
+    counters, the peak reset before the second, which is timed by CUDA
+    events); the card's FLOPs must equal the trace's exactly and its
+    peak (``max_memory_allocated`` above what was allocated before the
+    step was built) must lie within 10% or 256 MiB of the trace's.
+    Prints the measured step ms beside the roofline's ``step_time_s``.
+    Returns the phase's launch counts."""
+    import torch
+    from repro_torch.configs import SHAPES, ShapeSpec, get_config
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.steps import build_step
+    t_phase = time.perf_counter()
+    check_path_kernels(gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    for arch, spec in DRYRUN_CELLS:
+        shape = SHAPES[spec] if isinstance(spec, str) else ShapeSpec(*spec)
+        rec = dryrun.run_cell(arch, shape)
+        while rec["status"] == "ok" and not rec["fits"] \
+                and not isinstance(spec, str):
+            log(f"dryrun: {arch} {shape.name} at {shape.seq_len} tokens "
+                f"does not fit ({rec['memory']['peak_bytes'] / 1e9:.2f} GB):"
+                " halved")
+            shape = ShapeSpec(f"{shape.name}_{shape.seq_len // 2}",
+                              shape.seq_len // 2, shape.global_batch,
+                              shape.kind)
+            rec = dryrun.run_cell(arch, shape)
+        if rec["status"] != "ok":
+            fail(f"dryrun: {arch} {shape.name}: {rec}")
+        if not rec["fits"]:
+            log(f"dryrun: {arch} {shape.name}: the trace's peak "
+                f"{rec['memory']['peak_bytes'] / 1e9:.2f} GB does not fit: "
+                "not run on the card")
+            continue
+        pred = rec["memory"]["peak_bytes"]
+        roof = roofline.roofline_from_cell(rec)
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        bundle = build_step(cfg, shape, device=DEVICE, seed=0)
+        flops = _card_flops(bundle)
+        if flops != rec["cost"]["flops"]:
+            fail(f"dryrun: {arch} {shape.name}: the card counts {flops} "
+                 f"FLOPs, the trace {rec['cost']['flops']}")
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        out = bundle.fn(*bundle.args)
+        t1.record()
+        t1.synchronize()
+        ms = t0.elapsed_time(t1)
+        peak = torch.cuda.max_memory_allocated() - base
+        # the step's result: the loss and norm of a train step, the
+        # logits [B, 1, V] of a prefill or decode step, finite
+        res = (list(out[2].values()) if shape.kind == "train"
+               else [out[0]])
+        ok = all(bool(torch.isfinite(t).all()) for t in res) and (
+            shape.kind == "train" or tuple(res[0].shape) ==
+            (shape.global_batch, 1, cfg.vocab_padded))
+        del out, res, bundle
+        if not ok:
+            fail(f"dryrun: {arch} {shape.name}: a non-finite or misshapen "
+                 "result")
+        if abs(peak - pred) > max(PEAK_REL * pred, PEAK_ABS):
+            fail(f"dryrun: {arch} {shape.name}: measured peak "
+                 f"{peak / 1e9:.3f} GB against the trace's "
+                 f"{pred / 1e9:.3f} GB (limit 10% or 256 MiB)")
+        log(f"dryrun: {arch} {shape.name} (seq {shape.seq_len}, batch "
+            f"{shape.global_batch}, {shape.kind}): FLOPs {flops} on the card"
+            f" = the trace's; peak {peak / 1e9:.3f} GB measured, "
+            f"{pred / 1e9:.3f} GB traced ({(peak - pred) / pred:+.2%}); step "
+            f"{ms:.2f} ms measured, roofline {roof.step_time_s * 1e3:.2f} ms "
+            f"({roof.dominant}; {ms / 1e3 / roof.step_time_s:.2f}x), "
+            f"trace {rec['lower_s']} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = kernel_launches()
+    log(f"dryrun: launches {counts['flash_attention']} flash_attention, "
+        f"{counts['ssd_scan']} ssd_scan; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if not counts["flash_attention"] or not counts["ssd_scan"]:
+        fail(f"dryrun: the prefills launched no kernel: {counts}")
+    return counts
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--process-group-child"]:
         return process_group_child(int(sys.argv[2]), int(sys.argv[3]))
+    dryrun_only = sys.argv[1:2] == ["--dryrun-only"]
     t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3195,6 +3379,11 @@ def main() -> int:
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
+    if dryrun_only:                    # phase_dryrun alone: no result line
+        phase_dryrun(gen)
+        log(f"total: {time.perf_counter() - t_main:.1f} s")
+        log(smi)
+        return 0
     tr, pipe = build_cell("float32")   # its d_shard sets the kernels' shapes
     d_cell = tr.d_shard
     results = phase_kernels(gen, tr)
@@ -3271,6 +3460,8 @@ def main() -> int:
     served += [phase_legacy(arch, runs) for arch, runs in LEGACY_RUNS]
     for name in ("flash_attention", "flash_attention_f32", "ssd_scan"):
         counts[name] = sum(c[name] for c in served)
+    for name, c in phase_dryrun(gen).items():
+        counts[name] += c
 
     kernels = []
     for name, r in results.items():

@@ -3,13 +3,18 @@ JAX package's ``repro.configs.ModelConfig`` without jax.
 
 ``torch_dtype`` takes the place of ``jdtype``; ``reduced(cfg)`` derives
 the small same-family variant the CPU tests use. The architecture
-fields are the JAX package's; its XLA execution knobs (``use_pallas``,
-``remat``, ``scan_unroll``, ``attn_block``, ``ssm_chunk``,
-``microbatches``, ``grad_sync``) have no counterpart here (the SSD chunk
-is the ``ssd_scan`` kernel's constant, 64, mamba2's and zamba2's
-``ssm_chunk``). ``moe_shard_mode`` stays: on one card it selects the
-lane of :func:`repro_torch.models.layers.moe_block` over a virtual
-``(n_data, n_model)`` mesh and nothing else. The port ships every arch
+fields are the JAX package's, and so are the two that set what the
+train step of :mod:`repro_torch.launch.steps` computes:
+``microbatches`` (gradient accumulation) and ``grad_sync_dtype`` (the
+cast of f32 gradients before the update; the trainer's grad-sync lane).
+Its XLA execution knobs (``use_pallas``, ``remat``, ``scan_unroll``,
+``attn_block``, ``ssm_chunk``, ``grad_sync``) have no counterpart here
+(the device picks the kernel; the port keeps every activation, with no
+rematerialisation; the SSD chunk is the ``ssd_scan`` kernel's constant,
+64, mamba2's and zamba2's ``ssm_chunk``). ``moe_shard_mode`` stays: on
+one card it selects the lane of
+:func:`repro_torch.models.layers.moe_block` over a virtual ``(n_data,
+n_model)`` mesh and nothing else. The port ships every arch
 of the JAX zoo (:data:`ARCHS`): the dense ``granite_3_2b``,
 ``gemma2_2b``, ``internlm2_20b`` and ``mistral_large_123b``, the MoE
 ``mixtral_8x7b`` and ``moonshot_v1_16b_a3b``, the SSM ``mamba2_1p3b``
@@ -17,7 +22,10 @@ and the hybrid ``zamba2_2p7b``, each served and trained, and the
 enc-dec ``seamless_m4t_large_v2`` (audio frames) and the ViT-frontend
 ``internvl2_26b`` (patches), served through the legacy host loop only,
 as in the JAX package, whose token pipeline carries no frames or
-patches to train them on.
+patches to train them on. :data:`SHAPES` are the JAX package's four
+step shapes; :func:`input_specs` builds a step's inputs on a device
+(``"meta"``: shapes and dtypes only, nothing allocated: the dry run's
+stand-ins).
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["ModelConfig", "ARCHS", "get_config", "reduced"]
+__all__ = ["ModelConfig", "ShapeSpec", "SHAPES", "ARCHS", "get_config",
+           "reduced", "list_archs", "shape_supported", "input_specs"]
 
 
 @dataclass(frozen=True)
@@ -76,6 +85,7 @@ class ModelConfig:
     # numerics
     dtype: str = "bfloat16"
     loss_chunk: int = 1024              # vocab-logit seq chunking
+    microbatches: int = 1               # grad accumulation in the train step
     grad_sync_dtype: str = "float32"    # float32 | bfloat16 (packed lane)
 
     @property
@@ -126,6 +136,21 @@ class ModelConfig:
         return int(total)
 
 
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
 ARCHS = [
     "internvl2_26b", "mixtral_8x7b", "moonshot_v1_16b_a3b", "internlm2_20b",
     "gemma2_2b", "mistral_large_123b", "granite_3_2b", "zamba2_2p7b",
@@ -142,11 +167,25 @@ def get_config(name: str) -> ModelConfig:
     return mod.CONFIG
 
 
+def list_archs() -> list[str]:
+    return list(ARCHS)
+
+
+def shape_supported(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """long_500k only for sub-quadratic archs (DESIGN.md §6)."""
+    if shape.name == "long_500k" and cfg.family not in ("ssm", "hybrid"):
+        return False, ("full/global-attention arch: 500k ctx needs a "
+                       "per-layer 500k KV cache + quadratic prefill "
+                       "(see DESIGN.md §6)")
+    return True, ""
+
+
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Small same-family variant: few layers, tiny widths/tables."""
     kw = dict(
         n_layers=2 * len(cfg.pattern), d_model=64, n_heads=4, n_kv_heads=2,
         head_dim=16, d_ff=128, vocab=256, dtype="float32", loss_chunk=64,
+        microbatches=1,
     )
     if cfg.n_experts:
         # capacity 8x: no token drops -> deterministic consistency tests
@@ -163,3 +202,58 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     if cfg.window:
         kw.update(window=32)
     return cfg.replace(**kw)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, *, device,
+                gen: torch.Generator | None = None) -> dict:
+    """Every input of the step of ``(cfg, shape)`` beside its parameters,
+    as tensors of the JAX package's shapes and dtypes on ``device``:
+    ``{"batch": {"tokens", "labels"}}`` for a train step (``labels`` left
+    out of a prefill), with ``patches [B, frontend_len, frontend_dim]``
+    for a ViT model and ``frames [B, T, frontend_dim]`` for an enc-dec
+    one in the model dtype; for a decode step ``{"tokens": i32[B, 1],
+    "cache": lm.init_cache(cfg, B, T), "cache_index": i32[]}``.
+
+    On ``"meta"`` nothing is allocated. On a real device the cache is
+    zero and ``cache_index`` is ``T - 1`` (the new token at the last
+    position of a full-length cache); tokens, labels, frames and patches
+    are zero, or drawn from ``gen`` (on ``device``) when it is given.
+    """
+    from ..models import lm     # late import: lm imports this module
+
+    B, T = shape.global_batch, shape.seq_len
+    dev = torch.device(device)
+    meta = dev.type == "meta"
+    i32, f = torch.int32, cfg.torch_dtype
+
+    def ids(*shp):
+        if meta:
+            return torch.empty(shp, dtype=i32, device=dev)
+        if gen is None:
+            return torch.zeros(shp, dtype=i32, device=dev)
+        return torch.randint(0, cfg.vocab, shp, generator=gen, device=dev,
+                             dtype=i32)
+
+    def feats(*shp):
+        if meta:
+            return torch.empty(shp, dtype=f, device=dev)
+        if gen is None:
+            return torch.zeros(shp, dtype=f, device=dev)
+        return torch.randn(shp, generator=gen, device=dev, dtype=f)
+
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": ids(B, T)}
+        if shape.kind == "train":
+            batch["labels"] = ids(B, T)
+        if cfg.frontend == "vit":
+            batch["patches"] = feats(B, cfg.frontend_len, cfg.frontend_dim)
+        if cfg.frontend == "audio":
+            batch["frames"] = feats(B, T, cfg.frontend_dim)
+        return {"batch": batch}
+    if shape.kind != "decode":
+        raise ValueError(f"unknown step kind {shape.kind!r}")
+    index = (torch.empty((), dtype=i32, device=dev) if meta
+             else torch.full((), T - 1, dtype=i32, device=dev))
+    return {"tokens": ids(B, 1), "cache": lm.init_cache(cfg, B, T,
+                                                        device=dev),
+            "cache_index": index}

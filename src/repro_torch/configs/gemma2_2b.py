@@ -21,4 +21,5 @@ CONFIG = ModelConfig(
     mlp_act="geglu",
     tie_embeddings=True,
     scale_embed=True,
+    microbatches=2,
 )

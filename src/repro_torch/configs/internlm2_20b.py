@@ -1,8 +1,8 @@
 """internlm2-20b [dense]: 48L d_model=6144 48H (GQA kv=8) d_ff=16384
 vocab=92544 [arXiv:2403.17297; hf].
 
-The JAX package's ``src/repro/configs/internlm2_20b.py`` without its XLA
-knob ``microbatches``; 39.7 GB in bf16 at full depth.
+The JAX package's ``src/repro/configs/internlm2_20b.py``; 39.7 GB in
+bf16 at full depth.
 """
 
 from repro_torch.configs import ModelConfig
@@ -18,4 +18,5 @@ CONFIG = ModelConfig(
     vocab=92544,
     rope_theta=1e6,
     pattern=("attn",),
+    microbatches=2,
 )

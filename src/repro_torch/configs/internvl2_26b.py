@@ -2,8 +2,7 @@
 
 48L d_model=6144 48H (GQA kv=8) d_ff=16384 vocab=92553
 [arXiv:2404.16821; hf]. The JAX package's
-``src/repro/configs/internvl2_26b.py`` without its XLA knob
-``microbatches``. The ViT frontend is a stub: the model takes
+``src/repro/configs/internvl2_26b.py``. The ViT frontend is a stub: the model takes
 precomputed patch embeddings (1024-dim InternViT features after
 pixel-shuffle), which ``params["front"]`` projects into the first
 ``frontend_len`` positions of the sequence. 39.7 GB in bf16 at full
@@ -26,4 +25,5 @@ CONFIG = ModelConfig(
     frontend="vit",
     frontend_dim=1024,
     frontend_len=256,          # patch tokens prepended to the sequence
+    microbatches=2,
 )

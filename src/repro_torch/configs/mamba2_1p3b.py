@@ -3,8 +3,8 @@ ssm_state=128, 64 SSM heads of 64 (d_inner 4096) — SSD (state-space
 duality) [arXiv:2405.21060; hf:state-spaces/mamba2-1.3b].
 
 The JAX package's ``src/repro/configs/mamba2_1p3b.py`` without its XLA
-knobs (``ssm_chunk`` 64 is the ``ssd_scan`` kernel's constant here;
-``microbatches`` is a training knob). As there, the depthwise conv1d of
+knob ``ssm_chunk`` (64 is the ``ssd_scan`` kernel's constant here). As
+there, the depthwise conv1d of
 the reference implementation is omitted; the SSD core is the
 ``ssd_scan`` kernel (``repro_torch/kernels/csrc/ssd_scan.cu``).
 """
@@ -24,4 +24,5 @@ CONFIG = ModelConfig(
     ssm_state=128,
     ssm_heads=64,              # d_inner 4096 / headdim 64
     ssm_d_inner=4096,
+    microbatches=2,
 )

@@ -2,9 +2,9 @@
 d_ff=28672 vocab=32768 [hf:mistralai/Mistral-Large-Instruct-2407;
 unverified]. The largest arch of the zoo.
 
-The JAX package's ``src/repro/configs/mistral_large_123b.py`` without
-its XLA knob ``microbatches``; 2.77 GB a layer in bf16, so one card
-runs it only cut in depth.
+The JAX package's ``src/repro/configs/mistral_large_123b.py``; 2.77 GB a
+layer in bf16, so one card runs it only cut in depth. Its train step
+accumulates gradients over 8 microbatches, as JAX's does.
 """
 
 from repro_torch.configs import ModelConfig
@@ -20,4 +20,5 @@ CONFIG = ModelConfig(
     vocab=32768,
     rope_theta=1e6,
     pattern=("attn",),
+    microbatches=8,
 )

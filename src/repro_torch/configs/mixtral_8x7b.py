@@ -2,8 +2,7 @@
 vocab=32000, MoE 8 experts top-2, sliding-window attention
 [arXiv:2401.04088; hf].
 
-The JAX package's ``src/repro/configs/mixtral_8x7b.py`` without its XLA
-knob ``microbatches``. 8 experts are fewer than a wide model axis, so
+The JAX package's ``src/repro/configs/mixtral_8x7b.py``. 8 experts are fewer than a wide model axis, so
 they are tensor-parallel (``moe_shard_mode="tp"``: each model shard of
 a mesh holds a d_ff slice of all 8 experts). In bf16 one layer is 2.90
 GB, 93.4 GB at 32 layers: one card serves it cut in depth.
@@ -26,4 +25,5 @@ CONFIG = ModelConfig(
     n_experts=8,
     experts_per_token=2,
     moe_shard_mode="tp",
+    microbatches=2,
 )

@@ -4,8 +4,8 @@ d_ff=10240 vocab=32000, ssm_state=64, 80 SSM heads of 64 (d_inner 5120)
 [arXiv:2411.15242; hf:Zyphra/Zamba2-2.7B].
 
 The JAX package's ``src/repro/configs/zamba2_2p7b.py`` without its XLA
-knobs (``ssm_chunk`` 64 is the ``ssd_scan`` kernel's constant here;
-``microbatches`` is a training knob). Pattern: 5 Mamba2 sublayers and
+knob ``ssm_chunk`` (64 is the ``ssd_scan`` kernel's constant here).
+Pattern: 5 Mamba2 sublayers and
 the ``shared_attn`` block, repeated 9 times; the 9 occurrences of the
 block reuse ONE parameter set (``params["shared"]``) and each keeps its
 own KV cache. Its prefills run both hand-written kernels:
@@ -27,4 +27,5 @@ CONFIG = ModelConfig(
     ssm_state=64,
     ssm_heads=80,              # d_inner 5120 / headdim 64
     ssm_d_inner=5120,
+    microbatches=2,
 )

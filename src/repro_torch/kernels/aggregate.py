@@ -5,7 +5,9 @@ Counterpart of the JAX package's Pallas kernel
 ``repro.kernels.aggregate.aggregate``, for f32 values (``aggregate_f32``)
 and bf16 values (``aggregate_bf16``, the memo rows of the bf16 grad-sync
 lane). A tensor on the CPU goes to the plain version in :mod:`.ref`; a
-CUDA tensor launches the kernel of its dtype or raises. ``aggregate``
+tensor on ``"meta"`` takes the cost twin (the output, no launch, the
+call's work charged to :mod:`.cost`, as a card's call is); a CUDA
+tensor launches the kernel of its dtype or raises. ``aggregate``
 counts its f32 launches, ``aggregate_bf16`` its bf16 launches.
 """
 
@@ -13,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, cost
 from .ref import aggregate_ref
 
 __all__ = ["aggregate", "aggregate_bf16"]
@@ -53,9 +55,10 @@ def aggregate(values: torch.Tensor, segment_ids: torch.Tensor,
     if values.device.type == "cpu":
         res = aggregate_ref(values, segment_ids, S)
         return res if out is None else out.copy_(res)
-    if values.device.type != "cuda":
+    if values.device.type not in ("cuda", "meta"):
         raise RuntimeError(f"aggregate: tensors must lie on the CPU (plain "
-                           f"version) or a CUDA device, got {values.device}")
+                           f"version), a CUDA device or meta (cost twin), "
+                           f"got {values.device}")
     if values.dtype not in _LAUNCHERS:
         raise TypeError(f"aggregate: the CUDA kernels take float32 or "
                         f"bfloat16 values, got {values.dtype}")
@@ -66,6 +69,11 @@ def aggregate(values: torch.Tensor, segment_ids: torch.Tensor,
     values, segment_ids = values.contiguous(), segment_ids.contiguous()
     if out is None:
         out = torch.empty((S, d), dtype=values.dtype, device=values.device)
+    name = "aggregate" if values.dtype == torch.float32 else "aggregate_bf16"
+    if values.device.type == "meta":
+        if out.numel():
+            cost.charge(name, cost.aggregate(n, d, S, values.element_size()))
+        return out
     if out.numel():
         fn, wide = _LAUNCHERS[values.dtype]
         lib = _build.load("aggregate")
@@ -76,6 +84,7 @@ def aggregate(values: torch.Tensor, segment_ids: torch.Tensor,
             n, d, S, vec,
             torch.cuda.current_stream(values.device).cuda_stream)
         _build.check(lib, fn, code)
+        cost.charge(name, cost.aggregate(n, d, S, values.element_size()))
         counter = aggregate if values.dtype == torch.float32 else \
             aggregate_bf16
         counter.launches += 1

@@ -13,8 +13,11 @@ the JAX package: the serving prefill calls it (through
 input that requires grad is refused.
 
 A tensor on the CPU goes to the plain version
-(:func:`repro_torch.kernels.ref.flash_attention_ref`); a CUDA tensor
-launches the kernel or raises: bf16 takes the tensor-core body (wgmma
+(:func:`repro_torch.kernels.ref.flash_attention_ref`); a tensor on
+``"meta"`` takes the cost twin: the same checks, output and scratch
+(the f32 split workspace) as on a card, no launch, the call's work
+charged to :mod:`.cost` (as a card's call is); a CUDA tensor launches
+the kernel or raises: bf16 takes the tensor-core body (wgmma
 fed by a TMA K/V ring), f32 the CUDA-core body (register tiles fed by a
 cp.async K/V ring), and neither falls back to the other. An f32 call
 with few query tiles splits each tile's keys across blocks
@@ -31,8 +34,9 @@ import ctypes
 import functools
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
-from . import _build
+from . import _build, cost
 from .ref import flash_attention_ref
 
 __all__ = ["flash_attention", "split_plan", "HEAD_DIMS"]
@@ -85,9 +89,14 @@ def split_plan(Tq: int, Tk: int, causal: bool,
 @functools.lru_cache(maxsize=256)
 def _device_plan(Tq, Tk, causal, window, device):
     """:func:`split_plan` as an int32 ``[n_qtiles, n_splits, 2]`` tensor
-    on ``device`` (copied once per shape) and its ``n_splits``."""
+    on ``device`` (copied once per shape) and its ``n_splits``. The copy
+    is a constant of the shape, kept across calls, so no dispatch mode
+    sees it: a step counted under one (the dry run) counts the same
+    whether or not an earlier call made the constant."""
     plan = split_plan(Tq, Tk, causal, window)
-    return len(plan[0]), torch.tensor(plan, dtype=torch.int32).to(device)
+    with _disable_current_modes():
+        return len(plan[0]), torch.tensor(plan,
+                                          dtype=torch.int32).to(device)
 
 
 def _f32_split(q, k, causal, window):
@@ -164,10 +173,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise RuntimeError(f"flash_attention: tensors must lie on the CPU "
-                           f"(plain version) or a CUDA device, got "
-                           f"{q.device}")
+                           f"(plain version), a CUDA device or meta (cost "
+                           f"twin), got {q.device}")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: all tensors must be on {q.device}")
     if q.dtype not in _LAUNCHERS or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -193,11 +202,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         args += [plan.data_ptr(), n_splits,
                  None if acc is None else acc.data_ptr(),
                  None if ml is None else ml.data_ptr()]
+    work = cost.flash_attention(B, Hq, Hkv, Tq, Tk, D, causal, window,
+                                q.element_size())
+    if q.device.type == "meta":
+        cost.charge("flash_attention", work)
+        return out
     fn = _LAUNCHERS[q.dtype]
     lib = _build.load("flash_attention")
     code = getattr(lib, fn)(*args,
                             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, fn, code)
+    cost.charge("flash_attention", work)
     flash_attention.launches += 1
     flash_attention.launches_by_dtype[str(q.dtype)[6:]] += 1
     return out

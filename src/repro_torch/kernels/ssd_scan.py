@@ -14,10 +14,13 @@ takes the plain chunked form, chosen by the mode in
 grad is refused.
 
 A tensor on the CPU goes to the plain version
-(:func:`repro_torch.kernels.ref.ssd_chunked`); a CUDA tensor launches the
-kernel or raises: bf16 takes the tensor-core body (wgmma fed by a TMA
-chunk ring, the f32 state in registers), f32 the CUDA-core body, and
-neither falls back to the other. ``ssd_scan.launches`` counts the
+(:func:`repro_torch.kernels.ref.ssd_chunked`); a tensor on ``"meta"``
+takes the cost twin (the same checks, alignment copies and output as on
+a card, no launch, the call's work charged to :mod:`.cost`, as a card's
+call is); a CUDA tensor launches the kernel or raises: bf16 takes the
+tensor-core body (wgmma fed by a TMA chunk ring, the f32 state in
+registers), f32 the CUDA-core body, and neither falls back to the
+other. ``ssd_scan.launches`` counts the
 launches.
 """
 
@@ -27,7 +30,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, cost
 from .ref import ssd_chunked
 
 __all__ = ["ssd_scan", "CHUNK", "MAX_STATE"]
@@ -102,9 +105,10 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     _check(x, a, b, c)
     if x.device.type == "cpu":
         return ssd_chunked(x, a, b, c, chunk=CHUNK)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise RuntimeError(f"ssd_scan: tensors must lie on the CPU (plain "
-                           f"version) or a CUDA device, got {x.device}")
+                           f"version), a CUDA device or meta (cost twin), "
+                           f"got {x.device}")
     if any(t.device != x.device for t in (a, b, c)):
         raise ValueError(f"ssd_scan: all tensors must be on {x.device}")
     B, T, H, P = x.shape
@@ -117,6 +121,11 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         x, b, c = (t if t.stride(-1) == 1 else t.contiguous()
                    for t in (x, b, c))
     y = torch.empty((B, T, H, P), dtype=x.dtype, device=x.device)
+    work = cost.ssd_scan(B, T, H, P, S, x.element_size(), b.dim() == 4,
+                         CHUNK)
+    if x.device.type == "meta":
+        cost.charge("ssd_scan", work)
+        return y
     strides = (ctypes.c_longlong * 12)(
         *x.stride()[:3], *a.stride(), *_bc_strides(b), *_bc_strides(c))
     fn = _LAUNCHERS[x.dtype]
@@ -126,6 +135,7 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         B, T, H, P, S, strides,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, fn, code)
+    cost.charge("ssd_scan", work)
     ssd_scan.launches += 1
     return y
 

@@ -15,16 +15,18 @@ Counterparts of the JAX package's Pallas kernels in
   fold (the Algorithm-2 Δ of :func:`repro_torch.kernels.ops.xor_fold`,
   launching the fold kernel with one row).
 
-A tensor on the CPU goes to the plain version in :mod:`.ref`; a CUDA
-tensor launches the kernel or raises. Each wrapper's ``launches``
-attribute counts its kernel launches (and nothing else).
+A tensor on the CPU goes to the plain version in :mod:`.ref`; a tensor
+on ``"meta"`` takes the cost twin (the same checks and output as on a
+card, no launch, the call's bytes charged to :mod:`.cost`, as a card's
+call is); a CUDA tensor launches the kernel or raises. Each wrapper's
+``launches`` attribute counts its kernel launches (and nothing else).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, cost
 from .ref import (as_lanes, as_words, check_even_lanes, xor_decode_ref,
                   xor_decode_gather16_ref, xor_decode_gather_ref,
                   xor_encode_gather16_ref, xor_encode_gather_ref,
@@ -59,10 +61,13 @@ def _check_tables(name, K, rows, idx, mask):
 
 
 def _cuda_ready(name, *tensors):
+    """The device of a call that launches (``cuda``) or takes the cost
+    twin (``meta``), its tensors checked."""
     dev = tensors[0].device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise RuntimeError(f"{name}: tensors must lie on the CPU (plain "
-                           f"version) or a CUDA device, got {dev}")
+                           f"version), a CUDA device or meta (cost twin), "
+                           f"got {dev}")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: all tensors must be on {dev}")
@@ -103,13 +108,17 @@ def _encode(fn, lane, ref_fn, chunks, idx, mask):
     n, m = idx.shape[1:]
     _check_grid(name, K, n, m)
     out = torch.empty((K, n, row), dtype=words.dtype, device=words.device)
-    if out.numel():
+    work = cost.gather(K, n, m, row * words.element_size())
+    if out.numel() and words.device.type == "meta":
+        cost.charge(name, work)
+    elif out.numel():
         lib = _build.load("xor_gather")
         code = getattr(lib, name)(
             words.data_ptr(), idx.data_ptr(), mask.data_ptr(),
             out.data_ptr(), K, P, n, m, row, _vec(row, widths, words, out),
             torch.cuda.current_stream(words.device).cuda_stream)
         _build.check(lib, name, code)
+        cost.charge(name, work)
         fn.launches += 1
     return out.view(chunks.dtype)
 
@@ -137,7 +146,10 @@ def _decode(fn, lane, ref_fn, recv, chunks, rsel, idx, mask):
     m = idx.shape[2]
     _check_grid(name, K, rows, m)
     out = torch.empty((K, rows, row), dtype=words.dtype, device=words.device)
-    if out.numel():
+    work = cost.gather(K, rows, m, row * words.element_size(), recv_rows=1)
+    if out.numel() and words.device.type == "meta":
+        cost.charge(name, work)
+    elif out.numel():
         lib = _build.load("xor_gather")
         code = getattr(lib, name)(
             rwords.data_ptr(), words.data_ptr(), rsel.data_ptr(),
@@ -146,6 +158,7 @@ def _decode(fn, lane, ref_fn, recv, chunks, rsel, idx, mask):
             _vec(row, widths, words, rwords, out),
             torch.cuda.current_stream(words.device).cuda_stream)
         _build.check(lib, name, code)
+        cost.charge(name, work)
         fn.launches += 1
     return out.view(chunks.dtype)
 
@@ -210,7 +223,10 @@ def _fold(fn, packets, recv=None, mask=None):
     R, m, n = packets.shape
     _check_grid(name, 1, R, m)
     out = torch.empty((R, n), dtype=torch.int32, device=packets.device)
-    if out.numel():
+    work = cost.fold(R, m, n, decode=recv is not None)
+    if out.numel() and packets.device.type == "meta":
+        cost.charge(name, work)
+    elif out.numel():
         lib = _build.load("xor_fold")
         vec = _vec(n, (4, 2), *inputs[:2], out)
         stream = torch.cuda.current_stream(packets.device).cuda_stream
@@ -222,6 +238,7 @@ def _fold(fn, packets, recv=None, mask=None):
                                   mask.data_ptr(), out.data_ptr(), R, m, n,
                                   vec, stream)
         _build.check(lib, name, code)
+        cost.charge(name, work)
         fn.launches += 1
     return out
 

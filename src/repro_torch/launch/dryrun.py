@@ -1,0 +1,335 @@
+"""Dry run of one step on one card, the twin of ``repro.launch.dryrun``.
+
+For every (architecture x input shape) cell, the step of
+:mod:`repro_torch.launch.steps` is built on ``"meta"`` (shapes only,
+nothing allocated on any device) and run once in eager mode under three
+counters:
+
+* **FLOPs**: ``torch.utils.flop_counter.FlopCounterMode`` for the aten
+  matrix products (forward and backward), plus the hand-written
+  kernels' formulas (:mod:`repro_torch.kernels.cost`), which their
+  ``meta`` routes charge;
+* **bytes**: :class:`StepTracer` sums the bytes of the inputs and
+  outputs of every aten op (views and bare allocations move none), plus
+  the kernels' formulas;
+* **memory**: :class:`StepTracer` tracks every storage the step creates
+  and frees; the peak of the live bytes, arguments included, is what a
+  card must hold.
+
+The record has JAX's keys: ``memory.{argument,output,temp,alias}_bytes``
+(``temp`` is the peak live bytes less the arguments, ``alias`` the
+outputs that are arguments updated in place), ``cost.{flops,
+bytes_accessed}``, ``collectives`` from the collective ledger
+(:mod:`repro_torch.core.collective_stats`; a step on one card runs
+none), ``params``, ``params_active``, ``devices`` (1), ``lower_s`` (the
+trace) and ``compile_s`` (0: nothing is compiled), and beside them
+``memory.peak_bytes``, ``fits`` (the peak within
+:data:`repro_torch.launch.roofline.HBM_BYTES`) and the kernels' share
+(``kernels``). A step reads no value back to the host: a host read of a
+``meta`` tensor raises, and the cell ends ``error`` with the op named.
+
+Results go to ``results/dryrun_torch/<arch>_<shape>_single.json``;
+:mod:`repro_torch.launch.roofline` reads them.
+
+Usage (no card needed)::
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite_3_2b \\
+        --shape train_4k          # one cell
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all   # every cell
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+import traceback
+import weakref
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from ..configs import (ARCHS, SHAPES, ShapeSpec, get_config,
+                       shape_supported)
+from ..core.collective_stats import record_collectives
+from ..kernels import cost as kernel_cost
+from .steps import build_step
+
+__all__ = ["StepTracer", "trace_step", "run_cell", "cost_pass", "save",
+           "main", "RESULTS_DIR"]
+
+RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
+                           "results", "dryrun_torch")
+
+_aten = torch.ops.aten
+#: ops that allocate without moving a byte
+_ALLOCS = {_aten.empty.memory_format, _aten.empty_strided.default,
+           _aten.new_empty.default, _aten.new_empty_strided.default,
+           _aten.empty_like.default}
+
+
+def _tensors(tree) -> list:
+    """The tensors of nested dicts, lists, tuples and dataclasses (the
+    optimiser state), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [t for f in dataclasses.fields(tree)
+                for t in _tensors(getattr(tree, f.name))]
+    return []
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class StepTracer(TorchDispatchMode):
+    """Bytes of every aten op and the live bytes of every storage.
+
+    ``bytes``: the sum over ops of their input and output tensors' bytes
+    (a view, a bare allocation and an op on no tensor add nothing).
+    ``live`` / ``peak``: the bytes of the storages alive now / at most
+    since the tracer opened, counting from the storages of ``args`` (the
+    step's arguments); a storage counts from the op that made it until
+    it is freed (a weak reference to it says when)."""
+
+    def __init__(self, args=()):
+        super().__init__()
+        self.bytes = 0
+        self.live = 0
+        self.peak = 0
+        self._refs: dict = {}
+        for t in _tensors(args):
+            self._track(t)
+
+    def _track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._refs:
+            return
+        n = st.nbytes()
+
+        def freed(_, key=key, n=n):
+            self._refs.pop(key, None)
+            self.live -= n
+
+        self._refs[key] = weakref.ref(st, freed)
+        self.live += n
+        self.peak = max(self.peak, self.live)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not func.is_view and func not in _ALLOCS \
+                and func is not _aten._unsafe_view.default:
+            self.bytes += sum(_nbytes(t) for t in
+                              _tensors((args, kwargs, out)))
+        for t in _tensors(out):
+            self._track(t)
+        return out
+
+
+def trace_step(bundle) -> dict:
+    """Run ``bundle.fn(*bundle.args)`` once under the three counters;
+    returns the step's counts (see the module docstring) and its
+    outputs under ``"out"``."""
+    args = bundle.args
+    arg_ts = _tensors(args)
+    arg_storages = {id(t.untyped_storage()) for t in arg_ts}
+    arg_bytes = sum(_nbytes(t) for t in {id(t): t for t in arg_ts}.values())
+    with record_collectives() as coll, kernel_cost.counting() as kc, \
+            FlopCounterMode(display=False) as fc, StepTracer(args) as tr:
+        out = bundle.fn(*args)
+    outs = list({id(t): t for t in _tensors(out)}.values())
+    out_bytes = sum(_nbytes(t) for t in outs)
+    alias = sum(_nbytes(t) for t in outs
+                if id(t.untyped_storage()) in arg_storages)
+    aten_flops = fc.get_total_flops()
+    return {
+        "memory": {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
+                   "temp_bytes": tr.peak - arg_bytes, "alias_bytes": alias,
+                   "peak_bytes": tr.peak},
+        "cost": {"flops": aten_flops + kc.flops,
+                 "bytes_accessed": tr.bytes + kc.bytes},
+        "aten_flops": aten_flops,
+        "kernels": kc.by_kernel,
+        "collectives": coll.as_dict(),
+        "out": out,
+    }
+
+
+def _shape(shape) -> ShapeSpec:
+    return shape if isinstance(shape, ShapeSpec) else SHAPES[shape]
+
+
+def run_cell(arch: str, shape_name, mesh_kind: str = "single",
+             overrides: dict | None = None) -> dict:
+    """The dry run of one cell on ``meta``. ``shape_name`` is a key of
+    :data:`SHAPES` or a :class:`ShapeSpec` (a reduced batch); only
+    ``mesh_kind="single"`` (one card) exists."""
+    from .roofline import HBM_BYTES
+    if mesh_kind != "single":
+        raise ValueError(f"mesh {mesh_kind!r}: the port runs on one card "
+                         f"(mesh 'single'); JAX's multi-pod mesh has no "
+                         f"counterpart here")
+    cfg = get_config(arch)
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    shape = _shape(shape_name)
+    ok, why = shape_supported(cfg, shape)
+    if not ok:
+        return {"arch": arch, "shape": shape.name, "mesh": mesh_kind,
+                "status": "skipped", "reason": why}
+    t0 = time.perf_counter()
+    bundle = build_step(cfg, shape, device="meta")
+    res = trace_step(bundle)
+    del bundle, res["out"]
+    mem = res["memory"]
+    return {
+        "arch": arch, "shape": shape.name, "mesh": mesh_kind,
+        "status": "ok", "devices": 1,
+        "seq_len": shape.seq_len, "global_batch": shape.global_batch,
+        "kind": shape.kind,
+        "lower_s": round(time.perf_counter() - t0, 1), "compile_s": 0.0,
+        "memory": mem,
+        "fits": mem["peak_bytes"] <= HBM_BYTES,
+        "cost": res["cost"],
+        "aten_flops": res["aten_flops"],
+        "kernels": res["kernels"],
+        "collectives": res["collectives"],
+        "params": cfg.param_count(),
+        "params_active": cfg.param_count(active_only=True),
+    }
+
+
+def _counts(cfg, shape) -> dict:
+    res = trace_step(build_step(cfg, shape, device="meta"))
+    coll = res["collectives"]
+    return {"flops": res["cost"]["flops"],
+            "bytes": res["cost"]["bytes_accessed"],
+            "wire": coll["wire_bytes"], "coll": coll["total_bytes"],
+            "by_kind": coll["bytes_by_kind"]}
+
+
+def cost_pass(arch: str, shape_name, mesh_kind: str = "single",
+              overrides: dict | None = None) -> dict:
+    """The cost numbers of the eager trace, which counts every layer as
+    it runs: no extrapolation is needed. Beside them the ``points`` JAX's
+    cost pass extrapolates from (the step at one and at two repeats of
+    the layer pattern, traced the same way), so that the affine identity
+    ``f(R) = f(1) + (R - 1) (f(2) - f(1))`` that JAX's method assumes can
+    be checked."""
+    if mesh_kind != "single":
+        raise ValueError(f"mesh {mesh_kind!r}: the port runs on one card")
+    cfg = get_config(arch)
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    shape = _shape(shape_name)
+    ok, why = shape_supported(cfg, shape)
+    if not ok:
+        return {"arch": arch, "shape": shape.name, "mesh": mesh_kind,
+                "status": "skipped", "reason": why}
+    unit = len(cfg.pattern)
+    t0 = time.perf_counter()
+    full = _counts(cfg, shape)
+    pts = {r: _counts(cfg.replace(n_layers=unit * r), shape)
+           for r in (1, 2)}
+    return {
+        "arch": arch, "shape": shape.name, "mesh": mesh_kind,
+        "status": "ok", "repeats": cfg.repeats,
+        "seconds": round(time.perf_counter() - t0, 1),
+        "cost": {"flops": full["flops"], "bytes_accessed": full["bytes"]},
+        "collectives": {"wire_bytes": full["wire"],
+                        "total_bytes": full["coll"],
+                        "bytes_by_kind": full["by_kind"]},
+        "points": pts,
+    }
+
+
+def save(result: dict, suffix: str = "") -> str:
+    os.makedirs(RESULTS_DIR, exist_ok=True)
+    fn = os.path.join(
+        RESULTS_DIR,
+        f"{result['arch']}_{result['shape']}_{result['mesh']}{suffix}.json")
+    with open(fn, "w") as f:
+        json.dump(result, f, indent=1)
+    return fn
+
+
+def _host_read(exc: BaseException) -> str:
+    """The op of the step that raised, from the innermost frame of the
+    port (the meta device refuses a read to the host)."""
+    frames = [f for f in traceback.extract_tb(exc.__traceback__)
+              if "repro_torch" in f.filename]
+    if not frames:
+        return ""
+    f = frames[-1]
+    return f" at {os.path.basename(f.filename)}:{f.lineno} ({f.line})"
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", choices=ARCHS)
+    ap.add_argument("--shape", choices=list(SHAPES))
+    ap.add_argument("--mesh", choices=["single", "multipod"],
+                    default="single")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--cost", action="store_true",
+                    help="run the cost pass (the trace and its R=1/R=2 "
+                         "points) instead of the dry run")
+    ap.add_argument("--skip-existing", action="store_true")
+    args = ap.parse_args(argv)
+
+    if args.all:
+        cells = [(a, s, "single") for a in ARCHS for s in SHAPES]
+    else:
+        if not (args.arch and args.shape):
+            ap.error("--arch/--shape or --all required")
+        cells = [(args.arch, args.shape, args.mesh)]
+
+    suffix = "_cost" if args.cost else ""
+    failures = 0
+    for a, s, m in cells:
+        fn = os.path.join(RESULTS_DIR, f"{a}_{s}_{m}{suffix}.json")
+        if args.skip_existing and os.path.exists(fn):
+            with open(fn) as f:
+                prev = json.load(f)
+            if prev.get("status") in ("ok", "skipped"):
+                print(f"[dryrun] {a} {s} {m}{suffix}: cached "
+                      f"{prev['status']}", flush=True)
+                continue
+        try:
+            res = cost_pass(a, s, m) if args.cost else run_cell(a, s, m)
+        except Exception as e:  # noqa: BLE001 — record and continue
+            res = {"arch": a, "shape": s, "mesh": m, "status": "error",
+                   "error": f"{type(e).__name__}: {e}{_host_read(e)}",
+                   "trace": traceback.format_exc()[-2000:]}
+            failures += 1
+        save(res, suffix)
+        msg = res["status"]
+        if res["status"] == "ok" and not args.cost:
+            mem = res["memory"]
+            msg += (f" peak {mem['peak_bytes'] / 1e9:.1f} GB (args "
+                    f"{mem['argument_bytes'] / 1e9:.1f}) "
+                    f"{'fits' if res['fits'] else 'does not fit'}; "
+                    f"flops={res['cost']['flops']:.4g} "
+                    f"bytes={res['cost']['bytes_accessed']:.4g} "
+                    f"trace={res['lower_s']}s")
+        elif res["status"] == "ok":
+            msg += (f" flops={res['cost']['flops']:.4g} "
+                    f"bytes={res['cost']['bytes_accessed']:.4g} "
+                    f"({res['seconds']}s)")
+        elif res["status"] == "error":
+            msg += f" {res['error']}"
+        print(f"[dryrun] {a} {s} {m}{suffix}: {msg}", flush=True)
+    raise SystemExit(1 if failures else 0)
+
+
+if __name__ == "__main__":
+    main()

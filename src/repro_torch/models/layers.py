@@ -100,6 +100,20 @@ def _decode_attention(q, k, v, cache, rows, **kw):
     return out
 
 
+def _decode_attention_device(q, k, v, cache, index, **kw):
+    """A decode step's attention with every row at the device-side
+    position ``index`` (an i32 0-d tensor) of the contiguous cache: each
+    row's k/v written there in place, then the plain masked attention
+    over the whole cache with the keys past ``index`` masked (JAX's
+    ``dynamic_update_slice`` and ``valid_len = cache_index + 1``); no
+    value goes to the host."""
+    pos = index.reshape(1).long()
+    cache["k"].index_copy_(2, pos, k)
+    cache["v"].index_copy_(2, pos, v)
+    return ops.attention(q, cache["k"], cache["v"], valid_len=index + 1,
+                         **kw)
+
+
 def attention_block(p, x, positions, cfg, *, window=None, softcap=None,
                     causal=True, cache=None, cache_index=None, memory=None,
                     train=True):
@@ -127,7 +141,10 @@ def attention_block(p, x, positions, cfg, *, window=None, softcap=None,
       ``cache_index`` is an int (every row at one position) or host ints,
       one per row (``-1``: a finished row); see
       :func:`_decode_attention`. ``x`` may hold more rows than the cache
-      (a decode step's padding); they give 0.
+      (a decode step's padding); they give 0. A 0-d tensor
+      ``cache_index`` (the step builders' device lane, contiguous cache
+      only) puts every row at that position: see
+      :func:`_decode_attention_device`.
 
     The caches are updated in place (the JAX package returns new
     arrays); ``new_cache`` is the same dict.
@@ -150,6 +167,11 @@ def attention_block(p, x, positions, cfg, *, window=None, softcap=None,
                                                                 **kw)
         if memory is not None:
             cache = {"k": k, "v": v}
+    elif T == 1 and torch.is_tensor(cache_index):
+        if "pages" in cache:
+            raise ValueError("a device-side cache_index takes a contiguous "
+                             "cache")
+        out = _decode_attention_device(q, k, v, cache, cache_index, **kw)
     elif T == 1:
         rows = (cache_index if isinstance(cache_index, list)
                 else [int(cache_index)] * cache["k"].shape[0])
@@ -398,8 +420,10 @@ def ssm_block(p, x, cfg, *, state=None, rows=None, return_state=False,
       and only the live rows are written back, in place (a finished row
       writes nothing). Rows are independent, so a finished row's stale
       state changes no live row's bits; the row selection stays on the
-      host (a device index would cost a blocking copy per layer).
-      ``new_state`` is ``state``.
+      host (a device index would cost a blocking copy per layer). A 0-d
+      tensor ``rows`` (the step builders' device lane: every row live,
+      ``x`` as wide as the cache) writes every row back. ``new_state``
+      is ``state``.
     """
     B, T, _ = x.shape
     H, S = cfg.ssm_heads, cfg.ssm_state
@@ -423,15 +447,20 @@ def ssm_block(p, x, cfg, *, state=None, rows=None, return_state=False,
                                      xin.float())
     else:
         Bc = state.shape[0]
-        st = torch.zeros((B, H, S, P), dtype=torch.float32, device=x.device)
-        st[:Bc] = state
+        if Bc == B:
+            st = state
+        else:
+            st = torch.zeros((B, H, S, P), dtype=torch.float32,
+                             device=x.device)
+            st[:Bc] = state
         at = torch.exp(a[:, 0]).float()                      # [B, H]
         st = (st * at[..., None, None]
               + b[:, 0].float()[:, None, :, None]
               * xin[:, 0].float()[:, :, None, :])
         y = torch.einsum("bs,bhsp->bhp", c[:, 0].float(),
                          st)[:, None].to(x.dtype)
-        live = [i for i, r in enumerate(rows) if r >= 0]
+        live = (range(Bc) if torch.is_tensor(rows)
+                else [i for i, r in enumerate(rows) if r >= 0])
         if len(live) == Bc:
             state.copy_(st[:Bc])
         else:

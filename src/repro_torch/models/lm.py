@@ -62,14 +62,19 @@ def _has_cross(cfg: ModelConfig, kind: str) -> bool:
     return cfg.family == "encdec" and kind == "attn"
 
 
-def _normal(gen, shape, dtype, scale):
+def _normal(gen, shape, dtype, scale, device=None):
     """``randn * scale``, scaled in place: no second copy of the leaf
-    (moonshot's stacked expert leaves are 17.7 GB each in bf16)."""
+    (moonshot's stacked expert leaves are 17.7 GB each in bf16). With no
+    generator, an empty leaf on ``device`` (on ``"meta"``: a shape,
+    nothing allocated)."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
     return x.mul_(scale)
 
 
-def _init_slot(gen, cfg: ModelConfig, kind: str, R: int | None) -> dict:
+def _init_slot(gen, cfg: ModelConfig, kind: str, R: int | None,
+               device) -> dict:
     """One slot's parameters, stacked over a leading axis of ``R``
     repeats (``None``: no leading axis, the shared block)."""
     d, f = cfg.d_model, cfg.d_ff
@@ -79,10 +84,10 @@ def _init_slot(gen, cfg: ModelConfig, kind: str, R: int | None) -> dict:
 
     def z(*shape):
         return torch.zeros((*lead, *(shape or (d,))), dtype=torch.float32,
-                           device=gen.device)
+                           device=device)
 
     def w(*shape, scale):
-        return _normal(gen, (*lead, *shape), dt, scale)
+        return _normal(gen, (*lead, *shape), dt, scale, device)
 
     if kind not in ("attn", "local", "shared_attn", "ssm"):
         raise ValueError(f"unknown sublayer kind {kind!r}")
@@ -120,35 +125,38 @@ def _init_slot(gen, cfg: ModelConfig, kind: str, R: int | None) -> dict:
     return p
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
-    """Random parameters on the generator's device; a ``shared_attn``
+def init_params(cfg: ModelConfig, gen: torch.Generator | None, *,
+                device=None) -> dict:
+    """Random parameters on the generator's device (``gen=None`` with
+    ``device="meta"``: the same tree on ``meta``, nothing allocated: the
+    dry run's parameters); a ``shared_attn``
     slot has no entry in ``params["blocks"]``: its one parameter set,
     with no ``repeats`` axis, is ``params["shared"]``. An enc-dec model
     adds ``params["enc"] = {"blocks": <a dense attn slot stacked over
     n_enc_layers>, "norm"}``, a frontend ``params["front"]["w"]
     [frontend_dim, d]``."""
     d, V = cfg.d_model, cfg.vocab_padded
+    dev = gen.device if gen is not None else torch.device(device)
     params = {
-        "embed": _normal(gen, (V, d), cfg.torch_dtype, d ** -0.5),
-        "norm_f": torch.zeros((d,), dtype=torch.float32, device=gen.device),
+        "embed": _normal(gen, (V, d), cfg.torch_dtype, d ** -0.5, dev),
+        "norm_f": torch.zeros((d,), dtype=torch.float32, device=dev),
     }
     if not cfg.tie_embeddings:
-        params["out"] = _normal(gen, (d, V), cfg.torch_dtype, d ** -0.5)
-    params["blocks"] = {name: _init_slot(gen, cfg, kind, cfg.repeats)
+        params["out"] = _normal(gen, (d, V), cfg.torch_dtype, d ** -0.5, dev)
+    params["blocks"] = {name: _init_slot(gen, cfg, kind, cfg.repeats, dev)
                         for name, kind in zip(slot_names(cfg), cfg.pattern)
                         if kind != "shared_attn"}
     if "shared_attn" in cfg.pattern:
-        params["shared"] = _init_slot(gen, cfg, "shared_attn", None)
+        params["shared"] = _init_slot(gen, cfg, "shared_attn", None, dev)
     if cfg.n_enc_layers:
         params["enc"] = {
             "blocks": _init_slot(gen, cfg.replace(family="dense"), "attn",
-                                 cfg.n_enc_layers),
-            "norm": torch.zeros((d,), dtype=torch.float32,
-                                device=gen.device)}
+                                 cfg.n_enc_layers, dev),
+            "norm": torch.zeros((d,), dtype=torch.float32, device=dev)}
     if cfg.frontend:
         params["front"] = {"w": _normal(gen, (cfg.frontend_dim, d),
                                         cfg.torch_dtype,
-                                        cfg.frontend_dim ** -0.5)}
+                                        cfg.frontend_dim ** -0.5, dev)}
     return params
 
 
@@ -167,7 +175,8 @@ def _cross(cfg, p, h, memory, cache, cache_index, mode):
                 cache["cross"][key].copy_(kv[key])
         return out
     ck = cache["cross"]
-    B, n = h.shape[0], len(cache_index)
+    B = h.shape[0]
+    n = B if torch.is_tensor(cache_index) else len(cache_index)
     q = L.dense(h, p["wq"]).reshape(B, 1, cfg.n_heads, cfg.hd).transpose(1, 2)
     o = torch.zeros_like(q)
     o[:n] = ops.attention(q[:n], ck["k"], ck["v"], causal=False)
@@ -220,7 +229,8 @@ def _apply_slot(cfg, kind, p, x, positions, *, cache=None,
     h = L.rms_norm(x, p["norm2"])
     if cfg.n_experts:
         h, aux = L.moe_block(p["moe"], h, cfg, mesh=mesh, rows=(
-            len(cache_index) if mode == "decode" else None))
+            len(cache_index) if mode == "decode"
+            and not torch.is_tensor(cache_index) else None))
     else:
         h = L.mlp_block(p["mlp"], h, cfg)
     return x + h, aux
@@ -230,6 +240,18 @@ def _layer(tree, r: int):
     if isinstance(tree, dict):
         return {k: _layer(v, r) for k, v in tree.items()}
     return tree[r]
+
+
+def _unstack(tree, R: int) -> list:
+    """The ``R`` layers of a stacked parameter tree, by one ``unbind``
+    per leaf: its backward is one ``stack`` of the layers' gradients,
+    where indexing each layer would make every layer's gradient a
+    zero-filled copy of the whole stacked leaf (bytes growing with
+    ``R**2``)."""
+    if isinstance(tree, dict):
+        subs = {k: _unstack(v, R) for k, v in tree.items()}
+        return [{k: subs[k][r] for k in subs} for r in range(R)]
+    return list(tree.unbind(0))
 
 
 def _units(cfg, params, x, positions, *, cache=None, cache_index=None,
@@ -244,10 +266,13 @@ def _units(cfg, params, x, positions, *, cache=None, cache_index=None,
     output an enc-dec decoder's cross-attention reads (training and
     prefill)."""
     aux = None
+    layers = {name: _unstack(params["blocks"][name], cfg.repeats)
+              for name, kind in zip(slot_names(cfg), cfg.pattern)
+              if kind != "shared_attn"}
     for r in range(cfg.repeats):
         for name, kind in zip(slot_names(cfg), cfg.pattern):
             p = (params["shared"] if kind == "shared_attn"
-                 else _layer(params["blocks"][name], r))
+                 else layers[name][r])
             c = _layer(cache[name], r) if cache is not None else None
             x, a = _apply_slot(cfg, kind, p, x, positions, cache=c,
                                cache_index=cache_index, mode=mode,
@@ -292,9 +317,10 @@ def _encoder(cfg, params, frames, *, train):
     x = L.dense(frames, params["front"]["w"])
     positions = torch.arange(x.shape[1], device=x.device)
     dense = cfg.replace(family="dense")
+    enc = _unstack(params["enc"]["blocks"], cfg.n_enc_layers)
     for r in range(cfg.n_enc_layers):
-        x, _ = _apply_slot(dense, "attn", _layer(params["enc"]["blocks"], r),
-                           x, positions, mode="encoder", train=train)
+        x, _ = _apply_slot(dense, "attn", enc[r], x, positions,
+                           mode="encoder", train=train)
     return L.rms_norm(x, params["enc"]["norm"])
 
 
@@ -491,7 +517,11 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, cache_index, *,
 
     ``cache_index``: an int (the contiguous cache, every row at one
     position) or host ints, one per row, over a paged cache; ``-1`` marks
-    a finished row (it writes nothing and sees no key). Each row attends
+    a finished row (it writes nothing and sees no key). A 0-d tensor
+    takes the device lane of the step builders (JAX's scalar
+    ``cache_index``): every one of any number of rows at that position of
+    a contiguous cache, no padding to ``DECODE_ROWS``, and nothing read
+    back to the host (see :func:`_decode_step_device`). Each row attends
     over exactly its valid keys (see
     :func:`repro_torch.models.layers.attention_block`); an SSM row's
     recurrence runs at the same fixed width and a finished row writes no
@@ -501,6 +531,9 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, cache_index, *,
     enc-dec slot's cross-attention reads its cross cache for the ``B``
     real rows (:func:`_cross`); ``mesh`` as in :func:`train_loss`.
     """
+    if torch.is_tensor(cache_index):
+        return _decode_step_device(cfg, params, cache, tokens, cache_index,
+                                   mesh=mesh)
     B = tokens.shape[0]
     if B > DECODE_ROWS:
         raise ValueError(f"a decode step takes at most DECODE_ROWS = "
@@ -521,6 +554,29 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, cache_index, *,
                   mode="decode", mesh=mesh)
     x = L.rms_norm(x, params["norm_f"])
     return _logits(cfg, params, x)[:B], cache
+
+
+def _decode_step_device(cfg, params, cache, tokens, cache_index, *,
+                        mesh=None):
+    """:func:`decode_step` at a device-side position, the twin of JAX's
+    ``decode_step`` with a scalar ``cache_index``: tokens ``[B, 1]``, any
+    ``B``, every row at position ``cache_index`` (an i32 0-d tensor on the
+    cache's device) of the contiguous ``cache``, which is written in
+    place. Attention writes each row's k/v there and attends over the
+    whole cache with the keys past it masked; an SSM slot advances every
+    row's state; an MoE block routes all ``B`` rows. No value is read
+    back to the host, so the step runs on ``"meta"`` (the dry run) as on
+    a card."""
+    if cache_index.dim() != 0:
+        raise ValueError(f"a device-side cache_index is a 0-d tensor, got "
+                         f"shape {tuple(cache_index.shape)}")
+    B = tokens.shape[0]
+    positions = cache_index.long().reshape(1, 1).expand(B, 1)
+    x = _embed_tokens(cfg, params, tokens)
+    x, _ = _units(cfg, params, x, positions, cache=cache,
+                  cache_index=cache_index, mode="decode", mesh=mesh)
+    x = L.rms_norm(x, params["norm_f"])
+    return _logits(cfg, params, x), cache
 
 
 def poisoned_rows(logits: torch.Tensor, vocab: int) -> torch.Tensor:

@@ -204,14 +204,30 @@ def test_mixed_dtype_attention_matches_jax_ref(Tq, Tk):
                                atol=0)
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device the kernel wrappers do not
+    take."""
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_wrapper_refuses_grad_and_other_devices():
+    """Grad is refused; ``meta`` takes the cost twin (an output of the
+    kernel's shape, no launch); any other device is refused."""
     q = torch.zeros((1, 2, 4, 16), requires_grad=True)
     k = torch.zeros((1, 2, 4, 16))
     with pytest.raises(RuntimeError, match="no backward"):
         flash_attention(q, k, k)
+    before = flash_attention.launches
     m = torch.zeros((1, 2, 4, 16), device="meta")
-    with pytest.raises(RuntimeError, match="CPU .plain version. or a CUDA"):
-        flash_attention(m, m, m)
+    out = flash_attention(m, m, m)
+    assert out.device.type == "meta" and out.shape == m.shape
+    assert flash_attention.launches == before
+    x = torch.zeros((1, 2, 4, 16)).as_subclass(_Elsewhere)
+    with pytest.raises(RuntimeError,
+                       match="CPU .plain version., a CUDA device or meta"):
+        flash_attention(x, x, x)
 
 
 def test_head_dims_cover_every_attention_config():

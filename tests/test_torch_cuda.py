@@ -1061,3 +1061,24 @@ def test_cuda_compare_ledger_equals_cpu(cuda_device, q, k, d, hosts):
     topo = None if hosts is None else Topology.two_level(hosts)
     assert lower_schedules(q, k, d, topology=topo, device=cuda_device) == \
         lower_schedules(q, k, d, topology=topo, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["granite_3_2b", "mamba2_1p3b"])
+def test_cuda_prefill_counts_equal_meta(cuda_device, arch):
+    """One prefill through ``flash_attention`` (granite) or ``ssd_scan``
+    (mamba2) on the card counts the FLOPs and kernel work the dry run's
+    ``meta`` trace of the same step counts (the kernels' formulas charged
+    by both routes, the aten products by ``FlopCounterMode``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.kernels import cost
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import build_step
+    cfg = reduced(get_config(arch))
+    shape = ShapeSpec("prefill_small", 128, 2, "prefill")
+    meta = dryrun.trace_step(build_step(cfg, shape, device="meta"))
+    bundle = build_step(cfg, shape, device=cuda_device)
+    with cost.counting() as kc, FlopCounterMode(display=False) as fc:
+        bundle.fn(*bundle.args)
+    assert kc.by_kernel and kc.by_kernel == meta["kernels"]
+    assert fc.get_total_flops() + kc.flops == meta["cost"]["flops"]

@@ -71,8 +71,8 @@ def zamba(zamba_pair):
 # --------------------------------------------------------------------- #
 def test_zamba2_config_matches_jax():
     """The port's config (full and reduced) field by field against the
-    JAX package's (``ssm_chunk`` and ``microbatches`` are XLA knobs the
-    port has none of: the chunk is the kernel's constant, 64)."""
+    JAX package's (``ssm_chunk`` is an XLA knob the port has none of:
+    the chunk is the kernel's constant, 64)."""
     assert ARCH in ARCHS
     for want, got in ((jax_get_config(ARCH), get_config(ARCH)),
                       (jax_reduced(jax_get_config(ARCH)),
@@ -83,6 +83,7 @@ def test_zamba2_config_matches_jax():
                   "attn_softcap", "final_softcap", "mlp_act",
                   "ssm_state", "ssm_heads", "ssm_d_inner", "tie_embeddings",
                   "scale_embed", "dtype", "loss_chunk", "vocab_padded",
+                  "microbatches", "grad_sync_dtype",
                   "repeats"):
             assert getattr(got, f) == getattr(want, f), f
         assert want.ssm_chunk == CHUNK

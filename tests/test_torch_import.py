@@ -26,6 +26,9 @@ _IMPORT_ALL = textwrap.dedent("""
         __import__(name)
     assert len(names) >= 20, names
     assert "repro_torch.kernels.ops" in names, names
+    for name in ("repro_torch.kernels.cost", "repro_torch.launch.steps",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.roofline"):
+        assert name in names, name
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
     assert not bad, bad
@@ -77,6 +80,9 @@ def test_no_port_file_imports_jax_or_repro():
     bad = {}
     files = _port_files()
     assert len(files) > 20
+    for rel in ("kernels/cost.py", "launch/steps.py", "launch/dryrun.py",
+                "launch/roofline.py"):
+        assert os.path.join(PORT, rel) in files, rel
     for path in files:
         roots = set(_imported_roots(path)) & {"jax", "jaxlib", "repro"}
         if roots:

@@ -70,14 +70,15 @@ MOE = ["moonshot_v1_16b_a3b", "mixtral_8x7b"]
 DENSE = ["internlm2_20b", "mistral_large_123b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 #: the fields a config shares with the JAX package's (``microbatches``
-#: is a JAX training knob the port has none of)
+#: and ``grad_sync_dtype`` set what the train step computes)
 FIELDS = ("name", "family", "n_layers", "d_model", "n_heads", "n_kv_heads",
           "d_ff", "vocab", "head_dim", "hd", "pattern", "rope_theta",
           "window", "local_window", "attn_softcap", "final_softcap",
           "mlp_act", "tie_embeddings", "scale_embed", "n_experts",
           "experts_per_token", "moe_capacity_factor", "moe_shard_mode",
           "n_enc_layers", "frontend", "frontend_dim", "frontend_len",
-          "dtype", "loss_chunk", "vocab_padded", "repeats")
+          "dtype", "loss_chunk", "vocab_padded", "repeats", "microbatches",
+          "grad_sync_dtype")
 
 
 def _pair(arch, seed=0, **kw):

@@ -178,9 +178,20 @@ def test_ssd_wrapper_checks_raise():
         ssd_scan(x, a, b.bfloat16(), c)               # mixed dtypes
     with pytest.raises(RuntimeError, match="no backward"):
         ssd_scan(x.requires_grad_(), a, b, c)
+    # meta takes the cost twin (no launch); any other device is refused
+    y = ssd_scan(*(v.to("meta") for v in (x.detach(), a, b, c)))
+    assert y.device.type == "meta" and y.shape == x.shape
     with pytest.raises(RuntimeError, match="CPU"):
-        ssd_scan(*(v.to("meta") for v in (x.detach(), a, b, c)))
+        ssd_scan(*(v.detach().as_subclass(_Elsewhere) for v in (x, a, b, c)))
     assert ssd_scan.launches == 0
+
+
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device the kernel wrappers do not
+    take."""
+    @property
+    def device(self):
+        return torch.device("xpu")
 
 
 def test_ssd_aligned_pads_with_zeros_and_keeps_values():
@@ -295,8 +306,8 @@ def mamba(mamba_pair):
 
 def test_mamba2_config_matches_jax():
     """The port's config (full and reduced) field by field against the
-    JAX package's (``ssm_chunk`` and ``microbatches`` are XLA knobs the
-    port has none of: the chunk is the kernel's constant, 64)."""
+    JAX package's (``ssm_chunk`` is an XLA knob the port has none of:
+    the chunk is the kernel's constant, 64)."""
     assert "mamba2_1p3b" in ARCHS
     for want, got in ((jax_get_config("mamba2_1p3b"),
                        get_config("mamba2_1p3b")),
@@ -306,6 +317,7 @@ def test_mamba2_config_matches_jax():
                   "n_kv_heads", "d_ff", "vocab", "head_dim", "pattern",
                   "ssm_state", "ssm_heads", "ssm_d_inner", "tie_embeddings",
                   "scale_embed", "dtype", "loss_chunk", "vocab_padded",
+                  "microbatches", "grad_sync_dtype",
                   "repeats"):
             assert getattr(got, f) == getattr(want, f), f
         assert want.ssm_chunk == CHUNK
