@@ -39,10 +39,14 @@ result line) on any mismatch:
    per-head and with group-shared b/c, and at mamba2's serving prefills
    (bf16, group-shared b/c, 64 heads of P 64, state 128, T in {77, 1000,
    1024, 2048}) and zamba2's (80 heads of P 64, state 64, T in {77, 129,
-   1024}) within 1e-5 x max|y| of an f64 evaluation in f32 and
-   within two bf16 ulps of each output (plus twice that f32 error) of
-   its plain version in bf16, timed beside its bound (bytes), its plain
-   version and no library call (none computes an SSD scan);
+   1024}) within 1e-5 x max|y| of an f64 evaluation in f32 (the same
+   bits on a second call) and within two bf16 ulps of each output (plus
+   twice that f32 error) of its plain version in bf16, timed beside its
+   bound (bytes; for the f32 body operations at 67 TFLOP/s, of the
+   work the function needs with group-shared b/c, timed at
+   mamba2's and zamba2's 1024 tokens with each of its three kernels'
+   device time), its plain version and no library call (none computes
+   an SSD scan);
 2. **shuffle** — the coded shuffle of (q, k) in {(2,3), (3,3), (2,4)},
    both routers, bitwise equal to the same shuffle through the plain
    versions on the card: f32 (and close to the numpy reference), and the
@@ -197,7 +201,12 @@ result line) on any mismatch:
    f32 frames, its encoder and cross-attention, none else), every request's prefill logits through the kernels within 5%
    of max |logit| of the plain versions' at full depth; it reports
    prefill ms by length, the host loop's tok/s and step p50/p99, and
-   peak memory.
+   peak memory. Last, ``SERVE_F32_RUN``: ``mamba2_1p3b`` at full width
+   in f32 (its training dtype), cut to 4 layers, two requests of 1024
+   and 77 tokens with 8 new tokens each, the same gates, its prefill
+   logits within ``F32_LOGIT_SHARE`` = 1e-3 of max |logit| of the plain
+   versions' and exactly one f32 ``ssd_scan`` launch per layer and
+   prefill (8).
 
 5. **dryrun** — ``phase_dryrun``: the dry run of
    ``repro_torch.launch.dryrun`` against the card. First each kernel at
@@ -226,9 +235,11 @@ the granite, gemma2, zamba2, moonshot, mixtral, internlm2, seamless and
 internvl2 serving runs and ``phase_dryrun``'s granite prefill,
 ``ssd_scan``'s over the mamba2 and zamba2 runs and ``phase_dryrun``'s
 mamba2 prefill;
-and a twelfth entry, ``flash_attention_f32``, for ``flash_attention``'s f32 body at
+a twelfth entry, ``flash_attention_f32``, for ``flash_attention``'s f32 body at
 seamless's encoder shape, its launches those of the f32 body alone,
-3,168 in the four seamless requests on f32 frames) and ``{"ok": true,
+3,168 in the four seamless requests on f32 frames; and a thirteenth,
+``ssd_scan_f32``, for ``ssd_scan``'s f32 body at mamba2's 1024 tokens,
+its launches those of the f32 serving run) and ``{"ok": true,
 "device": {...}}``. Needs one CUDA card, the CUDA toolkit (``nvcc``) and
 the rest of this checkout; imports nothing of JAX.
 """
@@ -239,6 +250,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -268,7 +280,8 @@ SOURCES = {"xor_encode_gather": (_GATHER, "src/repro/kernels/xor_code.py:240"),
                                "src/repro/kernels/flash_attention.py:127"),
            "flash_attention_f32": (_FLASH,
                                    "src/repro/kernels/flash_attention.py:127"),
-           "ssd_scan": (_SSD, "src/repro/kernels/ssd_scan.py:98")}
+           "ssd_scan": (_SSD, "src/repro/kernels/ssd_scan.py:98"),
+           "ssd_scan_f32": (_SSD, "src/repro/kernels/ssd_scan.py:98")}
 #: H100 SXM peaks (data sheet, dense): bf16 tensor cores, f32 outside them
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
@@ -299,10 +312,17 @@ def time_ms(fn, *, warmup=2, reps=5):
 
 
 def device_ms(fn, *, reps=5):
-    """Device milliseconds of one call: the CUDA kernels' own time in a
+    """Device milliseconds of one call: the sum of
+    :func:`device_ms_by_kernel`; the host's launch time is left out. None
+    when the profiler records no device activity."""
+    return sum(device_ms_by_kernel(fn, reps=reps).values()) or None
+
+
+def device_ms_by_kernel(fn, *, reps=5):
+    """Device milliseconds of one call by CUDA kernel: {name (the
+    function's, with its template arguments): its kernels' own time in a
     ``torch.profiler`` trace of ``reps`` calls (after one warm-up), over
-    ``reps``; the host's launch time is left out. None when the profiler
-    records no device activity."""
+    ``reps``}; empty when the profiler records no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -311,9 +331,14 @@ def device_ms(fn, *, reps=5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(float(getattr(e, "self_device_time_total", 0.0))
-             for e in prof.key_averages() if e.device_type.name == "CUDA")
-    return us / reps / 1e3 if us > 0 else None
+    out = {}
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total", 0.0))
+        if e.device_type.name == "CUDA" and us > 0:
+            m = re.search(r"\w+(<[^()]*>)?(?=\()", e.key)
+            name = m.group(0) if m else e.key
+            out[name] = out.get(name, 0.0) + us / reps / 1e3
+    return out
 
 
 def max_abs_err(a, b) -> float:
@@ -771,6 +796,9 @@ SSD_CASES = [(1, 32, 2, 8, 4, 8), (2, 64, 1, 16, 8, 16),
 SSD_MAIN = (1, 1024, 64, 64, 128)
 SSD_SHAPES = [SSD_MAIN] + [(1, t, 64, 64, 128) for t in (77, 1000, 2048)] + [
     (1, t, 80, 64, 64) for t in (77, 129, 1024)]
+#: the shapes at which the f32 body is timed, each kernel apart: mamba2's
+#: (the ``kernels`` line's ``ssd_scan_f32``) and zamba2's at 1024 tokens
+SSD_F32_TIMED = (SSD_MAIN, (1, 1024, 80, 64, 64))
 SSD_TOL = 2e-4
 #: the serving shapes' accuracy: the kernel's f32 result (the bf16 inputs
 #: upcast) within this share of max |y| of an f64 evaluation. The chunked
@@ -786,13 +814,24 @@ SSD_SERVE_RTOL = 2 ** -6
 
 
 def _ssd_work(B, T, H, P, S, C=64, itemsize=2):
-    """(FLOPs, bytes) of one scan (``repro_torch.kernels.cost.ssd_scan``):
-    per head and step, the Pallas kernel's products (c b^T over the
-    chunk, M x, c h and the state update: C*S + C*P + 2*S*P
-    multiply-adds); x and y in bf16 (``itemsize`` 2) or f32 (4), a in
-    f32, b and c group-shared in x's dtype, each read or written once."""
+    """(FLOPs, bytes) of one scan with group-shared b/c: the work the
+    function needs, which its bound is taken from. Per chunk of L real
+    steps, in multiply-adds: c b^T on and below the diagonal once (b and
+    c are shared by the heads), ``L (L + 1) / 2 * S``; per head M x on and
+    below the diagonal, ``L (L + 1) / 2 * P``; c h for every chunk but the
+    first (its entering state is zero) and the state update for every
+    chunk but the last (no output reads its result), ``L * S * P`` each.
+    The decays' exponentials and scalings are not counted. Bytes as
+    ``repro_torch.kernels.cost.ssd_scan`` (x and y in bf16, ``itemsize``
+    2, or f32, 4; a in f32; b and c in x's dtype; each read or written
+    once). ``cost.ssd_scan``, which the dry run charges, counts JAX's
+    products instead: c b^T per head and the whole M x, 1.6x this at
+    mamba2's 1024 tokens."""
     from repro_torch.kernels import cost
-    return cost.ssd_scan(B, T, H, P, S, itemsize, False, C)
+    lens = [min(C, T - t0) for t0 in range(0, T, C)]
+    tri = sum(L * (L + 1) // 2 for L in lens)
+    macs = tri * S + H * tri * P + H * S * P * (2 * T - lens[0] - lens[-1])
+    return 2 * B * macs, cost.ssd_scan(B, T, H, P, S, itemsize, False, C)[1]
 
 
 def check_ssd(gen):
@@ -800,11 +839,13 @@ def check_ssd(gen):
     SSD_CASES shape in f32 with per-head and group-shared b/c (2e-4, the
     tolerance of tests/test_kernels.py), and the serving prefills'
     shapes (``SSD_SHAPES``) in f32 (within ``SSD_F32_REL`` x max|y| of an
-    f64 evaluation) and in bf16 (within ``SSD_SERVE_RTOL`` of each output
-    plus twice ``SSD_F32_REL`` x max|y| of the plain version), each timed
-    beside its bound and its plain version (no single PyTorch call
-    computes an SSD scan), by CUDA events around each call and by the
-    device time of its kernel in a profiler trace."""
+    f64 evaluation, and the same bits on a second call) and in bf16
+    (within ``SSD_SERVE_RTOL`` of each output plus twice ``SSD_F32_REL`` x
+    max|y| of the plain version), each bf16 shape and the f32 body at
+    ``SSD_F32_TIMED`` timed beside its bound and its plain version (no
+    single PyTorch call computes an SSD scan), by CUDA events around each
+    call and by the device time of its kernels in a profiler trace (the
+    f32 body's also by kernel)."""
     import torch
     from repro_torch.kernels import ref, ssd_scan
 
@@ -828,36 +869,48 @@ def check_ssd(gen):
                     got, want, rtol=SSD_TOL, atol=SSD_TOL):
                 fail(f"ssd_scan != plain at {(B, T, H, P, S)} shared={shared} "
                      f"f32 (max abs err {err})")
-    timed = {}
+    timed, timed32 = {}, {}
     for shape in SSD_SHAPES:
         B, T, H, P, S = shape
         args = inputs(B, T, H, P, S, torch.bfloat16, True, "model")
         x, a, b, c = args
         exact = ref.ssd_chunked(*(t.double() for t in args))
         scale = float(exact.abs().max())
-        k32, p32 = (fn(x.float(), a, b.float(), c.float())
-                    for fn in (ssd_scan, ref.ssd_chunked))
+        a32 = (x.float(), a, b.float(), c.float())
+        k32, p32 = (fn(*a32) for fn in (ssd_scan, ref.ssd_chunked))
         f32_err, plain_err = (float((t.double() - exact).abs().max()) / scale
                               for t in (k32, p32))
         if not f32_err <= SSD_F32_REL:
             fail(f"ssd_scan at {shape} (f32): max abs err {f32_err} x max|y| "
                  f"against an f64 evaluation > {SSD_F32_REL}")
+        if not torch.equal(_bits(ssd_scan(*a32)), _bits(k32)):
+            fail(f"ssd_scan at {shape} (f32): two calls differ in their bits")
+        err32 = max_abs_err(k32, p32)
         del exact, k32, p32
-        if shape == SSD_MAIN:      # the f32 body (CUDA cores), timed once
-            a32 = (x.float(), a, b.float(), c.float())
+        if shape in SSD_F32_TIMED:     # the f32 body (CUDA cores), by kernel
             flops, nbytes = _ssd_work(B, T, H, P, S, itemsize=4)
             t_ops, t_bytes = (flops / PEAK_FLOPS["float32"],
                               nbytes / HBM_BYTES_PER_S)
-            log(f"kernels: ssd_scan f32 body at {shape} (x, b, c f32; "
-                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB): "
-                f"{time_ms(lambda: ssd_scan(*a32)):.3f} ms, device time "
-                f"(torch.profiler) "
-                f"{_ms_txt(device_ms(lambda: ssd_scan(*a32)))} (plain "
-                f"{time_ms(lambda: ref.ssd_chunked(*a32), warmup=1, reps=3):.3f}"
-                f" ms, library none, bound {max(t_ops, t_bytes) * 1e3:.4f} ms"
-                f" by {'operations' if t_ops >= t_bytes else 'bytes'} at 67 "
-                "TFLOP/s / 3.35 TB/s)")
-            del a32
+            split = device_ms_by_kernel(lambda: ssd_scan(*a32))
+            r = dict(ms=time_ms(lambda: ssd_scan(*a32)),
+                     device_ms=sum(split.values()) or None,
+                     plain_ms=time_ms(lambda: ref.ssd_chunked(*a32),
+                                      warmup=1, reps=3),
+                     library_ms=None, bound_ms=max(t_ops, t_bytes) * 1e3,
+                     bound_by="operations" if t_ops >= t_bytes else "bytes",
+                     max_abs_err=err32, bytes=nbytes,
+                     shape=f"x [{B},{T},{H},{P}] f32, a f32, b/c [{B},{T},"
+                           f"{S}] group-shared, {flops / 1e9:.3f} GFLOP, "
+                           f"{nbytes / 1e6:.2f} MB")
+            timed32[shape] = r
+            log(f"kernels: ssd_scan f32 body {r['shape']}: {r['ms']:.3f} ms, "
+                f"device time (torch.profiler) {_ms_txt(r['device_ms'])}: "
+                + ", ".join(f"{name} {ms:.4f} ms" for name, ms in
+                            sorted(split.items()))
+                + f" (plain {r['plain_ms']:.3f} ms, library none, bound "
+                f"{r['bound_ms']:.4f} ms by {r['bound_by']} at 67 TFLOP/s / "
+                f"3.35 TB/s), max abs err against plain {err32:.2e}")
+        del a32
         got, want = ssd_scan(*args), ref.ssd_chunked(*args)
         torch.cuda.synchronize()
         g, w = got.float(), want.float()
@@ -901,7 +954,7 @@ def check_ssd(gen):
         f"{len(SSD_SHAPES)} serving shapes within {SSD_F32_REL} x max|y| of "
         f"f64 (f32) and within rtol 2**-6 + {2 * SSD_F32_REL} x max|y| of "
         "plain (bf16)")
-    return {"ssd_scan": timed[SSD_MAIN]}
+    return {"ssd_scan": timed[SSD_MAIN], "ssd_scan_f32": timed32[SSD_MAIN]}
 
 
 def phase_kernels(gen, tr):
@@ -2711,6 +2764,16 @@ LOGIT_SHARE = 0.05
 #: prints at this depth and at full depth; at full depth each kernel
 #: call is held to its plain version instead
 SSM_LOGIT_LAYERS = 4
+#: the same gate for an f32 model: no bf16 rounding between the layers,
+#: so the kernels and the plain versions differ only by their f32 sums
+#: (each scan within ``SSD_F32_REL`` x max|y| of an exact one)
+F32_LOGIT_SHARE = 1e-3
+#: the f32 serving run (``phase_serve``'s arguments): mamba2_1p3b at full
+#: width in f32 (the dtype its training lane trains it in), cut to 4
+#: layers, two requests of 1024 and 77 tokens with 8 new tokens each, so
+#: that the f32 ``ssd_scan`` body runs on a model path (8 launches)
+SERVE_F32_RUN = dict(arch="mamba2_1p3b", n_layers=4, lens=(1024, 77),
+                     max_new=8, dtype="float32")
 
 
 def gate_depth(cfg) -> int:
@@ -2753,10 +2816,13 @@ def check_prefill_kernels(cfg, params, probe, tag):
     """A full-depth prefill's kernel calls at the model's own activations:
     every ``ssd_scan`` and ``flash_attention`` launch recorded and held
     against its plain version on the same inputs (the bf16 limits of
-    ``check_ssd`` and ``check_flash``); then the logits' drift between two
+    ``check_ssd`` and ``check_flash``; an f32 scan within twice
+    ``SSD_F32_REL`` x max|y|, each f32 evaluation being within one of an
+    exact one); then the logits' drift between two
     plain evaluations (SSD chunks of 64 and of 32) at ``gate_depth`` and
     at full depth, beside the kernels'."""
     import functools
+    import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.models import lm
     kernels = {"ssd_scan": ops.ssd_scan,
@@ -2776,8 +2842,9 @@ def check_prefill_kernels(cfg, params, probe, tag):
     worst = dict.fromkeys(kernels, 0.0)
     for args, kw, y in calls["ssd_scan"]:
         want = ref.ssd_chunked(*args).float()
+        rtol = SSD_SERVE_RTOL if y.dtype == torch.bfloat16 else 0.0
         limit = (2 * SSD_F32_REL * float(want.abs().max())
-                 + SSD_SERVE_RTOL * want.abs())
+                 + rtol * want.abs())
         worst["ssd_scan"] = max(worst["ssd_scan"], float(
             ((y.float() - want).abs() / limit).max()))
     for args, kw, y in calls["flash_attention"]:
@@ -2796,7 +2863,8 @@ def check_prefill_kernels(cfg, params, probe, tag):
     T = probe["tokens"].shape[1]
     log(f"{tag}: the {want_n['ssd_scan']} scans and "
         f"{want_n['flash_attention']} attention calls of a {T}-token "
-        f"prefill within the bf16 limits of their plain versions on the "
+        f"prefill within the {cfg.dtype} limits of their plain versions on "
+        f"the "
         f"model's activations (worst element at "
         + ", ".join(f"{worst[n]:.3f} ({n})" for n in kernels if want_n[n])
         + " of its limit)")
@@ -2853,29 +2921,36 @@ def count_moe_drops():
 def serve_kernels(cfg, n_requests: int) -> dict:
     """Prefill launches of a serving run: one ``flash_attention`` per
     attention sublayer (a ``shared_attn`` block at each of its
-    occurrences) and one ``ssd_scan`` per SSM sublayer, per request; no
-    other kernel."""
+    occurrences) and one ``ssd_scan`` per SSM sublayer, per request, all
+    of them on the f32 bodies for an f32 model; no other kernel."""
     per = {"flash_attention": ("attn", "local", "shared_attn"),
            "ssd_scan": ("ssm",)}
-    return {name: cfg.repeats * n_requests * sum(k in kinds
-                                                 for k in cfg.pattern)
-            for name, kinds in per.items()}
+    n = {name: cfg.repeats * n_requests * sum(k in kinds
+                                              for k in cfg.pattern)
+         for name, kinds in per.items()}
+    f32 = cfg.dtype == "float32"
+    return dict(n, **{f"{name}_f32": c if f32 else 0
+                      for name, c in n.items()})
 
 
 def kernel_launches() -> dict:
-    """``launch_counts()`` and, as ``flash_attention_f32``, the launches of
-    ``flash_attention``'s f32 body (a share of ``flash_attention``'s)."""
-    from repro_torch.kernels import flash_attention, launch_counts
+    """``launch_counts()`` and, as ``flash_attention_f32`` and
+    ``ssd_scan_f32``, the launches of ``flash_attention``'s and
+    ``ssd_scan``'s f32 bodies (shares of their kernels' counts)."""
+    from repro_torch.kernels import flash_attention, launch_counts, ssd_scan
     return dict(launch_counts(),
                 flash_attention_f32=flash_attention.launches_by_dtype[
-                    "float32"])
+                    "float32"],
+                ssd_scan_f32=ssd_scan.launches_by_dtype["float32"])
 
 
-def phase_serve(arch, n_layers, lens, seed=0, max_new=32):
+def phase_serve(arch, n_layers, lens, seed=0, max_new=32, dtype=None):
     """One model served through the port's entry points: its launch
     counts, statuses, tokens bitwise ``generate``'s, zero builds on a
     second warm run, the pool's invariants, the prefill logits against
-    the plain versions; returns the run's launch counts."""
+    the plain versions (within ``LOGIT_SHARE`` of max |logit| in bf16,
+    ``F32_LOGIT_SHARE`` in f32); returns the run's launch counts.
+    ``dtype`` replaces the config's (``None``: its own, bf16)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2887,7 +2962,9 @@ def phase_serve(arch, n_layers, lens, seed=0, max_new=32):
     cfg = get_config(arch)
     if n_layers:
         cfg = cfg.replace(n_layers=n_layers)
-    tag = f"serve[{arch}]"
+    if dtype:
+        cfg = cfg.replace(dtype=dtype)
+    tag = f"serve[{arch}{', ' + dtype if dtype else ''}]"
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
     t0 = time.perf_counter()
@@ -2982,15 +3059,16 @@ def phase_serve(arch, n_layers, lens, seed=0, max_new=32):
         lg_plain, _ = lm.prefill(gate, params, probe)
     diff = float((lg_kernel - lg_plain).abs().max())
     scale = float(lg_plain.abs().max())
-    if not torch.isfinite(lg_kernel).all() or diff > LOGIT_SHARE * scale:
+    share = F32_LOGIT_SHARE if cfg.dtype == "float32" else LOGIT_SHARE
+    if not torch.isfinite(lg_kernel).all() or diff > share * scale:
         fail(f"{tag}: prefill logits kernel vs plain differ by {diff} "
-             f"(limit {LOGIT_SHARE} x max |logit| {scale})")
+             f"(limit {share} x max |logit| {scale})")
     if ssm:
         check_prefill_kernels(cfg, params, probe, tag)
     log(f"{tag}: prefill logits ({len(reqs[0].prompt)} tokens, "
         f"{gate.n_layers} layers) through the kernels vs the plain "
         f"versions: max abs diff {diff:.4g} <= "
-        f"{LOGIT_SHARE} x max |logit| {scale:.4g} (tokens are not compared "
+        f"{share} x max |logit| {scale:.4g} (tokens are not compared "
         "across the two: bf16 rounding can flip a greedy argmax); argmax "
         f"equal: {bool(lg_kernel.argmax() == lg_plain.argmax())}")
 
@@ -3458,7 +3536,9 @@ def main() -> int:
     served = [phase_serve(arch, depth, lens)
               for arch, depth, lens in SERVE_RUNS]
     served += [phase_legacy(arch, runs) for arch, runs in LEGACY_RUNS]
-    for name in ("flash_attention", "flash_attention_f32", "ssd_scan"):
+    served.append(phase_serve(**SERVE_F32_RUN))
+    for name in ("flash_attention", "flash_attention_f32", "ssd_scan",
+                 "ssd_scan_f32"):
         counts[name] = sum(c[name] for c in served)
     for name, c in phase_dryrun(gen).items():
         counts[name] += c

@@ -41,5 +41,5 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-    flash_attention.launches_by_dtype = dict.fromkeys(
-        flash_attention.launches_by_dtype, 0)
+    for fn in (flash_attention, ssd_scan):
+        fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)

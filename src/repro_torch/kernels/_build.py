@@ -35,6 +35,8 @@ _FLASH = [_VP] * 4 + [_LL] * 6 + [_VP, _F32, _F32, _INT, _LL, _VP]
 _FLASH_F32 = _FLASH[:-1] + [_VP, _LL, _VP, _VP, _VP]
 #: x, a, b, c, y; B, T, H, P, S; the 12 strides; the stream
 _SSD = [_VP] * 5 + [_LL] * 5 + [_VP, _VP]
+#: the same with, before the stream, the f32 body's scratch: h_in, gram
+_SSD_F32 = _SSD[:-1] + [_VP, _VP, _VP]
 SOURCES = {
     "xor_gather": {
         "xor_encode_gather": [_VP] * 4 + [_LL] * 5 + [_INT, _VP],
@@ -55,7 +57,7 @@ SOURCES = {
         "flash_attention_bf16": _FLASH,
     },
     "ssd_scan": {
-        "ssd_scan_f32": _SSD,
+        "ssd_scan_f32": _SSD_F32,
         "ssd_scan_bf16": _SSD,
     },
 }

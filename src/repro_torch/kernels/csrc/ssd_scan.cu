@@ -21,30 +21,70 @@
 // Two bodies, one per type; a call takes its type's body or fails:
 //
 // * bf16 (every serving prefill): ssd_tc, on the tensor cores.
-// * f32: ssd_kernel, f32 FMAs on the CUDA cores (held to an f64 evaluation
-//   at 1e-5 x max|y|).
+// * f32: ssd_gram_f32, ssd_state_f32, then ssd_out_f32, f32 FMAs on the
+//   CUDA cores (held to an f64 evaluation at 1e-5 x max|y|, bitwise from
+//   run to run).
 //
 // Bound: at mamba2's serving prefill (T = 1024, 64 heads of P = 64, S = 128,
-// bf16, group-shared b/c) one layer does 3.76 GFLOP the way the Pallas
-// kernel counts it (c b^T, M x, c h and the state update per head and
-// chunk) over 17.6 MB (x and y 8.4 MB each; a, b, c 0.26 MB each): 3.8 us
-// at the bf16 tensor-core peak, 5.2 us at 3.35 TB/s, so it is bound by
-// bytes.
+// bf16, group-shared b/c) one layer needs 2.29 GFLOP (c b^T once a chunk
+// and M x per head, both on and below the diagonal; c h past the first
+// chunk and the state update before the last, per head) over 17.6 MB (x
+// and y 8.4 MB each; a, b, c 0.26 MB each): 2.3 us at the bf16 tensor-core
+// peak, 5.2 us at 3.35 TB/s, so it is bound by bytes. In f32 the same 2.29
+// GFLOP take 34 us at the CUDA cores' 67 TFLOP/s against 10.4 us for its
+// 34.9 MB, so the f32 body is bound by operations. (The Pallas kernel's
+// count, c b^T per head and the whole M x, is 3.76 GFLOP.)
 //
 // Design of the f32 body. The Pallas grid (B, H, n_chunks) carried h in
-// VMEM scratch along the sequential chunk axis. Blocks on this card run in
-// no order, so one block owns one (b, head, tile of 32 state columns) and
-// loops over the chunks itself, with h in shared memory: the P columns of h
-// and y are independent, so the tiles give a B = 1 prefill 128 blocks on
-// 132 SMs. Per chunk the block stages c, b (f32, rows padded so that float4
-// reads of eight neighbouring rows hit distinct banks) and its x columns,
-// takes the cumulative sum of a, then forms M (a 4x4 register tile per
-// thread), y (a 2x4 tile: c h and M x) and the state update (a 4x4 tile of
-// h). Rows past T in the last chunk are staged as zeros (a = 0, x = 0, as
-// the Pallas kernel pads), so nothing is copied or padded in memory, and
-// the last chunk skips the state update nobody reads. At S = 128 the
-// staging takes 109 KB of shared memory, above the 48 KB default: the
-// launcher raises the limit with cudaFuncSetAttribute.
+// VMEM scratch along the sequential chunk axis. Only the state update needs
+// that order: the outputs of a chunk need nothing but the state entering
+// it, and G = c b^T depends on no head when b and c are group-shared. So
+// the body is three kernels on the caller's stream:
+//
+// * ssd_gram_f32: G of every chunk, once per head of b and c (once in all
+//   for group-shared b/c), one block per 16 x 16 sub-tile on or below the
+//   diagonal; 0.01 GFLOP at mamba2's shape.
+// * ssd_state_f32, the recurrence alone: one block owns one (b, head, 64
+//   state rows, 32 state columns) tile of h, 256 blocks at mamba2's B = 1,
+//   and walks the chunks in order with the tile in registers (4 x 4 a
+//   consumer thread, 4 consumer warps). Per chunk it applies h <-
+//   exp(cum_end) h + b^T (w x), w = exp(cum_end - cum_s) (64 FMAs in order
+//   per element), and stores h, the state entering the next chunk, to the
+//   scratch h_in. A producer warp keeps a 4-slot ring of b and x tiles
+//   filled by TMA and finishes each chunk (its table, x scaled by w in
+//   place) two chunks behind its loads. The last chunk's update, which
+//   nobody reads, is not run: n_chunks - 1 steps, 1.0 GFLOP at mamba2's
+//   shape.
+// * ssd_out_f32, the outputs: one block (256 threads, 8 warps) per (b,
+//   head, chunk, 64 output columns), 1,024 independent blocks at mamba2's
+//   B = 1, three resident a SM. c h_in runs over S in slices of 32 rows,
+//   double-buffered by TMA (4 x 4 register tiles), while G and x land;
+//   then M = G exp(cum_t - cum_s), the ratio exponentiated only where s <=
+//   t, and y = exp(cum_t) (c h_in) + M x, the M x loop of a warp ending at
+//   its rows' diagonal; y is stored once. Chunk 0 reads no h_in (the state
+//   entering it is 0). About 1.4 GFLOP at mamba2's shape.
+//
+// What bounds it on the card (device time at mamba2's T = 1024, H100 SXM,
+// scripts/ssd_bench.py): the FMAs run at 25-40% of the CUDA cores' rate,
+// and the recurrence's 15 steps are a chain, about 2.8 us each. Loads
+// issued 16 bytes a thread (cp.async) held each step to about 4 us; TMA
+// tiles took the recurrence from 61 to 43 us. Forming G per head and chunk
+// in the output kernel (a third of its FMAs, c and b read by every head)
+// cost 95 us there; the Gram kernel cut it to 63. Larger register tiles
+// (8 x 4), more warps (2 x 4 tiles; the recurrence's steps split over two
+// warp groups) and bulk copies of single rows were each slower.
+//
+// Scratch, allocated by the wrapper: h_in [B, H, n_chunks - 1, S, Pp] f32
+// (Pp: P rounded up to 4, so rows are 16-byte aligned), the state entering
+// chunks 1 .. n_chunks - 1 (33.5 MB at mamba2's T = 1024, written and read
+// once), and G [B, Hbc, n_chunks, 64, 64] f32 (Hbc: 1 for group-shared b
+// and c, else H; 0.26 MB there). Every sum runs in a fixed order and
+// nothing is atomic, so two calls give the same bits. Rows past T and
+// columns past S or P arrive as zeros (TMA's out-of-bounds fill,
+// cp.async's zero fill): a = 0, x = 0 past T, as the Pallas kernel pads,
+// so nothing is copied or padded in memory. The wrapper passes x, b and c
+// with 16-byte-aligned bases and strides (copying a tensor that lacks
+// them), as TMA and cp.async need.
 //
 // Design of the bf16 body. One block owns one (b, head, tile of kCols = 32
 // state columns), as above: 128 blocks at mamba2's B = 1 (16-column tiles,
@@ -127,237 +167,7 @@
 namespace {
 
 constexpr int kC = 64;          // chunk length
-constexpr int kPT = 32;         // state / output columns per block
-constexpr int kThreads = 256;
 constexpr int kMaxS = 256;
-
-struct Args {
-  const void* x;
-  const float* a;
-  const void* b;
-  const void* c;
-  void* y;
-  long long T, H, P, S;
-  long long xb, xt, xh;         // element strides of x (p contiguous)
-  long long ab, at, ah;
-  long long bb, bt, bh;         // bh == 0: group-shared
-  long long cb, ct, ch;
-  int sw;                       // padded row stride of staged b, c (floats)
-};
-
-__device__ __forceinline__ float load1(const float* p) { return *p; }
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-
-// floats of dynamic shared memory for a padded row stride sw
-__host__ __device__ constexpr long long smem_floats(int sw, long long S) {
-  return 2LL * kC * sw + kC * kPT + S * kPT + kC * kC + 3 * kC;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ssd_kernel(const Args g) {
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const int sw = g.sw;
-  const int S = (int)g.S;
-  const int S4 = (S + 3) / 4 * 4;             // staged columns (zero-padded)
-  float* cs = sm;                             // [kC][sw]
-  float* bs = cs + kC * sw;                   // [kC][sw]
-  float* xs = bs + kC * sw;                   // [kC][kPT]
-  float* hs = xs + kC * kPT;                  // [S][kPT]
-  float* ms = hs + (long long)S * kPT;        // [kC][kC]
-  float* cum = ms + kC * kC;                  // [kC]
-  float* dec = cum + kC;                      // exp(cum_t)
-  float* wts = dec + kC;                      // exp(cum_end - cum_s)
-
-  const int tid = threadIdx.x;
-  const long long bh = blockIdx.x;
-  const long long bi = bh / g.H, hi = bh % g.H;
-  const int p0 = blockIdx.y * kPT;
-  const T* xg = static_cast<const T*>(g.x) + bi * g.xb + hi * g.xh + p0;
-  const float* ag = g.a + bi * g.ab + hi * g.ah;
-  const T* bg = static_cast<const T*>(g.b) + bi * g.bb + hi * g.bh;
-  const T* cg = static_cast<const T*>(g.c) + bi * g.cb + hi * g.ch;
-  T* yg = static_cast<T*>(g.y) + (bi * g.T * g.H + hi) * g.P + p0;
-  const long long yt = g.H * g.P;
-
-  for (int e = tid; e < S * kPT; e += kThreads) hs[e] = 0.f;
-
-  for (long long t0 = 0; t0 < g.T; t0 += kC) {
-    const int tc = (int)min((long long)kC, g.T - t0);
-    const bool last = t0 + kC >= g.T;
-    // ---- stage the chunk (rows >= tc as zeros) ----
-    for (int e = tid; e < kC * S4; e += kThreads) {
-      const int t = e / S4, k = e % S4;
-      float bv = 0.f, cv = 0.f;
-      if (t < tc && k < S) {
-        bv = load1(bg + (t0 + t) * g.bt + k);
-        cv = load1(cg + (t0 + t) * g.ct + k);
-      }
-      bs[t * sw + k] = bv;
-      cs[t * sw + k] = cv;
-    }
-    for (int e = tid; e < kC * kPT; e += kThreads) {
-      const int t = e / kPT, p = e % kPT;
-      xs[e] = (t < tc && p0 + p < g.P) ? load1(xg + (t0 + t) * g.xt + p) : 0.f;
-    }
-    if (tid < 32) {        // in-chunk cumulative sum of a: one warp, 2 a lane
-      const int t = 2 * tid;
-      const float a0 = t < tc ? ag[(t0 + t) * g.at] : 0.f;
-      const float a1 = t + 1 < tc ? ag[(t0 + t + 1) * g.at] : 0.f;
-      float run = a0 + a1;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float v = __shfl_up_sync(0xffffffffu, run, o);
-        if (tid >= o) run += v;
-      }
-      const float end = __shfl_sync(0xffffffffu, run, 31);
-      const float c0 = run - a1;
-      cum[t] = c0;
-      cum[t + 1] = run;
-      dec[t] = expf(c0);
-      dec[t + 1] = expf(run);
-      wts[t] = expf(end - c0);
-      wts[t + 1] = expf(end - run);
-    }
-    __syncthreads();
-
-    // ---- M = tril(c b^T * exp(cum_t - cum_s)): rows ti + 16i, cols si + 16j
-    {
-      const int ti = tid / 16, si = tid % 16;
-      float acc[4][4] = {};
-      for (int k = 0; k < S4; k += 4) {
-        float4 cv[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          cv[i] = *reinterpret_cast<const float4*>(cs + (ti + 16 * i) * sw + k);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          bv[j] = *reinterpret_cast<const float4*>(bs + (si + 16 * j) * sw + k);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][j] += cv[i].x * bv[j].x + cv[i].y * bv[j].y +
-                         cv[i].z * bv[j].z + cv[i].w * bv[j].w;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = ti + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int s = si + 16 * j;
-          ms[t * kC + s] = s <= t ? acc[i][j] * expf(cum[t] - cum[s]) : 0.f;
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- y = exp(cum_t) (c_t . h) + M x: rows ti + 32i, cols 4pi..4pi+3
-    {
-      const int ti = tid / 8, pi = tid % 8;
-      float st[2][4] = {}, in[2][4] = {};
-      for (int k = 0; k < S4; k += 4) {
-        float4 cv[2], hv[4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          cv[i] = *reinterpret_cast<const float4*>(cs + (ti + 32 * i) * sw + k);
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          hv[r] = k + r < S ? *reinterpret_cast<const float4*>(hs + (k + r) * kPT + 4 * pi)
-                            : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float cr[4] = {cv[i].x, cv[i].y, cv[i].z, cv[i].w};
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            st[i][0] += cr[r] * hv[r].x;
-            st[i][1] += cr[r] * hv[r].y;
-            st[i][2] += cr[r] * hv[r].z;
-            st[i][3] += cr[r] * hv[r].w;
-          }
-        }
-      }
-      const int smax = min(ti + 32, tc - 1);  // M is 0 past the diagonal
-      for (int s = 0; s <= smax; ++s) {
-        const float4 xv = *reinterpret_cast<const float4*>(xs + s * kPT + 4 * pi);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float m = ms[(ti + 32 * i) * kC + s];
-          in[i][0] += m * xv.x;
-          in[i][1] += m * xv.y;
-          in[i][2] += m * xv.z;
-          in[i][3] += m * xv.w;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int t = ti + 32 * i;
-        if (t >= tc) continue;
-        T* out = yg + (t0 + t) * yt;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int p = 4 * pi + q;
-          if (p0 + p < g.P) store1(out + p, dec[t] * st[i][q] + in[i][q]);
-        }
-      }
-    }
-    if (last) break;
-    __syncthreads();
-
-    // ---- h = exp(cum_end) h + sum_s exp(cum_end - cum_s) b_s x_s^T:
-    //      rows 4ki..4ki+3, cols 4pi..4pi+3
-    {
-      const float dend = dec[kC - 1];
-      for (int e = tid; e < (S4 / 4) * (kPT / 4); e += kThreads) {
-        const int ki = e / (kPT / 4), pi = e % (kPT / 4);
-        float acc[4][4] = {};
-        for (int s = 0; s < tc; ++s) {
-          const float4 bv = *reinterpret_cast<const float4*>(bs + s * sw + 4 * ki);
-          float4 xv = *reinterpret_cast<const float4*>(xs + s * kPT + 4 * pi);
-          const float w = wts[s];
-          xv.x *= w;
-          xv.y *= w;
-          xv.z *= w;
-          xv.w *= w;
-          const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            acc[r][0] += br[r] * xv.x;
-            acc[r][1] += br[r] * xv.y;
-            acc[r][2] += br[r] * xv.z;
-            acc[r][3] += br[r] * xv.w;
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int k = 4 * ki + r;
-          if (k >= S) break;
-          float4* hp = reinterpret_cast<float4*>(hs + k * kPT + 4 * pi);
-          float4 hv = *hp;
-          hv.x = dend * hv.x + acc[r][0];
-          hv.y = dend * hv.y + acc[r][1];
-          hv.z = dend * hv.z + acc[r][2];
-          hv.w = dend * hv.w + acc[r][3];
-          *hp = hv;
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T>
-cudaError_t launch(const Args& g, long long B, cudaStream_t s) {
-  const size_t smem = (size_t)smem_floats(g.sw, g.S) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid((unsigned)(B * g.H), (unsigned)((g.P + kPT - 1) / kPT));
-  ssd_kernel<T><<<grid, kThreads, smem, s>>>(g);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core body
@@ -985,22 +795,582 @@ cudaError_t ssd_bf16(const void* x, const float* a, const void* b, const void* c
   return launch_tc<4>(m, g, BH, s);
 }
 
-int ssd_any(bool bf16, const void* x, const float* a, const void* b, const void* c,
-            void* y, long long B, long long T, long long H, long long P,
-            long long S, const long long* st, void* stream) {
-  if (B < 1 || T < 1 || H < 1 || P < 1 || S < 1 || S > kMaxS ||
-      B * H > 0x7fffffffLL || (P + kPT - 1) / kPT > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) return (int)ssd_bf16(x, a, b, c, y, B, T, H, P, S, st, s);
-  // staged rows: a multiple of 4 floats (float4 reads) whose quarter is odd,
-  // so eight neighbouring rows start in eight distinct 16-byte bank groups
-  int sw = (int)((S + 3) / 4) + 1;
-  if (sw % 2 == 0) ++sw;
-  Args g{x, a, b, c, y, T, H, P, S,
-         st[0], st[1], st[2], st[3], st[4], st[5],
-         st[6], st[7], st[8], st[9], st[10], st[11], 4 * sw};
-  return (int)launch<float>(g, B, s);
+// ---------------------------------------------------------------------------
+// f32: the CUDA-core body (ssd_gram_f32, ssd_state_f32, then ssd_out_f32)
+// ---------------------------------------------------------------------------
+
+constexpr int kStRows = 64;              // state rows of a state block
+constexpr int kStCols = 32;              // state columns of a state block
+constexpr int kStR = 4;                  // state rows a consumer thread (by 4 columns)
+constexpr int kStConsumers = kStRows / kStR * (kStCols / 4);
+constexpr int kStThreads = kStConsumers + 32;             // + the producer warp
+constexpr int kStStages = 4;             // ring slots of b, x, a and the table
+constexpr int kStLag = 2;                // a chunk's loads land while the next 2 are issued
+constexpr int kTab = kC + 4;             // w by step, then exp(cum_end)
+constexpr int kStTile = kC * (kStRows + kStCols);         // a slot's b and x tiles
+constexpr int kStBytes = 4 * kStTile;                     // what TMA brings a chunk
+constexpr int kStSmem = kStStages * (kStTile + kC + kTab) * 4 + 128;   // + alignment
+constexpr int kGT = 16;                  // rows and columns of a Gram sub-tile
+constexpr int kGThreads = 64;            // 2 x 2 of the sub-tile a thread
+constexpr int kGSub = (kC / kGT) * (kC / kGT + 1) / 2;    // sub-tiles on or below the diagonal
+constexpr int kOutCols = 64;             // output columns of an output block
+constexpr int kOutR = 4;                 // rows of each tile a thread (by 4 columns)
+constexpr int kBands = kC / (4 * kOutR);                  // row bands of 4 kOutR rows
+constexpr int kOutThreads = 64 * kBands;                  // bands x 2 column halves
+constexpr int kSlice = 32;               // state rows a step of the k loop
+constexpr int kMP = kC + 4;              // pitch of M (17 float4s)
+constexpr int kSlot = kC * kSlice + kSlice * kOutCols;    // c and h_in slices
+constexpr int kOutBytes = 4 * kSlot;                      // what TMA brings a slice
+constexpr int kOutSmem = (2 * kSlot + kC * kC + kC * kOutCols + 2 * kC) * 4 + 1024;
+static_assert(kC * kMP <= 2 * kSlot, "M lies over the two slots");
+
+struct F32Args {
+  const float* x;
+  const float* a;
+  const float* b;
+  const float* c;
+  float* y;                     // contiguous [B, T, H, P]
+  float* h;                     // h_in [B * H, n_chunks - 1, S, Pp]
+  float* gram;                  // c b^T [B * Hbc, n_chunks, kC, kC]
+  long long T, H, P, S, Pp;
+  long long Hbc;                // heads of b and c: 1 when group-shared, else H
+  int gpitch;                   // row pitch of the Gram kernel's staged c and b
+  int b_rank;                   // the b map's rank: 3 group-shared, 4 per head
+  int c_rank;                   // the c map's rank
+  // map coordinate slot of t, h, b (0: none) of the b, x, c, h_in and G maps
+  int b_pos[3], x_pos[3], c_pos[3], h_pos[3], g_pos[3];
+  long long xb, xt, xh;         // element strides (b, t, h); p contiguous
+  long long ab, at, ah;
+  long long bb, bt, bh;         // bh == 0: group-shared
+  long long cb, ct, ch;
+  int n_chunks;
+};
+
+// 16 bytes global -> shared, bypassing L1; the first `bytes` (0 to 16) are
+// read and the rest written as zeros
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {      // all but the N newest groups
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+// 4 bytes global -> shared
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+// bytes of a 16-byte unit that lie before `left` remaining elements
+__device__ __forceinline__ int unit_bytes(long long left) {
+  return left <= 0 ? 0 : left >= 4 ? 16 : 4 * (int)left;
+}
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// the in-chunk cumulative sum of a by one warp, lane l holding the steps
+// 2 l and 2 l + 1 (a0, a1; 0 past T): c0, c1 at those steps and the sum
+// over the chunk
+__device__ __forceinline__ void chunk_cum(float a0, float a1, int lane, float& c0,
+                                          float& c1, float& end) {
+  float run = a0 + a1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(kFull, run, o);
+    if (lane >= o) run += v;
+  }
+  end = __shfl_sync(kFull, run, 31);
+  c0 = run - a1;
+  c1 = run;
+}
+
+// The recurrence: block (b h, column tile, row tile) carries its 64 x 32
+// tile of h through chunks 0 .. n_chunks - 2 and stores, after chunk i, the
+// state entering chunk i + 1 to h_in[b h, i]. The last warp is the
+// producer. As soon as the consumers have left a ring slot ("empty"
+// mbarrier) it loads the next chunk's b and x tiles into it by TMA
+// ("loaded"; columns past S or P arrive as zeros) and its a by cp.async,
+// and it finishes the chunk loaded kStLag chunks before: it makes that
+// chunk's table (w = exp(cum_end - cum_s) by step, then exp(cum_end)),
+// scales its x rows by w in place and marks its slot "full". Consumer
+// thread (ki, pi) = (tid / 8, tid % 8) owns rows kStR ki .. + kStR - 1 and
+// columns 4 pi .. + 3 of the tile.
+__global__ void __launch_bounds__(kStThreads)
+ssd_state_f32(const __grid_constant__ CUtensorMap mb, const __grid_constant__ CUtensorMap mx,
+              const F32Args g) {
+  extern __shared__ float4 st_smem[];
+  // tiles first, each slot's 128-byte aligned (TMA): b [kC][kStRows], x
+  // [kC][kStCols] by slot, then a [kC] and the table [kTab] by slot
+  float* const ring = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(st_smem) + 127) & ~uintptr_t(127));
+  __shared__ __align__(8) uint64_t bars[3 * kStStages];    // loaded, full, empty
+  const uint32_t loaded0 = smem_u32(&bars[0]), full0 = loaded0 + 8 * kStStages,
+                 empty0 = full0 + 8 * kStStages;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const long long bh = blockIdx.x, bi = bh / g.H, hi = bh % g.H;
+  const int p0 = blockIdx.y * kStCols, k0 = blockIdx.z * kStRows;
+  const int n_upd = g.n_chunks - 1;      // every updated chunk is whole
+  auto sb = [&](int slot) { return ring + slot * kStTile; };
+  auto sx = [&](int slot) { return ring + slot * kStTile + kC * kStRows; };
+  auto sa = [&](int slot) { return ring + kStStages * kStTile + slot * (kC + kTab); };
+  auto sw = [&](int slot) { return sa(slot) + kC; };
+
+  if (tid == 0) {
+    for (int s = 0; s < kStStages; ++s) {
+      mbar_init(loaded0 + 8 * s, 1);                   // the expect-tx arrival
+      mbar_init(full0 + 8 * s, 1);                     // the producer, once finished
+      mbar_init(empty0 + 8 * s, kStConsumers / 32);    // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kStConsumers) {             // the producer warp
+    const float* ag = g.a + bi * g.ab + hi * g.ah;
+    for (int it = 0; it < n_upd + kStLag; ++it) {
+      if (it < n_upd) {                  // load chunk it
+        const int slot = it % kStStages;
+        const long long t0 = (long long)it * kC;
+        mbar_wait(empty0 + 8 * slot, ((it / kStStages) & 1) ^ 1);
+        if (lane == 0) {
+          // the slot's last generic writes (the scale) before the async proxy's
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          const uint32_t bar = loaded0 + 8 * slot;
+          mbar_expect_tx(bar, kStBytes);
+          tma_load(smem_u32(sb(slot)), &mb, bar, g.b_rank, g.b_pos, k0, (int)t0, (int)hi,
+                   (int)bi);
+          tma_load(smem_u32(sx(slot)), &mx, bar, 4, g.x_pos, p0, (int)t0, (int)hi, (int)bi);
+        }
+        for (int t = lane; t < kC; t += 32) cp_async4(sa(slot) + t, ag + (t0 + t) * g.at);
+      }
+      cp_commit();                       // one group an iteration, empty past the end
+      const int j = it - kStLag;         // finish chunk j
+      if (j < 0) continue;
+      const int slot = j % kStStages;
+      cp_wait<kStLag>();
+      __syncwarp();                      // every lane's copies of chunk j's a have landed
+      const float* a = sa(slot);
+      float c0, c1, end;
+      chunk_cum(a[2 * lane], a[2 * lane + 1], lane, c0, c1, end);
+      float* w = sw(slot);
+      w[2 * lane] = expf(end - c0);
+      w[2 * lane + 1] = expf(end - c1);
+      if (lane == 0) w[kC] = expf(end);
+      mbar_wait(loaded0 + 8 * slot, (j / kStStages) & 1);   // chunk j's tiles
+      __syncwarp();
+      float* xs = sx(slot);
+#pragma unroll
+      for (int e = lane; e < kC * kStCols / 4; e += 32) {   // w x in place
+        float4 v = lds4(xs + 4 * e);
+        const float ws = w[e / (kStCols / 4)];
+        v.x *= ws;
+        v.y *= ws;
+        v.z *= ws;
+        v.w *= ws;
+        *reinterpret_cast<float4*>(xs + 4 * e) = v;
+      }
+      __syncwarp();                      // the warp's writes before the arrival
+      if (lane == 0) mbar_arrive(full0 + 8 * slot);
+    }
+    return;
+  }
+
+  const int ki = tid / (kStCols / 4), pi = tid % (kStCols / 4);
+  float h[kStR][4] = {};
+  for (int it = 0; it < n_upd; ++it) {
+    const int slot = it % kStStages;
+    mbar_wait(full0 + 8 * slot, (it / kStStages) & 1);
+    // h <- exp(cum_end) h + b^T (w x)
+    const float dend = sw(slot)[kC];
+#pragma unroll
+    for (int r = 0; r < kStR; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) h[r][q] *= dend;
+    const float* bs = sb(slot) + kStR * ki;
+    const float* xw = sx(slot) + 4 * pi;
+#pragma unroll
+    for (int s = 0; s < kC; ++s) {
+      const float4 xv = lds4(xw + s * kStCols);
+#pragma unroll
+      for (int u = 0; u < kStR / 4; ++u) {
+        const float4 bv = lds4(bs + s * kStRows + 4 * u);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float br = comp(bv, r);
+          h[4 * u + r][0] = fmaf(br, xv.x, h[4 * u + r][0]);
+          h[4 * u + r][1] = fmaf(br, xv.y, h[4 * u + r][1]);
+          h[4 * u + r][2] = fmaf(br, xv.z, h[4 * u + r][2]);
+          h[4 * u + r][3] = fmaf(br, xv.w, h[4 * u + r][3]);
+        }
+      }
+    }
+    __syncwarp();                        // the warp's reads of the slot are done
+    if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+    // the state entering chunk it + 1 (columns past P hold zeros)
+    const int p = p0 + 4 * pi;
+    if (p < g.Pp) {
+      float* hg = g.h + ((bh * n_upd + it) * g.S + k0 + kStR * ki) * g.Pp + p;
+#pragma unroll
+      for (int r = 0; r < kStR; ++r)
+        if (k0 + kStR * ki + r < g.S)
+          *reinterpret_cast<float4*>(hg + r * g.Pp) =
+              make_float4(h[r][0], h[r][1], h[r][2], h[r][3]);
+    }
+  }
+}
+
+// G = c b^T of one chunk, per (b, head of b and c): one block per 16 x 16
+// sub-tile on or below the diagonal (blockIdx.z numbers them row by row).
+// Thread (tr, tc) = (tid / 8, tid % 8) owns rows tr, tr + 8 and columns
+// tc, tc + 8 of the sub-tile; each sum runs over k in order. Sub-tiles
+// above the diagonal are not written (no one reads them).
+__global__ void __launch_bounds__(kGThreads) ssd_gram_f32(const F32Args g) {
+  extern __shared__ float4 gr_smem[];
+  const int pitch = g.gpitch;
+  float* const cs = reinterpret_cast<float*>(gr_smem);   // [kGT][pitch]
+  float* const bs = cs + kGT * pitch;                     // [kGT][pitch]
+  const int tid = threadIdx.x;
+  const long long bq = blockIdx.x, bi = bq / g.Hbc, hi = bq % g.Hbc;
+  const int it = blockIdx.y;
+  int ti = 0, si = blockIdx.z;
+  while (si > ti) si -= ++ti;
+  const long long t0 = (long long)it * kC;
+  const float* cg = g.c + bi * g.cb + hi * g.ch + (t0 + kGT * ti) * g.ct;
+  const float* bg = g.b + bi * g.bb + hi * g.bh + (t0 + kGT * si) * g.bt;
+  const int S4 = (int)((g.S + 3) / 4);
+  for (int e = tid; e < kGT * S4; e += kGThreads) {
+    const int r = e / S4, k = 4 * (e % S4);
+    const int nc = t0 + kGT * ti + r < g.T ? unit_bytes(g.S - k) : 0;
+    const int nb = t0 + kGT * si + r < g.T ? unit_bytes(g.S - k) : 0;
+    cp_async16(cs + r * pitch + k, nc ? cg + r * g.ct + k : g.c, nc);
+    cp_async16(bs + r * pitch + k, nb ? bg + r * g.bt + k : g.b, nb);
+  }
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  const int tr = tid / 8, tc = tid % 8;
+  float acc[2][2] = {};
+  for (int k = 0; k < 4 * S4; k += 4) {
+    float4 cv[2], bv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) cv[i] = lds4(cs + (tr + 8 * i) * pitch + k);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) bv[j] = lds4(bs + (tc + 8 * j) * pitch + k);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float v = acc[i][j];
+        v = fmaf(cv[i].x, bv[j].x, v);
+        v = fmaf(cv[i].y, bv[j].y, v);
+        v = fmaf(cv[i].z, bv[j].z, v);
+        acc[i][j] = fmaf(cv[i].w, bv[j].w, v);
+      }
+  }
+  float* out = g.gram + ((bq * g.n_chunks + it) * kC + kGT * ti) * kC + kGT * si;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) out[(tr + 8 * i) * kC + tc + 8 * j] = acc[i][j];
+}
+
+// The outputs of one (b h, chunk, 64 output columns). Warp w owns rows
+// 4 kOutR (w % kBands) + lr + 4 i (lr = lane / 8, i < kOutR) and the y
+// columns 32 (w / kBands) + 4 lc .. + 3 (lc = lane % 8) of the tile:
+// kOutR x 4 a thread. c h_in runs over S in slices of kSlice rows, double-
+// buffered; G (the Gram kernel's) and x arrive meanwhile. One thread
+// issues every load by TMA (out of bounds: zeros), on mbarriers: a slot's
+// "full", and "gx" for G and x. c's 128-byte rows come 128-byte swizzled
+// (16-byte unit j of row r at j ^ (r % 8)), so that the 4 rows a read
+// spans fall in distinct banks.
+__global__ void __launch_bounds__(kOutThreads, 3)
+ssd_out_f32(const __grid_constant__ CUtensorMap mc, const __grid_constant__ CUtensorMap mh,
+            const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mg,
+            const F32Args g) {
+  extern __shared__ float4 out_smem[];
+  float* const slots = reinterpret_cast<float*>(     // [2][kSlot]: c [kC][kSlice], h_in
+      (reinterpret_cast<uintptr_t>(out_smem) + 1023) & ~uintptr_t(1023));
+  float* const sm = slots;                   // M [kC][kMP], over the slots after the k loop
+  float* const sg = slots + 2 * kSlot;       // G [kC][kC]
+  float* const sx = sg + kC * kC;            // [kC][kOutCols]
+  float* const scum = sx + kC * kOutCols;    // [kC]
+  float* const sdec = scum + kC;             // exp(cum)
+  __shared__ __align__(8) uint64_t bars[3];  // full[2], gx
+  const uint32_t full0 = smem_u32(&bars[0]), gx = full0 + 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const long long bh = blockIdx.x, bi = bh / g.H, hi = bh % g.H;
+  const int it = blockIdx.y, p0 = blockIdx.z * kOutCols;
+  const long long t0 = (long long)it * kC;
+  const int tc = (int)min((long long)kC, g.T - t0);
+  const bool carry = it > 0;                 // a nonzero state enters the chunk
+  const int n_slices = carry ? (int)((g.S + kSlice - 1) / kSlice) : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < 3; ++s) mbar_init(full0 + 8 * s, 1);   // the expect-tx arrival
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // thread 0: state rows k0 .. k0 + kSlice of c and h_in into slot `slot`
+  auto load = [&](int slot, int k0) {
+    const uint32_t bar = full0 + 8 * slot;
+    float* dc = slots + slot * kSlot;
+    mbar_expect_tx(bar, kOutBytes);
+    tma_load(smem_u32(dc), &mc, bar, g.c_rank, g.c_pos, k0, (int)t0, (int)hi, (int)bi);
+    // h_in as [B H (n_chunks - 1)][S][Pp]: rows past S are out of bounds
+    tma_load(smem_u32(dc + kC * kSlice), &mh, bar, 3, g.h_pos, p0, k0, 0,
+             (int)(bh * (g.n_chunks - 1) + it - 1));
+  };
+  float a0 = 0.f, a1 = 0.f;                  // warp 0: a, for the table after the k loop
+  if (warp == 0) {
+    if (lane == 0) {
+      for (int ks = 0; ks < min(n_slices, 2); ++ks) load(ks, ks * kSlice);
+      mbar_expect_tx(gx, 4 * kC * (kC + kOutCols));
+      tma_load(smem_u32(sg), &mg, gx, 3, g.g_pos, 0, 0, 0,
+               (int)((bi * g.Hbc + (g.Hbc == 1 ? 0 : hi)) * g.n_chunks + it));
+      tma_load(smem_u32(sx), &mx, gx, 4, g.x_pos, p0, (int)t0, (int)hi, (int)bi);
+    }
+    const float* ag = g.a + bi * g.ab + hi * g.ah;
+    if (2 * lane < tc) a0 = ag[(t0 + 2 * lane) * g.at];
+    if (2 * lane + 1 < tc) a1 = ag[(t0 + 2 * lane + 1) * g.at];
+  }
+
+  const int band = warp % kBands, side = warp / kBands, lr = lane / 8, lc = lane % 8;
+  const int row0 = 4 * kOutR * band + lr;    // rows row0 + 4 i
+  const int row_end = 4 * kOutR * (band + 1);
+  float yacc[kOutR][4] = {};
+  for (int ks = 0; ks < n_slices; ++ks) {
+    mbar_wait(full0 + 8 * (ks & 1), (ks / 2) & 1);   // slice ks landed
+    // c h_in over the slice's rows (c's rows swizzled, see above)
+    const float* cs = slots + (ks & 1) * kSlot + row0 * kSlice;
+    const float* hs = slots + (ks & 1) * kSlot + kC * kSlice + 32 * side + 4 * lc;
+#pragma unroll
+    for (int kk = 0; kk < kSlice; kk += 4) {
+      float4 cv[kOutR];
+#pragma unroll
+      for (int i = 0; i < kOutR; ++i)
+        cv[i] = lds4(cs + 4 * i * kSlice + 4 * ((kk / 4) ^ ((lr + 4 * i) & 7)));
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float4 hv = lds4(hs + (kk + r) * kOutCols);
+#pragma unroll
+        for (int i = 0; i < kOutR; ++i) {
+          const float cr = comp(cv[i], r);
+          yacc[i][0] = fmaf(cr, hv.x, yacc[i][0]);
+          yacc[i][1] = fmaf(cr, hv.y, yacc[i][1]);
+          yacc[i][2] = fmaf(cr, hv.z, yacc[i][2]);
+          yacc[i][3] = fmaf(cr, hv.w, yacc[i][3]);
+        }
+      }
+    }
+    if (ks + 2 < n_slices) {                 // slice ks + 2 into this slot
+      __syncthreads();                       // every warp is done with it
+      if (tid == 0) load(ks & 1, (ks + 2) * kSlice);
+    }
+  }
+  mbar_wait(gx, 0);                          // G and x
+  if (warp == 0) {                           // cum and exp(cum) of the chunk
+    float c0, c1, end;
+    chunk_cum(a0, a1, lane, c0, c1, end);
+    scum[2 * lane] = c0;
+    scum[2 * lane + 1] = c1;
+    sdec[2 * lane] = expf(c0);
+    sdec[2 * lane + 1] = expf(c1);
+  }
+  __syncthreads();
+  // M = tril(G) exp(cum_t - cum_s), over the slots
+  for (int e = tid; e < kC * kC; e += kOutThreads) {
+    const int t = e / kC, s = e % kC;
+    sm[t * kMP + s] = s <= t ? sg[e] * expf(scum[t] - scum[s]) : 0.f;
+  }
+  __syncthreads();
+  // y = exp(cum_t) (c h_in) + M x, M x over the steps up to the band's
+  // diagonal (M is 0 past it)
+#pragma unroll
+  for (int i = 0; i < kOutR; ++i) {
+    const float d = sdec[row0 + 4 * i];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) yacc[i][q] *= d;
+  }
+  const float* ms = sm + row0 * kMP;
+  const float* xs = sx + 32 * side + 4 * lc;
+#pragma unroll
+  for (int s = 0; s < kC; s += 4) {
+    if (s >= row_end) break;
+    float4 mv[kOutR];
+#pragma unroll
+    for (int i = 0; i < kOutR; ++i) mv[i] = lds4(ms + 4 * i * kMP + s);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float4 xv = lds4(xs + (s + r) * kOutCols);
+#pragma unroll
+      for (int i = 0; i < kOutR; ++i) {
+        const float m = comp(mv[i], r);
+        yacc[i][0] = fmaf(m, xv.x, yacc[i][0]);
+        yacc[i][1] = fmaf(m, xv.y, yacc[i][1]);
+        yacc[i][2] = fmaf(m, xv.z, yacc[i][2]);
+        yacc[i][3] = fmaf(m, xv.w, yacc[i][3]);
+      }
+    }
+  }
+  const long long p = p0 + 32 * side + 4 * lc;
+  const bool vec = g.P % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < kOutR; ++i) {
+    const int t = row0 + 4 * i;
+    if (t >= tc || p >= g.P) continue;
+    float* out = g.y + ((bi * g.T + t0 + t) * g.H + hi) * g.P + p;
+    if (vec) {
+      *reinterpret_cast<float4*>(out) =
+          make_float4(yacc[i][0], yacc[i][1], yacc[i][2], yacc[i][3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (p + q < g.P) out[q] = yacc[i][q];
+    }
+  }
+}
+
+// A map of one f32 operand whose last axis (`inner` elements) is
+// contiguous: boxes of `box0` of its elements by `rows` rows along t,
+// zeros out of bounds; the outer axes t, h and b as encode_map orders them.
+// Returns the map's rank, 0 if the encoding is refused.
+int encode_f32(CUtensorMap* map, int (&pos)[3], const void* base, long long inner, int box0,
+               int rows, const long long (&ext)[3], const long long (&st)[3],
+               CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
+  int ord[3], n = 0;
+  for (int i = 0; i < 3; ++i) {
+    pos[i] = 0;
+    if (ext[i] > 0) ord[n++] = i;
+  }
+  auto key = [&](int i) { return ext[i] > 1 ? st[i] : LLONG_MAX; };
+  for (int i = 1; i < n; ++i)
+    for (int j = i; j > 0 && key(ord[j]) < key(ord[j - 1]); --j) {
+      const int t = ord[j];
+      ord[j] = ord[j - 1];
+      ord[j - 1] = t;
+    }
+  cuuint64_t dims[4] = {(cuuint64_t)inner, 1, 1, 1}, strides[3];
+  cuuint32_t box[4] = {(cuuint32_t)box0, 1, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  long long span = (inner + 3) / 4 * 4;  // a 16-byte multiple
+  for (int r = 0; r < n; ++r) {
+    const int i = ord[r];
+    const long long s = ext[i] > 1 ? st[i] : span;
+    dims[1 + r] = (cuuint64_t)ext[i];
+    strides[r] = (cuuint64_t)(s * 4);
+    box[1 + r] = i == 0 ? rows : 1;
+    pos[i] = 1 + r;
+    span = s * ext[i];
+  }
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1 + n, const_cast<void*>(base),
+                        dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? 1 + n
+             : 0;
+}
+
+bool valid_shape(long long B, long long T, long long H, long long P, long long S) {
+  return B >= 1 && T >= 1 && H >= 1 && P >= 1 && S >= 1 && S <= kMaxS &&
+         B * H <= 0x7fffffffLL && (P + 31) / 32 <= 65535;
+}
+
+cudaError_t ssd_f32(const float* x, const float* a, const float* b, const float* c,
+                    float* y, long long B, long long T, long long H, long long P,
+                    long long S, const long long* st, float* h_in, float* gram,
+                    cudaStream_t s) {
+  const long long n_chunks = (T + kC - 1) / kC;
+  if (!valid_shape(B, T, H, P, S) || n_chunks > 65535) return cudaErrorInvalidValue;
+  // TMA and cp.async: x, b and c need 16-byte-aligned bases and
+  // strides (those of axes of extent 1 are never used)
+  const long long ext[3] = {B, T, H};
+  auto aligned = [&](const float* p, const long long* str) {
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+    for (int i = 0; i < 3; ++i)
+      if (ext[i] > 1 && str[i] % 4) return false;
+    return true;
+  };
+  if (!aligned(x, st) || !aligned(b, st + 6) || !aligned(c, st + 9))
+    return cudaErrorMisalignedAddress;
+  // the Gram kernel's staged rows: a whole number of float4s, odd, so that
+  // eight neighbouring rows start in eight distinct 16-byte bank groups
+  int units = (int)((S + 3) / 4) + 1;
+  if (units % 2 == 0) ++units;
+  const long long Hbc = st[8] == 0 && st[11] == 0 ? 1 : H;
+  F32Args g{};
+  g.x = x;
+  g.a = a;
+  g.b = b;
+  g.c = c;
+  g.y = y;
+  g.h = h_in;
+  g.gram = gram;
+  g.T = T;
+  g.H = H;
+  g.P = P;
+  g.S = S;
+  g.Pp = (P + 3) / 4 * 4;
+  g.Hbc = Hbc;
+  g.gpitch = 4 * units;
+  g.xb = st[0], g.xt = st[1], g.xh = st[2];
+  g.ab = st[3], g.at = st[4], g.ah = st[5];
+  g.bb = st[6], g.bt = st[7], g.bh = st[8];
+  g.cb = st[9], g.ct = st[10], g.ch = st[11];
+  g.n_chunks = (int)n_chunks;
+  const unsigned BH = (unsigned)(B * H);
+  {
+    const dim3 grid((unsigned)(B * Hbc), (unsigned)n_chunks, kGSub);
+    ssd_gram_f32<<<grid, kGThreads, 2 * kGT * g.gpitch * 4, s>>>(g);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (n_chunks > 1) {
+    // TMA maps of b (rows along t, kStRows state columns) and x (kStCols)
+    if (encode_tiled() == nullptr) return cudaErrorSymbolNotFound;
+    const long long ext_b[3] = {T, st[8] ? H : 0, B}, st_b[3] = {st[7], st[8], st[6]};
+    const long long ext_x[3] = {T, H, B}, st_x[3] = {st[1], st[2], st[0]};
+    CUtensorMap mb, mx;
+    g.b_rank = encode_f32(&mb, g.b_pos, b, S, kStRows, kC, ext_b, st_b);
+    if (!g.b_rank || !encode_f32(&mx, g.x_pos, x, P, kStCols, kC, ext_x, st_x))
+      return cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(
+        ssd_state_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, kStSmem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid(BH, (unsigned)((P + kStCols - 1) / kStCols),
+                    (unsigned)((S + kStRows - 1) / kStRows));
+    ssd_state_f32<<<grid, kStThreads, kStSmem, s>>>(mb, mx, g);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  // TMA maps of c (kSlice columns, 128-byte swizzle), h_in, x (kOutCols)
+  // and G
+  if (encode_tiled() == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap mc, mh, mx, mg;
+  const long long ext_c[3] = {T, st[11] ? H : 0, B}, st_c[3] = {st[10], st[11], st[9]};
+  const long long ext_x[3] = {T, H, B}, st_x[3] = {st[1], st[2], st[0]};
+  g.c_rank = encode_f32(&mc, g.c_pos, c, S, kSlice, kC, ext_c, st_c,
+                        CU_TENSOR_MAP_SWIZZLE_128B);
+  // h_in [B H (n_chunks - 1)][S][Pp] by kSlice rows; G [B Hbc n_chunks][kC][kC]
+  const long long ext_h[3] = {S, 0, B * H * (n_chunks - 1)}, st_h[3] = {g.Pp, 0, S * g.Pp};
+  const long long ext_g[3] = {kC, 0, B * Hbc * n_chunks}, st_g[3] = {kC, 0, kC * kC};
+  if (!g.c_rank || !encode_f32(&mx, g.x_pos, x, P, kOutCols, kC, ext_x, st_x) ||
+      !encode_f32(&mg, g.g_pos, gram, kC, kC, kC, ext_g, st_g) ||
+      (n_chunks > 1 &&
+       !encode_f32(&mh, g.h_pos, h_in, g.Pp, kOutCols, kSlice, ext_h, st_h)))
+    return cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      ssd_out_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, kOutSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(BH, (unsigned)n_chunks, (unsigned)((P + kOutCols - 1) / kOutCols));
+  ssd_out_f32<<<grid, kOutThreads, kOutSmem, s>>>(mc, n_chunks > 1 ? mh : mg, mx, mg, g);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1009,13 +1379,19 @@ extern "C" {
 
 // strides: 12 element strides (b, t, h) of x, a, b and c, in that order
 // (b's and c's head stride 0 when they are group-shared [B, T, S]); the
-// last axis of x, b and c is contiguous; y is a contiguous [B, T, H, P].
-// Returns the cudaError_t of the launch.
+// last axis of x, b and c is contiguous, their bases and other strides
+// 16-byte aligned; y is a contiguous [B, T, H, P]; the scratch h_in holds
+// B * H * (ceil(T / 64) - 1) * S * Pp floats (Pp: P rounded up to 4), gram
+// B * Hbc * ceil(T / 64) * 64 * 64 (Hbc: 1 for group-shared b and c, else
+// H). Returns the cudaError_t of the launches.
 int ssd_scan_f32(const void* x, const void* a, const void* b, const void* c, void* y,
                  long long B, long long T, long long H, long long P, long long S,
-                 const long long* strides, void* stream) {
-  return ssd_any(false, x, static_cast<const float*>(a), b, c, y, B, T, H, P, S,
-                 strides, stream);
+                 const long long* strides, void* h_in, void* gram, void* stream) {
+  return (int)ssd_f32(static_cast<const float*>(x), static_cast<const float*>(a),
+                      static_cast<const float*>(b), static_cast<const float*>(c),
+                      static_cast<float*>(y), B, T, H, P, S, strides,
+                      static_cast<float*>(h_in), static_cast<float*>(gram),
+                      (cudaStream_t)stream);
 }
 
 // the same, bf16, on the tensor-core body; the base addresses of x, b and c
@@ -1023,8 +1399,9 @@ int ssd_scan_f32(const void* x, const void* a, const void* b, const void* c, voi
 int ssd_scan_bf16(const void* x, const void* a, const void* b, const void* c, void* y,
                   long long B, long long T, long long H, long long P, long long S,
                   const long long* strides, void* stream) {
-  return ssd_any(true, x, static_cast<const float*>(a), b, c, y, B, T, H, P, S,
-                 strides, stream);
+  if (!valid_shape(B, T, H, P, S)) return (int)cudaErrorInvalidValue;
+  return (int)ssd_bf16(x, static_cast<const float*>(a), b, c, y, B, T, H, P, S, strides,
+                       (cudaStream_t)stream);
 }
 
 const char* camr_cuda_error_string(int code) {

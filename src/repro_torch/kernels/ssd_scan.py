@@ -15,13 +15,19 @@ grad is refused.
 
 A tensor on the CPU goes to the plain version
 (:func:`repro_torch.kernels.ref.ssd_chunked`); a tensor on ``"meta"``
-takes the cost twin (the same checks, alignment copies and output as on
-a card, no launch, the call's work charged to :mod:`.cost`, as a card's
-call is); a CUDA tensor launches the kernel or raises: bf16 takes the
-tensor-core body (wgmma fed by a TMA chunk ring, the f32 state in
-registers), f32 the CUDA-core body, and neither falls back to the
-other. ``ssd_scan.launches`` counts the
-launches.
+takes the cost twin (the same checks, alignment copies, output and
+scratch as on a card, no launch, the call's work charged to :mod:`.cost`,
+as a card's call is); a CUDA tensor launches the kernel or raises: bf16
+takes the tensor-core body (wgmma fed by a TMA chunk ring, the f32 state
+in registers), f32 the CUDA-core body (three kernels: each chunk's ``c
+b^T``, the recurrence alone, then every chunk's outputs in parallel from
+the state entering it), and neither falls back to the other. The f32
+body's scratch, allocated here: the states entering chunks 1 .. ``[B, H,
+n_chunks - 1, S, P rounded up to 4]`` and the chunks' ``c b^T`` ``[B,
+1 or H, n_chunks, CHUNK, CHUNK]`` (one head for group-shared b/c), both
+f32. ``ssd_scan.launches`` counts the calls that launched (one each,
+whatever the body launches), ``ssd_scan.launches_by_dtype`` splits them
+by x's dtype.
 """
 
 from __future__ import annotations
@@ -80,10 +86,10 @@ def _bc_strides(t: torch.Tensor) -> tuple:
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when its last axis is contiguous and its base address
     and the strides of its other axes are multiples of 16 bytes (the bf16
-    body's TMA maps; the stride of an axis of extent 1 is never used),
-    else a copy in a buffer whose last axis is zero-padded to a multiple
-    of 16 bytes, seen through a view of ``t``'s shape (the kernel never
-    reads the padding)."""
+    body's TMA maps, the f32 body's 16-byte ``cp.async`` units; the stride
+    of an axis of extent 1 is never used), else a copy in a buffer whose
+    last axis is zero-padded to a multiple of 16 bytes, seen through a view
+    of ``t``'s shape (the kernels never read the padding)."""
     size = t.element_size()
     if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(s * size % 16 == 0
@@ -115,12 +121,15 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     S = b.shape[-1]
     if S > MAX_STATE:
         raise ValueError(f"ssd_scan: state size {S} > {MAX_STATE}")
-    if x.dtype == torch.bfloat16:
-        x, b, c = _aligned(x), _aligned(b), _aligned(c)
-    else:
-        x, b, c = (t if t.stride(-1) == 1 else t.contiguous()
-                   for t in (x, b, c))
+    x, b, c = _aligned(x), _aligned(b), _aligned(c)
     y = torch.empty((B, T, H, P), dtype=x.dtype, device=x.device)
+    scratch = []
+    if x.dtype == torch.float32:         # h_in and c b^T (see above)
+        n = -(-T // CHUNK)
+        scratch = [torch.empty(shape, dtype=torch.float32, device=x.device)
+                   for shape in ((B, H, n - 1, S, -(-P // 4) * 4),
+                                 (B, H if b.dim() == 4 else 1, n, CHUNK,
+                                  CHUNK))]
     work = cost.ssd_scan(B, T, H, P, S, x.element_size(), b.dim() == 4,
                          CHUNK)
     if x.device.type == "meta":
@@ -132,12 +141,14 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     lib = _build.load("ssd_scan")
     code = getattr(lib, fn)(
         x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
-        B, T, H, P, S, strides,
+        B, T, H, P, S, strides, *(t.data_ptr() for t in scratch),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, fn, code)
     cost.charge("ssd_scan", work)
     ssd_scan.launches += 1
+    ssd_scan.launches_by_dtype[str(x.dtype)[6:]] += 1
     return y
 
 
 ssd_scan.launches = 0
+ssd_scan.launches_by_dtype = {"float32": 0, "bfloat16": 0}

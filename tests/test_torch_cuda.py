@@ -19,10 +19,12 @@ BLAS sum products in other orders, TF32 off), on both grad-sync lanes.
 ``flash_attention`` is within 2e-5 (f32) / 2e-2 (bf16) of its plain
 version, the tolerances of ``tests/test_kernels.py`` (online softmax
 against the materialized one); ``ssd_scan`` within 2e-4 of its plain
-version in f32 (that file's tolerance: chunked sums in another order)
+version in f32 (that file's tolerance: chunked sums in another order;
+also at ragged lengths, B 2, state sizes 16 to 256 and P 32 and 80)
 and within two bf16 ulps of each output (rtol 2**-6, atol 1e-4) in bf16,
-and at ``chip_smoke.py``'s bf16 serving shapes bitwise repeatable and
-within its serving limit (rtol 2**-6 + 2e-5 x max|y|); the serving
+and at ``chip_smoke.py``'s serving shapes bitwise repeatable (both
+bodies), within its serving limit in bf16 (rtol 2**-6 + 2e-5 x max|y|)
+and within 1e-5 x max|y| of an f64 evaluation in f32; the serving
 engine's tokens (dense, SSM and hybrid models) and the enc-dec and ViT
 models' ``serve_legacy`` tokens are bitwise the port's ``generate`` on
 the card; ``ops.attention`` on bf16 queries over f32 k/v is within one
@@ -756,17 +758,63 @@ def test_cuda_ssd_scan_matches_plain(cuda_device, case, dtype, shared):
                                rtol=0, atol=0)
 
 
-def _ssd_serving_inputs(shape, device):
-    """bf16 x, b, c (group-shared) and the model's f32 log-decay
+@pytest.mark.parametrize("T", [1, 63, 65, 77, 129])
+@pytest.mark.parametrize("S", [16, 64, 128, 256])
+@pytest.mark.parametrize("P", [32, 80])
+def test_cuda_ssd_scan_f32_ragged_shapes(cuda_device, T, S, P):
+    """The f32 body (the recurrence kernel, then the output kernel) at
+    B = 2, lengths around the chunk of 64 (one step, a chunk short of one,
+    one past, ragged tails), every state size up to 256 (one to four row
+    tiles of the recurrence, slices of 32 in the output kernel) and P 80,
+    not a multiple of either kernel's column tile: within 2e-4 of the
+    plain version with per-head and with group-shared b/c, one launch a
+    call, and the same bits for b/c as column slices of one projection
+    (16-byte aligned when S is: read in place)."""
+    B, H = 2, 3
+    rng = np.random.default_rng(T * 31 + S + P)
+    for shared in (False, True):
+        bs = (B, T, S) if shared else (B, T, H, S)
+        x, b, c = (torch.from_numpy(rng.standard_normal(sh).astype(
+            np.float32)).to(cuda_device) for sh in ((B, T, H, P), bs, bs))
+        a = torch.from_numpy(-np.abs(rng.standard_normal((B, T, H))).astype(
+            np.float32) * 0.5).to(cuda_device)
+        before = ssd_scan.launches_by_dtype["float32"]
+        got = ssd_scan(x, a, b, c)
+        torch.cuda.synchronize()
+        assert ssd_scan.launches_by_dtype["float32"] == before + 1
+        want = ref.ssd_chunked(x, a, b, c)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        bc = torch.cat([b, c], dim=-1)
+        assert torch.equal(ssd_scan(x, a, bc[..., :S], bc[..., S:]), got)
+
+
+def _ssd_serving_inputs(shape, device, dtype=torch.bfloat16):
+    """x, b, c (group-shared) in ``dtype`` and the model's f32 log-decay
     ``-softplus(.)`` at a serving shape of ``chip_smoke.SSD_SHAPES``."""
     B, T, H, P, S = shape
     rng = np.random.default_rng(T + H + S)
     x, b, c = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
-               .to(device, torch.bfloat16)
+               .to(device, dtype)
                for sh in ((B, T, H, P), (B, T, S), (B, T, S)))
     a = -torch.nn.functional.softplus(torch.from_numpy(
         rng.standard_normal((B, T, H)).astype(np.float32))).to(device)
     return x, a, b, c
+
+
+def test_cuda_ssd_scan_f32_is_deterministic(cuda_device):
+    """Two f32 calls at each serving shape give the same bits (a race on a
+    ring slot of either kernel, or between the recurrence's stores of the
+    states and the output kernel's reads, would show as a difference), and
+    each is within ``SSD_F32_REL`` x max|y| of an f64 evaluation."""
+    smoke = chip_smoke()
+    for shape in smoke.SSD_SHAPES:
+        args = _ssd_serving_inputs(shape, cuda_device, torch.float32)
+        first, second = ssd_scan(*args), ssd_scan(*args)
+        assert torch.equal(first.view(torch.int32),
+                           second.view(torch.int32)), shape
+        exact = ref.ssd_chunked(*(t.double() for t in args))
+        err = float((first.double() - exact).abs().max())
+        assert err <= smoke.SSD_F32_REL * float(exact.abs().max()), shape
 
 
 def test_cuda_ssd_scan_is_deterministic(cuda_device):

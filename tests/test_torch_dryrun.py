@@ -462,6 +462,45 @@ def test_meta_route_keeps_the_f32_split_scratch():
     assert tr.peak >= out + 4 * n * 8 * (64 + 2) * 4
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_meta_route_keeps_the_ssd_f32_scratch(dtype):
+    """An f32 ``ssd_scan`` allocates its scratch on ``meta`` as on a card
+    (the dry run's peak counts it): the state entering each chunk after
+    the first, ``[B, H, n_chunks - 1, S, P rounded up to 4]`` f32, and the
+    Gram tiles ``c b^T`` of each chunk, ``[B, 1, n_chunks, 64, 64]`` f32
+    for group-shared b/c; a bf16 call allocates none. Both charge
+    ``cost.ssd_scan`` as it stands."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Allocations(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.made = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is torch.ops.aten.empty.memory_format:
+                self.made.append((tuple(out.shape), out.dtype))
+            return out
+
+    B, T, H, P, S = 2, 200, 3, 6, 16         # 4 chunks, P padded to 8
+    x = torch.empty(B, T, H, P, device="meta", dtype=dtype)
+    a = torch.empty(B, T, H, device="meta")
+    b = torch.empty(B, T, S, device="meta", dtype=dtype)
+    tr = dryrun.StepTracer()
+    with cost.counting() as kc, tr, Allocations() as allocs:
+        y = ssd_scan(x, a, b, b)
+    scratch = [((B, H, 3, S, 8), torch.float32),
+               ((B, 1, 4, 64, 64), torch.float32)]
+    f32 = dtype == torch.float32
+    assert allocs.made == [(tuple(y.shape), dtype)] + (scratch if f32 else [])
+    assert tr.peak >= y.numel() * y.element_size() + (
+        (B * H * 3 * S * 8 + B * 4 * 64 * 64) * 4 if f32 else 0)
+    flops, nbytes = cost.ssd_scan(B, T, H, P, S, x.element_size(), False)
+    assert kc.by_kernel["ssd_scan"] == {"calls": 1, "flops": flops,
+                                        "bytes": nbytes}
+
+
 @pytest.mark.parametrize("arch", ARCHS3 + ["zamba2_2p7b"])
 def test_device_decode_lane_matches_host_lane(arch):
     """``decode_step`` at a 0-d tensor position (any batch, nothing read

@@ -288,6 +288,114 @@ def test_ssd_precision_plan_holds_the_serving_limit():
     assert _share(_tc_model(x, a, b, c, 2), want, 2 ** -6, 1e-4) > 1
 
 
+def _split_model(x, a, b, c):
+    """The split evaluation of the f32 ``ssd_scan`` body on the CPU, in
+    f32: first the state entering every chunk (the recurrence kernel:
+    ``h <- exp(cum_end) h + b^T (w x)``, the last chunk's update not run),
+    then each chunk's outputs from the state entering it alone (the output
+    kernel: ``y = exp(cum_t) (c h_in) + M x``). Per-head or group-shared
+    b/c; chunks of 64, the last one ragged. Its products are ``einsum``s,
+    whose sums run in BLAS's order, not the kernels' in-order FMA chains:
+    this models the split, not the order of each sum."""
+    B, T, H, P = x.shape
+    if b.dim() == 3:
+        b, c = (v[:, :, None].expand(-1, -1, H, -1) for v in (b, c))
+    starts = range(0, T, CHUNK)
+    cums = [torch.cumsum(a[:, t0:t0 + CHUNK], dim=1) for t0 in starts]
+    h = torch.zeros((B, H, b.shape[-1], P))
+    h_in = []
+    for t0, cum in zip(starts, cums):
+        h_in.append(h)
+        xc, bc = x[:, t0:t0 + CHUNK], b[:, t0:t0 + CHUNK]
+        wx = torch.exp(cum[:, -1:] - cum)[..., None] * xc
+        h = (torch.exp(cum[:, -1])[..., None, None] * h
+             + torch.einsum("buhs,buhp->bhsp", bc, wx))
+    ys = []
+    for t0, cum, hc in zip(starts, cums, h_in):
+        xc, bc, cc = (v[:, t0:t0 + CHUNK] for v in (x, b, c))
+        C = xc.shape[1]
+        tri = torch.ones((C, C), dtype=torch.bool).tril()[None, :, :, None]
+        expo = torch.where(tri, cum[:, :, None] - cum[:, None], -torch.inf)
+        m = torch.einsum("bths,buhs->btuh", cc, bc) * torch.exp(expo)
+        ys.append(torch.exp(cum)[..., None]
+                  * torch.einsum("bths,bhsp->bthp", cc, hc)
+                  + torch.einsum("btuh,buhp->bthp", m, xc))
+    return torch.cat(ys, dim=1)
+
+
+@pytest.mark.parametrize("B,T,H,P,S,chunk", SSD_CASES)
+@pytest.mark.parametrize("shared", [False, True])
+def test_ssd_split_order_matches_jax(B, T, H, P, S, chunk, shared):
+    """The f32 body's split (states first, then outputs) against JAX's
+    sequential oracle and the Pallas kernel in interpret mode, within the
+    scans' 2e-4, with per-head and group-shared b/c."""
+    x, a, b, c = _ssd_inputs(B, T, H, P, S, shared=shared, seed=T + P + 1)
+    bh, ch = (_heads(b, H), _heads(c, H)) if shared else (b, c)
+    jx = [jnp.asarray(v) for v in (x, a, bh, ch)]
+    got = _split_model(*_t(x, a, b, c))
+    assert got.dtype == torch.float32 and got.shape == (B, T, H, P)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jref.ssd_scan_ref(*jx)),
+                               **SSD_TOL)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(pallas_ssd(*jx, chunk=chunk)),
+                               **SSD_TOL)
+
+
+def test_ssd_split_order_holds_the_f64_limit():
+    """At a reduced mamba2-like shape (4 heads of P 64, S 128, 277 steps:
+    four whole chunks and a ragged tail, group-shared b/c, the model's
+    decay ``-softplus(.)``) the f32 body's split is within the chip
+    smoke's ``SSD_F32_REL`` x max|y| of an f64 evaluation, as the plain
+    version is: the split itself keeps the f32 contract."""
+    B, T, H, P, S = 1, 277, 4, 64, 128
+    rng = np.random.default_rng(1)
+    x, b, c = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               for sh in ((B, T, H, P), (B, T, S), (B, T, S)))
+    a = -torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((B, T, H)).astype(np.float32)))
+    exact = ssd_chunked(*(v.double() for v in (x, a, b, c)))
+    limit = chip_smoke().SSD_F32_REL * float(exact.abs().max())
+    for got in (_split_model(x, a, b, c), ssd_chunked(x, a, b, c)):
+        assert float((got.double() - exact).abs().max()) <= limit
+
+
+@pytest.mark.parametrize("T", [1, 64, 129, 1024])
+def test_chip_smoke_ssd_bound_counts_the_needed_work(T):
+    """The chip smoke's ``ssd_scan`` bound counts, step by step, the
+    multiply-adds the function needs with group-shared b/c: c b^T once
+    and M x per head over the pairs s <= t of a chunk, c h past the first
+    chunk and the state update before the last, per head; its bytes are
+    ``cost.ssd_scan``'s, and its FLOPs never exceed that count."""
+    from repro_torch.kernels import cost
+    B, H, P, S = 2, 3, 8, 16
+    pairs = chained = updated = 0
+    for t in range(T):
+        pairs += t % CHUNK + 1
+        chained += t >= CHUNK
+        updated += t < (T - 1) // CHUNK * CHUNK
+    want = 2 * B * (pairs * (S + H * P) + H * S * P * (chained + updated))
+    flops, nbytes = chip_smoke()._ssd_work(B, T, H, P, S, itemsize=4)
+    jax_flops, jax_bytes = cost.ssd_scan(B, T, H, P, S, 4, False)
+    assert (flops, nbytes) == (want, jax_bytes) and flops <= jax_flops
+
+
+def test_chip_smoke_counts_the_f32_serving_scans():
+    """The chip smoke's f32 serving run (mamba2 at 4 layers, two requests)
+    expects one ``ssd_scan`` launch per layer and prefill, all of them on
+    the f32 body, and no attention launch; a bf16 run expects none on the
+    f32 bodies."""
+    smoke = chip_smoke()
+    run = smoke.SERVE_F32_RUN
+    cfg = get_config(run["arch"]).replace(n_layers=run["n_layers"],
+                                          dtype=run["dtype"])
+    assert smoke.serve_kernels(cfg, len(run["lens"])) == {
+        "flash_attention": 0, "ssd_scan": 8, "flash_attention_f32": 0,
+        "ssd_scan_f32": 8}
+    bf16 = smoke.serve_kernels(get_config("zamba2_2p7b"), 8)
+    assert bf16["ssd_scan_f32"] == bf16["flash_attention_f32"] == 0
+    assert bf16["ssd_scan"] == 360 and bf16["flash_attention"] == 72
+
+
 # --------------------------------------------------------------------- #
 # the model against JAX
 # --------------------------------------------------------------------- #
