@@ -92,7 +92,10 @@ result line) on any mismatch:
    MoE family (``moonshot_v1_16b_a3b`` with its 64 experts, top-6 and
    capacity 1.25 at d_model 2048, cut to one layer, d_ff 512 and a vocab
    of 16,384: ``MOE_TRAIN_CUT``) on the f32 lane, likewise (each trainer
-   freed before the next).
+   freed before the next). Every run trains at its config's ``remat``,
+   JAX's ``"block"``; after the f32 run one subfile's map gradient at
+   ``"block"`` is held bitwise to the same at ``"none"`` (map ms and
+   peak printed both ways, ``check_remat_map``).
    Each run has its kernel launch counts (counters set to 0 just before
    it), step 1's synced gradient held bitwise on a column slice against
    the shuffle of the same contributions (the fused runs against the
@@ -109,8 +112,8 @@ result line) on any mismatch:
    contributions, the parameters after step 2 bitwise the f32 run's on
    column slices, the losses its losses, the stream's ``compiles`` 1
    and ``swaps`` 2; its phase split and peak memory are printed. Then
-   the granite cell at 2048 tokens on the f32 lane, past
-   the attention lanes' switch point of 1448: the same gates, the
+   the granite cell at 2048 tokens on the f32 lane at ``remat="none"``,
+   past the attention lanes' switch point of 1448: the same gates, the
    chunked attention in every attention call of the map, one subfile's
    loss and flat gradient through it held to the materialized attention
    at the dense tolerances of tests/test_torch_train.py (an f32 model of
@@ -217,15 +220,18 @@ result line) on any mismatch:
    for each of ``DRYRUN_CELLS`` (mamba2 at ``long_500k`` and
    ``decode_32k`` and zamba2 at ``long_500k``, JAX's shapes as they
    stand; mamba2's and granite's prefill at 32,768 tokens and granite's
-   train step at 4,096, each at batch 1) the step of
+   train step at 4,096, each at batch 1, and granite's train step at
+   4,096 x 8, ``REMAT_CELL``, whose trace must fit the card at the
+   config's ``remat="block"`` and not at ``"none"``) the step of
    ``repro_torch.launch.steps`` traced on ``meta``, then built on the
    card from seed 0 and run twice: its FLOPs (``FlopCounterMode`` plus
    the kernels' formulas of ``repro_torch.kernels.cost``) equal to the
    trace's exactly, its peak memory within 10% or 256 MiB of the
    trace's, its result finite (a train step's loss and norm, the
    logits of the others), its step ms printed beside the roofline's
-   ``step_time_s``. ``python3 chip_smoke.py --dryrun-only`` builds the
-   kernels and runs this phase alone (no result line).
+   ``step_time_s`` and ``useful_flops_ratio``. ``python3 chip_smoke.py
+   --dryrun-only`` builds the kernels and runs this phase alone (no
+   result line).
 
 The last lines are the card's name and power limit, the ``kernels`` JSON
 line (eleven kernels, each with its main-path launches: the granite
@@ -1857,15 +1863,19 @@ def check_chunked_lane(tr, pipe):
 
 
 def phase_chunked():
-    """The granite cell at ``CHUNK_SEQ_LEN`` tokens on the f32 lane: the
-    main path's gates (launch counts, step 1's synced gradient bitwise
-    the plain shuffle, finite losses, peak memory), the chunked lane
-    taken in every attention call of the map, one subfile held to the
-    materialized attention, and the memory one subfile's map and one
+    """The granite cell at ``CHUNK_SEQ_LEN`` tokens on the f32 lane at
+    ``remat="none"`` (a unit's recompute would run the chunked lane a
+    second time and its checkpoint would hide the block steps' saving):
+    the main path's gates (launch counts, step 1's synced gradient
+    bitwise the plain shuffle, finite losses, peak memory), the chunked
+    lane taken in every attention call of the map, one subfile held to
+    the materialized attention, and the memory one subfile's map and one
     more step take with the block steps not checkpointed."""
     import torch
-    tr, pipe = build_cell("float32", seq_len=CHUNK_SEQ_LEN)
+    tr, pipe = build_cell("float32", seq_len=CHUNK_SEQ_LEN, remat="none")
     tag = _tag(tr, pipe)
+    log(f"{tag}: remat {tr.cfg.remat} (the block steps' own checkpoint "
+        "measured alone)")
     with count_chunked() as calls:
         _, _, peak = phase_train(tr, pipe)
     want = tr.J * tr.N * tr.cfg.n_layers * 2
@@ -1898,6 +1908,51 @@ def phase_chunked():
         f"resident state with the block steps checkpointed, "
         f"{maps[1] / 1e9:.3f} GB without; step peak {peak / 1e9:.2f} GB "
         f"with, {peak_nockpt / 1e9:.2f} GB for a step without")
+
+
+def check_remat_map(tr, pipe):
+    """One subfile's map gradient of the cell (job 0, subfile 0), as the
+    trainer computes it, at the config's ``remat`` (``"block"``) and at
+    ``"none"``, twice each in turns: the four rows bitwise equal. Logs
+    the map ms (host clock to a synchronise) and its peak above the
+    resident state, each way."""
+    import torch
+    from repro_torch.runtime.train_loop import _full_f32
+    tag = _tag(tr, pipe)
+    cfg, batch = tr.cfg, pipe.batch(0)
+    if cfg.remat != "block":
+        fail(f"{tag}: the cell trains at remat {cfg.remat!r}, not JAX's "
+             "default 'block'")
+    tr._last_loss = [dict() for _ in range(tr.J)]
+    rows, ms, peaks = {}, {}, {}
+    try:
+        for remat in ("block", "none", "none", "block"):
+            tr.cfg = cfg.replace(remat=remat)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with _full_f32(torch.device(DEVICE)):
+                row = tr._grad_vec(0, 0, batch)
+            torch.cuda.synchronize()
+            ms.setdefault(remat, []).append(1e3 * (time.perf_counter() - t0))
+            peaks.setdefault(remat, []).append(
+                torch.cuda.max_memory_allocated() - base)
+            if remat in rows and not bitwise_equal(rows[remat], row):
+                fail(f"{tag}: two map gradients at remat {remat} differ")
+            rows.setdefault(remat, row)
+    finally:
+        tr.cfg = cfg
+    if not bitwise_equal(rows["block"], rows["none"]):
+        n = int((_bits(rows["block"]) != _bits(rows["none"])).sum())
+        fail(f"{tag}: the map gradient at remat block differs from remat "
+             f"none in {n} of {rows['none'].numel()} values")
+    log(f"{tag}: one subfile's map gradient ({rows['none'].numel()} values) "
+        f"bitwise equal at remat block and none; map ms block "
+        f"{', '.join(f'{v:.2f}' for v in ms['block'])}, none "
+        f"{', '.join(f'{v:.2f}' for v in ms['none'])}; peak above the "
+        f"resident state block {peaks['block'][0] / 1e9:.3f} GB, none "
+        f"{peaks['none'][0] / 1e9:.3f} GB")
 
 
 #: the paper's three modes at a reduced width (the host engine XORs bytes
@@ -3264,7 +3319,12 @@ DRYRUN_CELLS = (
     ("mamba2_1p3b", ("prefill_32k_b1", 32768, 1, "prefill")),
     ("granite_3_2b", ("prefill_32k_b1", 32768, 1, "prefill")),
     ("granite_3_2b", ("train_4k_b1", 4096, 1, "train")),
+    ("granite_3_2b", ("train_4k_b8", 4096, 8, "train")),
 )
+#: the cell one card holds only with JAX's block remat (every config's
+#: ``remat``): its trace at ``remat="none"`` must not fit the card, its
+#: trace at ``"block"`` must
+REMAT_CELL = ("granite_3_2b", "train_4k_b8")
 #: measured peak against the trace's: within 10% or 256 MiB
 PEAK_REL, PEAK_ABS = 0.10, 256 * 2 ** 20
 
@@ -3322,6 +3382,28 @@ def check_path_kernels(gen):
     torch.cuda.empty_cache()
 
 
+def check_remat_cell(arch, shape, rec):
+    """The ``REMAT_CELL``'s trace at ``"block"`` (``rec``) fits the card
+    and its trace at ``remat="none"`` does not; prints both peaks."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import HBM_BYTES
+    none = dryrun.run_cell(arch, shape, overrides={"remat": "none"})
+    if rec["status"] != "ok" or none["status"] != "ok":
+        fail(f"dryrun: {arch} {shape.name}: {rec} / remat none {none}")
+    peaks = {"block": rec["memory"]["peak_bytes"],
+             "none": none["memory"]["peak_bytes"]}
+    log(f"dryrun: {arch} {shape.name} traced peak {peaks['block'] / 1e9:.3f}"
+        f" GB at remat block, {peaks['none'] / 1e9:.3f} GB at remat none "
+        f"(card {HBM_BYTES / 1e9:.0f} GB); FLOPs {rec['cost']['flops']} "
+        f"block, {none['cost']['flops']} none "
+        f"({rec['cost']['flops'] / none['cost']['flops']:.4f}x); trace "
+        f"{none['lower_s']} s at none")
+    if not (rec["fits"] and peaks["none"] > HBM_BYTES):
+        fail(f"dryrun: {arch} {shape.name} does not split the remat modes: "
+             f"block {peaks['block']} bytes, none {peaks['none']} (card "
+             f"{HBM_BYTES})")
+
+
 def _card_flops(bundle) -> int:
     """FLOPs of one run of a step on the card, counted as the dry run
     counts them: aten matrix products plus the kernels' formulas."""
@@ -3333,6 +3415,84 @@ def _card_flops(bundle) -> int:
     return fc.get_total_flops() + kc.flops
 
 
+def dryrun_cell(arch, spec):
+    """One cell of ``phase_dryrun``: ``spec`` is a key of ``SHAPES`` or a
+    ``(name, seq_len, global_batch, kind)`` tuple. Traces the step on
+    ``meta`` (a tuple's length halved until its trace fits), builds it on
+    the card from seed 0 at the config's ``remat``, and gates and logs
+    its FLOPs, peak and ms against the trace's."""
+    import torch
+    from repro_torch.configs import SHAPES, ShapeSpec, get_config
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.steps import build_step
+    shape = SHAPES[spec] if isinstance(spec, str) else ShapeSpec(*spec)
+    rec = dryrun.run_cell(arch, shape)
+    if (arch, shape.name) == REMAT_CELL:
+        check_remat_cell(arch, shape, rec)
+    while rec["status"] == "ok" and not rec["fits"] \
+            and not isinstance(spec, str):
+        log(f"dryrun: {arch} {shape.name} at {shape.seq_len} tokens "
+            f"does not fit ({rec['memory']['peak_bytes'] / 1e9:.2f} GB):"
+            " halved")
+        shape = ShapeSpec(f"{shape.name}_{shape.seq_len // 2}",
+                          shape.seq_len // 2, shape.global_batch,
+                          shape.kind)
+        rec = dryrun.run_cell(arch, shape)
+    if rec["status"] != "ok":
+        fail(f"dryrun: {arch} {shape.name}: {rec}")
+    if not rec["fits"]:
+        log(f"dryrun: {arch} {shape.name}: the trace's peak "
+            f"{rec['memory']['peak_bytes'] / 1e9:.2f} GB does not fit: "
+            "not run on the card")
+        return
+    pred = rec["memory"]["peak_bytes"]
+    roof = roofline.roofline_from_cell(rec)
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    bundle = build_step(cfg, shape, device=DEVICE, seed=0)
+    flops = _card_flops(bundle)
+    if flops != rec["cost"]["flops"]:
+        fail(f"dryrun: {arch} {shape.name}: the card counts {flops} "
+             f"FLOPs, the trace {rec['cost']['flops']}")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    out = bundle.fn(*bundle.args)
+    t1.record()
+    t1.synchronize()
+    ms = t0.elapsed_time(t1)
+    peak = torch.cuda.max_memory_allocated() - base
+    # the step's result: the loss and norm of a train step, the
+    # logits [B, 1, V] of a prefill or decode step, finite
+    res = (list(out[2].values()) if shape.kind == "train"
+           else [out[0]])
+    ok = all(bool(torch.isfinite(t).all()) for t in res) and (
+        shape.kind == "train" or tuple(res[0].shape) ==
+        (shape.global_batch, 1, cfg.vocab_padded))
+    del out, res, bundle
+    if not ok:
+        fail(f"dryrun: {arch} {shape.name}: a non-finite or misshapen "
+             "result")
+    if abs(peak - pred) > max(PEAK_REL * pred, PEAK_ABS):
+        fail(f"dryrun: {arch} {shape.name}: measured peak "
+             f"{peak / 1e9:.3f} GB against the trace's "
+             f"{pred / 1e9:.3f} GB (limit 10% or 256 MiB)")
+    log(f"dryrun: {arch} {shape.name} (seq {shape.seq_len}, batch "
+        f"{shape.global_batch}, {shape.kind}, remat {cfg.remat}): FLOPs "
+        f"{flops} on the card = the trace's; peak {peak / 1e9:.3f} GB "
+        f"measured, {pred / 1e9:.3f} GB traced "
+        f"({(peak - pred) / pred:+.2%}); step {ms:.2f} ms measured, "
+        f"roofline {roof.step_time_s * 1e3:.2f} ms ({roof.dominant}; "
+        f"{ms / 1e3 / roof.step_time_s:.2f}x), useful_flops_ratio "
+        f"{roof.useful_flops_ratio:.4f}, trace {rec['lower_s']} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_dryrun(gen):
     """The dry run (``repro_torch.launch.dryrun``) against the card, cell
     by cell (``DRYRUN_CELLS``): trace the step on ``meta`` (a reduced
@@ -3342,82 +3502,20 @@ def phase_dryrun(gen):
     events); the card's FLOPs must equal the trace's exactly and its
     peak (``max_memory_allocated`` above what was allocated before the
     step was built) must lie within 10% or 256 MiB of the trace's.
-    Prints the measured step ms beside the roofline's ``step_time_s``.
-    Returns the phase's launch counts."""
+    Every step runs at its config's ``remat`` (``"block"``); the
+    ``REMAT_CELL`` is also traced at ``"none"``, whose peak must exceed
+    the card's 80 GB while the ``"block"`` trace fits. Prints the
+    measured step ms beside the roofline's ``step_time_s`` and
+    ``useful_flops_ratio``. Returns the phase's launch counts."""
     import torch
-    from repro_torch.configs import SHAPES, ShapeSpec, get_config
     from repro_torch.kernels import reset_launch_counts
-    from repro_torch.launch import dryrun, roofline
-    from repro_torch.launch.steps import build_step
     t_phase = time.perf_counter()
     check_path_kernels(gen)
     gc.collect()
     torch.cuda.empty_cache()
     reset_launch_counts()
     for arch, spec in DRYRUN_CELLS:
-        shape = SHAPES[spec] if isinstance(spec, str) else ShapeSpec(*spec)
-        rec = dryrun.run_cell(arch, shape)
-        while rec["status"] == "ok" and not rec["fits"] \
-                and not isinstance(spec, str):
-            log(f"dryrun: {arch} {shape.name} at {shape.seq_len} tokens "
-                f"does not fit ({rec['memory']['peak_bytes'] / 1e9:.2f} GB):"
-                " halved")
-            shape = ShapeSpec(f"{shape.name}_{shape.seq_len // 2}",
-                              shape.seq_len // 2, shape.global_batch,
-                              shape.kind)
-            rec = dryrun.run_cell(arch, shape)
-        if rec["status"] != "ok":
-            fail(f"dryrun: {arch} {shape.name}: {rec}")
-        if not rec["fits"]:
-            log(f"dryrun: {arch} {shape.name}: the trace's peak "
-                f"{rec['memory']['peak_bytes'] / 1e9:.2f} GB does not fit: "
-                "not run on the card")
-            continue
-        pred = rec["memory"]["peak_bytes"]
-        roof = roofline.roofline_from_cell(rec)
-        cfg = get_config(arch)
-        gc.collect()
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated()
-        bundle = build_step(cfg, shape, device=DEVICE, seed=0)
-        flops = _card_flops(bundle)
-        if flops != rec["cost"]["flops"]:
-            fail(f"dryrun: {arch} {shape.name}: the card counts {flops} "
-                 f"FLOPs, the trace {rec['cost']['flops']}")
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0.record()
-        out = bundle.fn(*bundle.args)
-        t1.record()
-        t1.synchronize()
-        ms = t0.elapsed_time(t1)
-        peak = torch.cuda.max_memory_allocated() - base
-        # the step's result: the loss and norm of a train step, the
-        # logits [B, 1, V] of a prefill or decode step, finite
-        res = (list(out[2].values()) if shape.kind == "train"
-               else [out[0]])
-        ok = all(bool(torch.isfinite(t).all()) for t in res) and (
-            shape.kind == "train" or tuple(res[0].shape) ==
-            (shape.global_batch, 1, cfg.vocab_padded))
-        del out, res, bundle
-        if not ok:
-            fail(f"dryrun: {arch} {shape.name}: a non-finite or misshapen "
-                 "result")
-        if abs(peak - pred) > max(PEAK_REL * pred, PEAK_ABS):
-            fail(f"dryrun: {arch} {shape.name}: measured peak "
-                 f"{peak / 1e9:.3f} GB against the trace's "
-                 f"{pred / 1e9:.3f} GB (limit 10% or 256 MiB)")
-        log(f"dryrun: {arch} {shape.name} (seq {shape.seq_len}, batch "
-            f"{shape.global_batch}, {shape.kind}): FLOPs {flops} on the card"
-            f" = the trace's; peak {peak / 1e9:.3f} GB measured, "
-            f"{pred / 1e9:.3f} GB traced ({(peak - pred) / pred:+.2%}); step "
-            f"{ms:.2f} ms measured, roofline {roof.step_time_s * 1e3:.2f} ms "
-            f"({roof.dominant}; {ms / 1e3 / roof.step_time_s:.2f}x), "
-            f"trace {rec['lower_s']} s")
-        gc.collect()
-        torch.cuda.empty_cache()
+        dryrun_cell(arch, spec)
     counts = kernel_launches()
     log(f"dryrun: launches {counts['flash_attention']} flash_attention, "
         f"{counts['ssd_scan']} ssd_scan; phase "
@@ -3470,6 +3568,7 @@ def main() -> int:
     phase_topology(gen)
     counts, rep32, peak32 = phase_train(tr, pipe)
     p32 = param_slices(tr)
+    check_remat_map(tr, pipe)
     del tr, pipe                       # the bf16 cell's peak is its own
     gc.collect()
     torch.cuda.empty_cache()

@@ -7,10 +7,14 @@ fields are the JAX package's, and so are the two that set what the
 train step of :mod:`repro_torch.launch.steps` computes:
 ``microbatches`` (gradient accumulation) and ``grad_sync_dtype`` (the
 cast of f32 gradients before the update; the trainer's grad-sync lane).
-Its XLA execution knobs (``use_pallas``, ``remat``, ``scan_unroll``,
-``attn_block``, ``ssm_chunk``, ``grad_sync``) have no counterpart here
-(the device picks the kernel; the port keeps every activation, with no
-rematerialisation; the SSD chunk is the ``ssd_scan`` kernel's constant,
+``remat`` is JAX's too, with JAX's values and default: ``"block"``
+(every config trains with it) checkpoints each pattern unit, each
+encoder unit and each loss chunk of a training forward, whose backward
+recomputes them (:mod:`repro_torch.models.lm`); ``"none"`` keeps every
+activation. Switch it with ``cfg.replace(remat=...)``. The other XLA
+execution knobs (``use_pallas``, ``scan_unroll``, ``attn_block``,
+``ssm_chunk``, ``grad_sync``) have no counterpart here (the device
+picks the kernel; the SSD chunk is the ``ssd_scan`` kernel's constant,
 64, mamba2's and zamba2's ``ssm_chunk``). ``moe_shard_mode`` stays: on
 one card it selects the lane of
 :func:`repro_torch.models.layers.moe_block` over a virtual ``(n_data,
@@ -36,8 +40,12 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["ModelConfig", "ShapeSpec", "SHAPES", "ARCHS", "get_config",
-           "reduced", "list_archs", "shape_supported", "input_specs"]
+__all__ = ["ModelConfig", "ShapeSpec", "SHAPES", "ARCHS", "REMAT_MODES",
+           "get_config", "reduced", "list_archs", "shape_supported",
+           "input_specs"]
+
+#: the values of ``ModelConfig.remat``
+REMAT_MODES = ("none", "block")
 
 
 @dataclass(frozen=True)
@@ -84,9 +92,15 @@ class ModelConfig:
     frontend_len: int = 0               # prefix length (vlm patches)
     # numerics
     dtype: str = "bfloat16"
+    remat: str = "block"                # none | block
     loss_chunk: int = 1024              # vocab-logit seq chunking
     microbatches: int = 1               # grad accumulation in the train step
     grad_sync_dtype: str = "float32"    # float32 | bfloat16 (packed lane)
+
+    def __post_init__(self):
+        if self.remat not in REMAT_MODES:
+            raise ValueError(f"{self.name}: remat {self.remat!r} (choose "
+                             f"from {', '.join(REMAT_MODES)})")
 
     @property
     def hd(self) -> int:

@@ -13,11 +13,13 @@ from .ssd_scan import ssd_scan
 from .xor_code import (xor_decode, xor_decode_gather, xor_decode_gather16,
                        xor_encode, xor_encode_gather, xor_encode_gather16,
                        xor_fold)
+from . import ops, ref
 
-__all__ = ["KERNELS", "aggregate", "aggregate_bf16", "xor_encode_gather",
-           "xor_decode_gather", "xor_encode_gather16", "xor_decode_gather16",
-           "xor_fold", "xor_decode", "xor_encode", "flash_attention",
-           "ssd_scan", "launch_counts", "reset_launch_counts"]
+__all__ = ["KERNELS", "ops", "ref", "aggregate", "aggregate_bf16",
+           "xor_encode_gather", "xor_decode_gather", "xor_encode_gather16",
+           "xor_decode_gather16", "xor_fold", "xor_decode", "xor_encode",
+           "flash_attention", "ssd_scan", "launch_counts",
+           "reset_launch_counts"]
 
 #: every kernel wrapper of the port, by kernel name (``aggregate`` counts
 #: the f32 combiner, ``aggregate_bf16`` the bf16 one)

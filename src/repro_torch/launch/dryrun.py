@@ -6,15 +6,17 @@ nothing allocated on any device) and run once in eager mode under three
 counters:
 
 * **FLOPs**: ``torch.utils.flop_counter.FlopCounterMode`` for the aten
-  matrix products (forward and backward), plus the hand-written
-  kernels' formulas (:mod:`repro_torch.kernels.cost`), which their
-  ``meta`` routes charge;
+  matrix products (forward, backward and, at the config's ``remat =
+  "block"``, the backward's recompute of each checkpointed unit and
+  loss chunk), plus the hand-written kernels' formulas
+  (:mod:`repro_torch.kernels.cost`), which their ``meta`` routes
+  charge;
 * **bytes**: :class:`StepTracer` sums the bytes of the inputs and
   outputs of every aten op (views and bare allocations move none), plus
   the kernels' formulas;
 * **memory**: :class:`StepTracer` tracks every storage the step creates
-  and frees; the peak of the live bytes, arguments included, is what a
-  card must hold.
+  and frees (the recompute's too); the peak of the live bytes,
+  arguments included, is what a card must hold.
 
 The record has JAX's keys: ``memory.{argument,output,temp,alias}_bytes``
 (``temp`` is the peak live bytes less the arguments, ``alias`` the
@@ -172,7 +174,9 @@ def run_cell(arch: str, shape_name, mesh_kind: str = "single",
              overrides: dict | None = None) -> dict:
     """The dry run of one cell on ``meta``. ``shape_name`` is a key of
     :data:`SHAPES` or a :class:`ShapeSpec` (a reduced batch); only
-    ``mesh_kind="single"`` (one card) exists."""
+    ``mesh_kind="single"`` (one card) exists; ``overrides`` replace
+    config fields (``{"remat": "none"}``: the step keeping every
+    activation)."""
     from .roofline import HBM_BYTES
     if mesh_kind != "single":
         raise ValueError(f"mesh {mesh_kind!r}: the port runs on one card "
@@ -195,7 +199,7 @@ def run_cell(arch: str, shape_name, mesh_kind: str = "single",
         "arch": arch, "shape": shape.name, "mesh": mesh_kind,
         "status": "ok", "devices": 1,
         "seq_len": shape.seq_len, "global_batch": shape.global_batch,
-        "kind": shape.kind,
+        "kind": shape.kind, "remat": cfg.remat,
         "lower_s": round(time.perf_counter() - t0, 1), "compile_s": 0.0,
         "memory": mem,
         "fits": mem["peak_bytes"] <= HBM_BYTES,

@@ -69,7 +69,8 @@ class Roofline:
 
     @property
     def useful_flops_ratio(self) -> float:
-        """MODEL_FLOPS / the step's FLOPs."""
+        """MODEL_FLOPS / the step's FLOPs: below 1 by the remat
+        recompute of a train step (JAX's "remat/redundancy waste")."""
         total = self.hlo_flops_dev * self.devices
         return self.model_flops / total if total else float("nan")
 

@@ -9,8 +9,9 @@ are random from ``seed`` and the inputs those of
 :func:`repro_torch.configs.input_specs`. The steps compute what JAX's
 compute:
 
-* train: ``lm.train_loss``, its gradient averaged over
-  ``cfg.microbatches`` (accumulated in f32, as JAX's scan carry), each
+* train: ``lm.train_loss`` (at the config's ``remat``), its gradient
+  averaged over ``cfg.microbatches`` (accumulated in f32, as JAX's scan
+  carry), each
   f32 gradient first cast to ``cfg.grad_sync_dtype``, then AdamW with
   global-norm clipping (:func:`repro_torch.optim.adamw_tree_update`);
   returns ``(params, opt, {"loss", "gnorm"})``;

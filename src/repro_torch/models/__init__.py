@@ -1,1 +1,6 @@
-"""Model code of the port: the dense decoder path of the map lane."""
+"""Model code of the port: the layer primitives and the LMs of every
+family (``layers``, ``lm``), the names of JAX's ``repro.models``."""
+
+from . import layers, lm
+
+__all__ = ["layers", "lm"]

@@ -2,8 +2,9 @@
 (plain functions on tensors).
 
 Counterparts of ``repro.models.layers``: ``dense``, ``rms_norm``,
-``rope``, ``attention_block`` (training, contiguous KV cache, paged
-KV cache, and the cross-attention of the enc-dec family),
+``layer_norm`` (which, as in JAX, no model calls), ``rope``,
+``attention_block`` (training, contiguous KV cache, paged KV cache, and
+the cross-attention of the enc-dec family),
 ``mlp_block``, ``moe_block`` (top-k routing and a capacity-bounded
 dispatch, with or without a virtual mesh) and the Mamba2 ``ssm_block``
 (training through
@@ -37,8 +38,9 @@ from ..kernels import ops
 from ..kernels.ref import ssd_chunked
 from ..kernels.ssd_scan import CHUNK
 
-__all__ = ["dense", "rms_norm", "rope", "attention_block", "mlp_block",
-           "moe_capacity", "moe_block", "softplus", "ssm_block"]
+__all__ = ["dense", "rms_norm", "layer_norm", "rope", "attention_block",
+           "mlp_block", "moe_capacity", "moe_block", "softplus",
+           "ssm_block"]
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -53,6 +55,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm in f32 over the last axis (biased variance, as
+    ``jnp.var``), scaled and shifted, in ``x``'s dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

@@ -33,15 +33,27 @@ leading ``repeats`` axis (the encoder's ``n_enc_layers``), the shared
 block lives once, unstacked, in ``params["shared"]`` and the frontend
 projection in ``params["front"]["w"]``, as in the JAX package, so the
 flat layout of :func:`repro_torch.weights.ravel` matches
-``ravel_pytree``. There is no
-rematerialisation: at the slice's sizes activations are small beside
-the parameters.
+``ravel_pytree``.
+
+Rematerialisation follows JAX's ``cfg.remat``. At ``"block"`` (JAX's
+default) a training forward under autograd runs each pattern unit (all
+its slots, with ``params["shared"]`` and an enc-dec decoder's encoder
+memory), each encoder unit and each loss chunk (logits to summed NLL)
+under a non-reentrant ``torch.utils.checkpoint``, as JAX wraps the same
+bodies in ``jax.checkpoint``: a unit keeps its input and the backward
+recomputes the rest, one unit at a time. Torch stops a recompute at the
+last tensor the backward needs, as XLA drops a recomputed product that
+no residual reads (a unit's last MLP product). Prefill, decode and a
+forward without grad are not checkpointed (nothing runs backward);
+``"none"`` keeps every activation. Both give the same bits: the
+recompute runs the same ops on the same inputs.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import ModelConfig
 from ..kernels import ops
@@ -254,6 +266,21 @@ def _unstack(tree, R: int) -> list:
     return list(tree.unbind(0))
 
 
+def _remat(cfg: ModelConfig, train: bool) -> bool:
+    """Whether a training forward checkpoints its units and loss chunks:
+    ``cfg.remat == "block"`` under autograd."""
+    return train and cfg.remat == "block" and torch.is_grad_enabled()
+
+
+def _checkpointed(fn, *args):
+    """``fn(*args)`` under a non-reentrant checkpoint: the callers take
+    gradients with ``torch.autograd.grad`` to leaves, which the reentrant
+    mode refuses. No training forward draws random numbers, so the
+    recompute keeps no RNG state (and runs on ``meta`` as on a card)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def _units(cfg, params, x, positions, *, cache=None, cache_index=None,
            mode="train", mesh=None, memory=None):
     """The pattern repetitions in order (``lax.scan`` in the JAX package);
@@ -264,21 +291,30 @@ def _units(cfg, params, x, positions, *, cache=None, cache_index=None,
     ``params["shared"]`` as it is at every repeat (it has no ``repeats``
     axis to index) and its own repeat's cache. ``memory``: the encoder
     output an enc-dec decoder's cross-attention reads (training and
-    prefill)."""
-    aux = None
+    prefill). A training unit runs checkpointed under ``cfg.remat ==
+    "block"`` (:func:`_remat`)."""
+    slots = list(zip(slot_names(cfg), cfg.pattern))
     layers = {name: _unstack(params["blocks"][name], cfg.repeats)
-              for name, kind in zip(slot_names(cfg), cfg.pattern)
-              if kind != "shared_attn"}
-    for r in range(cfg.repeats):
-        for name, kind in zip(slot_names(cfg), cfg.pattern):
-            p = (params["shared"] if kind == "shared_attn"
-                 else layers[name][r])
-            c = _layer(cache[name], r) if cache is not None else None
+              for name, kind in slots if kind != "shared_attn"}
+
+    def unit(x, aux, ps, cs):
+        for (name, kind), p, c in zip(slots, ps, cs):
             x, a = _apply_slot(cfg, kind, p, x, positions, cache=c,
                                cache_index=cache_index, mode=mode,
                                mesh=mesh, memory=memory)
             if a is not None:
                 aux = a if aux is None else aux + a
+        return x, aux
+
+    remat = _remat(cfg, mode == "train")
+    aux = None
+    for r in range(cfg.repeats):
+        ps = [params["shared"] if kind == "shared_attn" else layers[name][r]
+              for name, kind in slots]
+        cs = [_layer(cache[name], r) if cache is not None else None
+              for name, _ in slots]
+        x, aux = (_checkpointed(unit, x, aux, ps, cs) if remat
+                  else unit(x, aux, ps, cs))
     return x, aux
 
 
@@ -312,15 +348,21 @@ def _encoder(cfg, params, frames, *, train):
     (projected by ``params["front"]["w"]``, in the frames' dtype): dense
     ``attn`` slots with RoPE at ``arange(Ts)``, then ``rms_norm``. Its
     attention is the plain one in training and ``ops.attention`` (the
-    kernel on a card) in a prefill."""
+    kernel on a card) in a prefill. A training unit runs checkpointed
+    under ``cfg.remat == "block"``, as JAX's encoder scan body."""
     frames = torch.as_tensor(frames).to(params["front"]["w"].device)
     x = L.dense(frames, params["front"]["w"])
     positions = torch.arange(x.shape[1], device=x.device)
     dense = cfg.replace(family="dense")
     enc = _unstack(params["enc"]["blocks"], cfg.n_enc_layers)
+
+    def unit(x, p):
+        return _apply_slot(dense, "attn", p, x, positions, mode="encoder",
+                           train=train)[0]
+
+    remat = _remat(cfg, train)
     for r in range(cfg.n_enc_layers):
-        x, _ = _apply_slot(dense, "attn", enc[r], x, positions,
-                           mode="encoder", train=train)
+        x = _checkpointed(unit, x, enc[r]) if remat else unit(x, enc[r])
     return L.rms_norm(x, params["enc"]["norm"])
 
 
@@ -334,26 +376,35 @@ def _logits(cfg, params, x):
 
 def _chunked_loss(cfg, params, x, labels):
     """Cross-entropy over seq chunks of the logits (memory: O(chunk *
-    vocab)); vocab padding is masked, label ``-1`` is ignored."""
+    vocab)); vocab padding is masked, label ``-1`` is ignored. Under
+    ``cfg.remat == "block"`` each chunk's logits-to-NLL runs
+    checkpointed, so the backward recomputes one chunk's ``[B, C,
+    vocab]`` logits at a time where it would keep all of them; the count
+    of valid labels (integers, no gradient) stays outside."""
     B, T, D = x.shape
     C = min(cfg.loss_chunk, T)
     assert T % C == 0
-    tot = torch.zeros((), dtype=torch.float32, device=x.device)
-    cnt = torch.zeros((), dtype=torch.int64, device=x.device)
-    for c in range(T // C):
-        lg = _logits(cfg, params, x[:, c * C:(c + 1) * C])
-        li = labels[:, c * C:(c + 1) * C].long()
-        vocab_ids = torch.arange(lg.shape[-1], device=x.device)
+
+    def chunk_nll(xc, li):
+        lg = _logits(cfg, params, xc)
+        vocab_ids = torch.arange(lg.shape[-1], device=xc.device)
         lg = torch.where(vocab_ids < cfg.vocab, lg,
-                         torch.tensor(-1e30, device=x.device))
+                         torch.tensor(-1e30, device=xc.device))
         valid = li >= 0
         li = torch.clamp(li, min=0)
         m = torch.amax(lg, dim=-1)
         lse = m + torch.log(torch.sum(torch.exp(lg - m[..., None]), dim=-1))
         gold = torch.gather(lg, -1, li[..., None])[..., 0]
-        nll = torch.where(valid, lse - gold, 0.0)
-        tot = tot + nll.sum()
-        cnt = cnt + valid.sum()
+        return torch.where(valid, lse - gold, 0.0).sum()
+
+    remat = _remat(cfg, True)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+    for c in range(T // C):
+        xc, li = x[:, c * C:(c + 1) * C], labels[:, c * C:(c + 1) * C].long()
+        tot = tot + (_checkpointed(chunk_nll, xc, li) if remat
+                     else chunk_nll(xc, li))
+        cnt = cnt + (li >= 0).sum()
     return tot / torch.clamp(cnt, min=1)
 
 

@@ -60,8 +60,11 @@ def _pipe():
 
 def _cfgs(**kw):
     kw = dict(CFG_KW, **kw)
+    # the port at remat none (tests/test_torch_remat.py holds the default
+    # "block" bitwise to it)
     return (jax_reduced(jax_get_config("granite_3_2b")).replace(**kw),
-            reduced(get_config("granite_3_2b")).replace(**kw))
+            reduced(get_config("granite_3_2b")).replace(
+                **{"remat": "none", **kw}))
 
 
 def _bits(a):

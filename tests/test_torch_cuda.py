@@ -400,7 +400,9 @@ def test_cuda_chunked_lane_matches_materialized(cuda_device):
     atol 1e-6)."""
     from repro_torch.runtime.train_loop import _full_f32
     from repro_torch.weights import flat_spec, ravel, unravel
-    cfg = reduced(get_config("granite_3_2b")).replace(loss_chunk=512)
+    # remat none: a unit's recompute would take the chunked lane again
+    cfg = reduced(get_config("granite_3_2b")).replace(loss_chunk=512,
+                                                      remat="none")
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     params = lm.init_params(cfg, gen)
     spec = flat_spec(params)
@@ -427,6 +429,37 @@ def test_cuda_chunked_lane_matches_materialized(cuda_device):
     (l1, g1), (l2, g2) = out
     np.testing.assert_allclose(l1, l2, rtol=1e-5)
     np.testing.assert_allclose(g1, g2, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["granite_3_2b", "mixtral_8x7b",
+                                  "zamba2_2p7b", "seamless_m4t_large_v2"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_remat_gradients_bitwise_equal_none(cuda_device, arch, dtype):
+    """On the card, as on the CPU: loss and every leaf gradient at JAX's
+    ``remat="block"`` bitwise those at ``"none"`` (four loss chunks, TF32
+    and reduced bf16 reductions off, as the trainers run)."""
+    from repro_torch.optim import tree_leaves
+    from repro_torch.runtime.train_loop import _full_f32
+    out = {}
+    for remat in ("block", "none"):
+        cfg = reduced(get_config(arch)).replace(remat=remat, dtype=dtype,
+                                                loss_chunk=64)
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        params = lm.init_params(cfg, gen)
+        leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+        batch = {k: torch.as_tensor(v, device=cuda_device) for k, v in
+                 ShardedTokenPipeline(vocab=cfg.vocab, seq_len=256,
+                                      global_batch=2).batch(0).items()}
+        if cfg.frontend == "audio":
+            batch["frames"] = torch.randn(
+                (2, 256, cfg.frontend_dim), generator=gen,
+                device=cuda_device).to(cfg.torch_dtype)
+        with _full_f32(cuda_device):
+            loss, _ = lm.train_loss(cfg, params, batch)
+            grads = torch.autograd.grad(loss, leaves)
+        out[remat] = [loss.detach(), *grads]
+    for a, b in zip(out["block"], out["none"]):
+        assert chip_smoke().bitwise_equal(a, b)
 
 
 @pytest.mark.parametrize("lane", ["float32", "bfloat16"])

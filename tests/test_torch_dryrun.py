@@ -17,12 +17,18 @@ package's, on the CPU.
   gradient element, see ``test_torch_train.py``), prefill and decode
   logits and caches rtol / atol 1e-4 (``test_torch_serve.py``'s).
 * The train step's matrix-product FLOPs on real CPU tensors equal the
-  ``dot`` FLOPs of JAX's compiled HLO at ``scan_unroll=True`` and
-  ``remat="none"`` (the port keeps every activation: JAX's block remat
-  recomputes each block's forward, a pinned difference): exactly for
-  granite and mixtral; mamba2's differ inside the SSD chunked scan only
-  (pinned ratio; with the scan replaced by one dot-free stand-in in both
-  packages the counts are equal).
+  ``dot`` FLOPs of JAX's compiled HLO at ``scan_unroll=True``, at
+  ``remat="none"`` and at JAX's default ``"block"`` (the recompute of
+  each unit and loss chunk counted in both): exactly for granite and
+  mixtral at ``"none"`` and at ``"block"`` over four loss chunks; at one
+  loss chunk XLA drops the chunk's logits recompute (a pinned pair, one
+  logits product apart, shown product by product); on the chunked
+  attention lane (forced at the reduced size) the port computes one
+  block-step product per block step that XLA drops, at both settings
+  (pinned pairs, product by product; the unit recompute adds the same
+  FLOPs in both); mamba2's differ
+  inside the SSD chunked scan only (pinned ratio; with the scan replaced
+  by one dot-free stand-in in both packages the counts are equal).
 * The dry run: the meta trace counts what the CPU trace counts on a
   train step, ``cost_pass``'s affine identity holds exactly, the kernel
   formulas give ``PERF.md``'s Bound figures, each kernel's ``meta`` route
@@ -39,6 +45,7 @@ import re
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -74,6 +81,24 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 #: the zero initial state and the unused final state, which XLA folds or
 #: drops; JAX's recomputes its checkpointed chunk body
 MAMBA2_DOT_FLOPS = (151_781_376, 146_669_568)
+#: (port, JAX) dot FLOPs of the reduced train step (64 tokens x 4) at
+#: ``remat="block"`` with the reduced config's one loss chunk: the port
+#: recomputes the chunk's logits product in the backward, XLA's compile
+#: of the one-trip chunk loop does not (at four chunks it does, and the
+#: counts are equal); the difference is that one product, 2 * 256 * 64
+#: * 256 FLOPs
+REMAT_ONE_CHUNK_DOT_FLOPS = {"granite_3_2b": (209_715_200, 201_326_592),
+                             "mixtral_8x7b": (1_729_101_824, 1_720_713_216)}
+#: (port, JAX) dot FLOPs of the reduced train step (64 tokens x 4, four
+#: loss chunks) on the chunked attention lane with blocks of 16, at each
+#: ``remat``: the port recomputes one block-step product per block step
+#: that XLA drops (20 of 2 * 4 * 4 * 16 * 16 * 16 FLOPs), at either
+#: setting
+CHUNKED_DOT_FLOPS = {"none": (156_762_112, 154_140_672),
+                     "block": (199_753_728, 197_132_288)}
+#: the reduced config's fields at JAX's ``remat="block"`` over four loss
+#: chunks of the 64-token train step
+BLOCK4 = {"loss_chunk": 16, "remat": "block"}
 
 
 def _port_cfg(arch, **kw):
@@ -169,12 +194,15 @@ def test_full_size_arguments_match_jax(arch):
 # the reduced steps against JAX's compiled steps
 # --------------------------------------------------------------------- #
 #: (arch, overrides, kind) of the step comparisons: each arch's three
-#: steps at its reduced config, and granite's train step with two
-#: microbatches and with bf16 gradient casts
+#: steps at its reduced config with ``remat="none"`` unless the case
+#: sets it, granite's train step with two microbatches and with bf16
+#: gradient casts, and each arch's train step at JAX's default
+#: ``remat="block"`` over four loss chunks
 CASES = [(a, {}, kind) for a in ARCHS3
          for kind in ("train", "prefill", "decode")] + [
     ("granite_3_2b", {"microbatches": 2}, "train"),
-    ("granite_3_2b", {"grad_sync_dtype": "bfloat16"}, "train")]
+    ("granite_3_2b", {"grad_sync_dtype": "bfloat16"}, "train")] + [
+    (a, BLOCK4, "train") for a in ARCHS3]
 
 
 def _case_id(case):
@@ -185,17 +213,18 @@ def _case_id(case):
 @functools.lru_cache(maxsize=None)
 def _jax_step(arch, kw, kind):
     """JAX's reduced step on a one-device mesh, compiled with its scans
-    unrolled and no remat (the port's computation; the argument and
-    output buffers are those of the scanned, rematerialised compile)."""
+    unrolled and no remat unless ``kw`` sets it (the port's computation;
+    the argument and output buffers are those of the scanned,
+    rematerialised compile)."""
     mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
-    jcfg = _jax_cfg(arch, scan_unroll=True, remat="none", **dict(kw))
+    jcfg = _jax_cfg(arch, scan_unroll=True, **{"remat": "none", **dict(kw)})
     return (mesh, *_compile(jcfg, _shapes(kind)[1], mesh))
 
 
 @pytest.mark.parametrize("case", CASES, ids=_case_id)
 def test_step_matches_jax(case):
     arch, kw, kind = case
-    cfg = _port_cfg(arch, **kw)
+    cfg = _port_cfg(arch, **{"remat": "none", **kw})
     shape, jshape = _shapes(kind)
     mesh, jb, compiled = _jax_step(arch, tuple(sorted(kw.items())), kind)
     mem = compiled.memory_analysis()
@@ -264,10 +293,11 @@ _DOT = re.compile(r"\bdot\(%([^,\s]+), %([^,\s)]+)\)"
                   r".*lhs_contracting_dims=\{([\d,]*)\}")
 
 
-def hlo_dot_flops(text: str) -> int:
-    """Sum of ``2 * prod(out) * prod(contracted)`` over every ``dot`` of
-    an HLO module's text (operand shapes from their definitions)."""
-    shapes, total = {}, 0
+def hlo_dot_flops_each(text: str) -> collections.Counter:
+    """The FLOPs ``2 * prod(out) * prod(contracted)`` of each ``dot`` of
+    an HLO module's text (operand shapes from their definitions), as a
+    multiset."""
+    shapes, out = {}, collections.Counter()
     assert "convolution(" not in text and " while(" not in text
     for line in text.splitlines():
         m = _DEF.match(line)
@@ -279,18 +309,24 @@ def hlo_dot_flops(text: str) -> int:
             lhs = shapes[d.group(1)]
             k = int(np.prod([lhs[int(i)] for i in d.group(3).split(",")
                              if i]))
-            total += 2 * int(np.prod(shapes[m.group(1)])) * k
-    return total
+            out[2 * int(np.prod(shapes[m.group(1)])) * k] += 1
+    return out
 
 
-def _dot_flops(arch, compiled=None):
+def hlo_dot_flops(text: str) -> int:
+    """Sum of the FLOPs of every ``dot`` of an HLO module's text."""
+    return sum(f * n for f, n in hlo_dot_flops_each(text).items())
+
+
+def _dot_flops(arch, compiled=None, **kw):
     """(port matrix-product FLOPs on CPU tensors, JAX's HLO dot FLOPs) of
-    the reduced train step (JAX's compiled with its scans unrolled and
-    no remat)."""
+    the reduced train step (JAX's compiled with its scans unrolled), both
+    at no remat unless ``kw`` sets it."""
     shape, jshape = _shapes("train")
-    res = dryrun.trace_step(build_step(_port_cfg(arch), shape, device="cpu"))
+    res = dryrun.trace_step(build_step(
+        _port_cfg(arch, **{"remat": "none", **kw}), shape, device="cpu"))
     if compiled is None:
-        compiled = _jax_step(arch, (), "train")[2]
+        compiled = _jax_step(arch, tuple(sorted(kw.items())), "train")[2]
     return res["aten_flops"], hlo_dot_flops(compiled.as_text())
 
 
@@ -298,6 +334,108 @@ def _dot_flops(arch, compiled=None):
 def test_train_flops_equal_jax_hlo_dots(arch):
     got, want = _dot_flops(arch)
     assert got == want > 0
+
+
+@pytest.mark.parametrize("arch", ["granite_3_2b", "mixtral_8x7b"])
+def test_remat_train_flops_equal_jax_hlo_dots(arch):
+    """At JAX's default ``remat="block"`` over four loss chunks: both
+    counts hold the recompute of each unit (all but its last MLP
+    product, which no residual reads: torch's early stop, XLA's DCE) and
+    of each chunk's logits product, and are equal."""
+    got, want = _dot_flops(arch, **BLOCK4)
+    none = _dot_flops(arch)[0]
+    assert got == want > none
+
+
+def test_chunked_lane_train_flops_differ_by_one_product_a_block_step(
+        monkeypatch):
+    """The chunked attention lane, which every ``train_4k`` cell takes
+    (4,096 tokens, past the 1448-token switch point), at ``remat="none"``
+    and ``"block"``: the switch forced below the reduced step's 64 x 64
+    scores and blocks of 16 in both packages, so at ``"block"`` each
+    unit's checkpoint nests around the block steps' own
+    (``jax.checkpoint`` in JAX's K-block scan, unrolled;
+    ``torch.utils.checkpoint`` in the port's). The pinned pairs, product
+    by product: at both settings the port's products are JAX's dots and
+    one more of a block step's size per block step (the backward's
+    recompute of a step runs on to its last saved tensor, where XLA drops
+    a product no residual reads), so the unit recompute adds the same
+    FLOPs in both packages."""
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import ops, ref
+    bq = 16
+    monkeypatch.setattr(jops, "_CHUNK_THRESHOLD", 0)
+    monkeypatch.setattr(ops, "CHUNK_THRESHOLD", 0)
+    calls = []
+
+    def chunked(*a, **kw):
+        calls.append(1)
+        return ref.flash_attention_chunked(*a, block_q=bq, block_k=bq, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention_chunked", chunked)
+    mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    shape, jshape = _shapes("train")
+    counts = {}
+    for remat in ("none", "block"):
+        kw = dict(BLOCK4, remat=remat)
+        _, compiled = _compile(_jax_cfg("granite_3_2b", scan_unroll=True,
+                                        attn_block=bq, **kw), jshape, mesh)
+        counts[remat] = _dot_flops("granite_3_2b", compiled, **kw)
+        assert counts[remat] == CHUNKED_DOT_FLOPS[remat]
+        cfg = _port_cfg("granite_3_2b", **kw)
+        bundle = build_step(cfg, shape, device="cpu")
+        with _ProductFlops() as port:
+            bundle.fn(*bundle.args)
+        jax_dots = hlo_dot_flops_each(compiled.as_text())
+        nq = shape.seq_len // bq
+        steps = cfg.n_layers * nq * (nq + 1) // 2       # causal: visible
+        step = 2 * shape.global_batch * cfg.n_heads * bq * bq * cfg.head_dim
+        assert port.flops - jax_dots == collections.Counter({step: steps})
+        assert not jax_dots - port.flops
+    assert calls
+    (got, want), (got0, want0) = counts["block"], counts["none"]
+    assert got - got0 == want - want0 > 0
+
+
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+             torch.ops.aten.addmm.default)
+
+
+class _ProductFlops(TorchDispatchMode):
+    """The FLOPs of each aten matrix product, as a multiset."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in _PRODUCTS:
+            self.flops[2 * out.numel() * args[-2].shape[-1]] += 1
+        return out
+
+
+@pytest.mark.parametrize("arch", ["granite_3_2b", "mixtral_8x7b"])
+def test_remat_one_loss_chunk_differs_by_the_logits_recompute(arch):
+    """The pinned pair at ``remat="block"`` and one loss chunk, and where
+    it lies, product by product: the port's products are JAX's dots and
+    one more, of the logits' ``2 * B * T * d_model * vocab_padded``
+    FLOPs (the chunk's recompute)."""
+    kw = {"remat": "block"}
+    got, want = _dot_flops(arch, **kw)
+    assert (got, want) == REMAT_ONE_CHUNK_DOT_FLOPS[arch]
+    cfg = _port_cfg(arch, **kw)
+    shape, _ = _shapes("train")
+    bundle = build_step(cfg, shape, device="cpu")
+    with _ProductFlops() as port:
+        bundle.fn(*bundle.args)
+    jax_dots = hlo_dot_flops_each(
+        _jax_step(arch, tuple(kw.items()), "train")[2].as_text())
+    logits = 2 * shape.global_batch * shape.seq_len * cfg.d_model \
+        * cfg.vocab_padded
+    assert port.flops - jax_dots == collections.Counter({logits: 1})
+    assert not jax_dots - port.flops
+    assert got - want == logits
 
 
 def test_mamba2_train_flops_differ_in_the_ssd_scan_only(monkeypatch):
@@ -331,12 +469,13 @@ def test_mamba2_train_flops_differ_in_the_ssd_scan_only(monkeypatch):
 @pytest.mark.parametrize("arch", ARCHS3)
 def test_meta_trace_counts_what_the_cpu_trace_counts(arch):
     shape, _ = _shapes("train")
-    cfg = _port_cfg(arch)
-    meta = dryrun.trace_step(build_step(cfg, shape, device="meta"))
-    cpu = dryrun.trace_step(build_step(cfg, shape, device="cpu"))
-    assert meta["cost"]["flops"] == cpu["cost"]["flops"] > 0
-    assert meta["memory"] == cpu["memory"]
-    assert meta["kernels"] == cpu["kernels"] == {}
+    for remat in ("none", "block"):
+        cfg = _port_cfg(arch, remat=remat)
+        meta = dryrun.trace_step(build_step(cfg, shape, device="meta"))
+        cpu = dryrun.trace_step(build_step(cfg, shape, device="cpu"))
+        assert meta["cost"]["flops"] == cpu["cost"]["flops"] > 0
+        assert meta["memory"] == cpu["memory"]
+        assert meta["kernels"] == cpu["kernels"] == {}
 
 
 def _overrides(arch, n_units):

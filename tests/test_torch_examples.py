@@ -71,12 +71,13 @@ def test_serve_example_on_the_cpu(monkeypatch, capsys):
 class _Tiny:
     """Stands for ``get_config("granite_3_2b")`` in ``train_lm.py``: its
     ``replace`` keeps the example's dtype and tied embeddings at the
-    reduced granite's widths."""
+    reduced granite's widths, at remat none (tests/test_torch_remat.py
+    holds the default "block" bitwise to it)."""
 
     def replace(self, **kw):
         return reduced(get_config("granite_3_2b")).replace(
             n_layers=2, dtype=kw["dtype"], loss_chunk=16,
-            tie_embeddings=kw["tie_embeddings"])
+            tie_embeddings=kw["tie_embeddings"], remat="none")
 
 
 def test_train_example_on_the_cpu_at_a_tiny_width(monkeypatch, capsys,

@@ -52,7 +52,9 @@ def _pair(seed=0, **kw):
     """(jax cfg, jax params, port cfg, port params) from one init."""
     jcfg = jax_reduced(jax_get_config(ARCH)).replace(**kw)
     jp = jlm.init_params(jcfg, jax.random.PRNGKey(seed))
-    cfg = reduced(get_config(ARCH)).replace(**kw)
+    # the port at remat none (tests/test_torch_remat.py holds the default
+    # "block" bitwise to it)
+    cfg = reduced(get_config(ARCH)).replace(**{"remat": "none", **kw})
     return jcfg, jp, cfg, params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
 
 

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: ``import repro_torch`` (and every module
-of it) never loads jax or ``ml_dtypes``, no port file imports jax, the
+of it) never loads jax or ``ml_dtypes``, each of its packages carries the
+names its JAX twin's ``__init__`` imports, no port file imports jax, the
 JAX package or ``ml_dtypes`` (the card's machine has none: the bf16 grad-
 sync lane hands the numpy engines bit patterns), and the numpy modules
 the port keeps its own copies of stay source-identical to their
@@ -18,8 +19,30 @@ PORT = os.path.join(ROOT, "src", "repro_torch")
 REF = os.path.join(ROOT, "src", "repro")
 
 _IMPORT_ALL = textwrap.dedent("""
-    import pkgutil, sys
+    import ast, importlib, os, pkgutil, sys
     import repro_torch
+    # every name a package __init__ of the JAX package imports (read by
+    # AST: repro is never imported) is an attribute of the port's package
+    # of the same path, imported alone
+    ref = sys.argv[1]
+    missing, n_names = {}, 0
+    for d, _, files in sorted(os.walk(ref)):
+        if "__init__.py" not in files:
+            continue
+        rel = os.path.relpath(d, ref)
+        pkg = "repro_torch" + ("" if rel == "." else
+                               "." + rel.replace(os.sep, "."))
+        tree = ast.parse(open(os.path.join(d, "__init__.py")).read())
+        names = [a.asname or a.name for node in ast.walk(tree)
+                 if isinstance(node, ast.ImportFrom) and node.level == 1
+                 for a in node.names]
+        n_names += len(names)
+        mod = importlib.import_module(pkg)
+        lost = [n for n in names if not hasattr(mod, n)]
+        if lost:
+            missing[pkg] = lost
+    assert not missing, missing
+    assert n_names >= 50, n_names
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
     for name in names:
@@ -38,7 +61,7 @@ _IMPORT_ALL = textwrap.dedent("""
 
 def test_import_repro_torch_never_loads_jax():
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL],
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL, REF],
                          capture_output=True, text=True, env=env,
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]

@@ -85,7 +85,8 @@ def _pair(arch, seed=0, **kw):
     """(jax cfg, jax params, port cfg, port params) from one init."""
     jcfg = jax_reduced(jax_get_config(arch)).replace(**kw)
     jp = jlm.init_params(jcfg, jax.random.PRNGKey(seed))
-    cfg = reduced(get_config(arch)).replace(**kw)
+    # the port at remat none, as tests/test_torch_train.py's _cfgs
+    cfg = reduced(get_config(arch)).replace(**{"remat": "none", **kw})
     return jcfg, jp, cfg, params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
 
 
@@ -541,7 +542,8 @@ def test_moe_three_wires_are_bitwise_equal(lane):
     """``camr_spmd``, ``camr`` and ``uncoded`` from one seed on a tiny
     mixtral (tensor-parallel experts in JAX; one lane here), 2 steps:
     parameters and losses bitwise equal on each lane."""
-    cfg = reduced(get_config("mixtral_8x7b")).replace(**MOE_TINY)
+    cfg = reduced(get_config("mixtral_8x7b")).replace(remat="none",
+                                                      **MOE_TINY)
     pipe = ShardedTokenPipeline(vocab=64, seq_len=8, global_batch=2)
     runs = {}
     for mode in ("camr_spmd", "camr", "uncoded"):
@@ -689,7 +691,11 @@ def test_launcher_serves(arch, capsys):
     assert "engine: 3 reqs / 12 tokens" in out and "status: ok=3" in out
 
 
-def test_launcher_trains_mixtral(capsys):
+def test_launcher_trains_mixtral(capsys, monkeypatch):
+    # at remat none, as _pair (tests/test_torch_remat.py holds the
+    # default "block" bitwise to it)
+    monkeypatch.setattr(launch_train, "reduced",
+                        lambda c: reduced(c).replace(remat="none"))
     launch_train.main(["--arch", "mixtral_8x7b", "--reduced",
                        "--multi-model", "--grad-sync", "camr_spmd",
                        "--steps", "2", "--seq-len", "8", "--batch", "2",

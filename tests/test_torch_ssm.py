@@ -453,6 +453,28 @@ def test_softplus_matches_jax():
         want[big], xs[big])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_matches_jax(dtype):
+    """``layers.layer_norm`` (no model calls it, in either package)
+    against ``repro.models.layers.layer_norm`` on the same inputs: f32
+    math (biased variance), f32 scale and bias, output in x's dtype;
+    within 1e-5 in f32 and one bf16 ulp in bf16."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((3, 5, 96)) * 4 + 1).astype(np.float32)
+    scale, bias = (rng.standard_normal(96).astype(np.float32)
+                   for _ in range(2))
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = layers.layer_norm(xt, torch.from_numpy(scale),
+                            torch.from_numpy(bias))
+    want = jlayers.layer_norm(jnp.asarray(x, getattr(jnp, dtype)),
+                              jnp.asarray(scale), jnp.asarray(bias))
+    assert got.dtype == xt.dtype and str(want.dtype) == dtype
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else \
+        dict(rtol=2 ** -7, atol=2 ** -7)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)), **tol)
+
+
 @pytest.mark.parametrize("T", [1, 9, 77])
 def test_ssm_block_matches_jax(mamba_pair, T):
     """Prefill with ``return_state`` (the closed-form state) and a decode
