@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-then runs all five phases, always in full, and fails (nonzero exit, no
+then runs all six phases, always in full, and fails (nonzero exit, no
 result line) on any mismatch:
 
 1. **kernels** — each kernel against its plain PyTorch version on the
@@ -224,8 +224,9 @@ result line) on any mismatch:
    4,096 x 8, ``REMAT_CELL``, whose trace must fit the card at the
    config's ``remat="block"`` and not at ``"none"``) the step of
    ``repro_torch.launch.steps`` traced on ``meta``, then built on the
-   card from seed 0 and run twice: its FLOPs (``FlopCounterMode`` plus
-   the kernels' formulas of ``repro_torch.kernels.cost``) equal to the
+   card from seed 0 and run twice: its FLOPs (the dry run's tracer, by
+   ``FlopCounterMode``'s formulas, plus the kernels' formulas of
+   ``repro_torch.kernels.cost``) equal to the
    trace's exactly, its peak memory within 10% or 256 MiB of the
    trace's, its result finite (a train step's loss and norm, the
    logits of the others), its step ms printed beside the roofline's
@@ -233,14 +234,33 @@ result line) on any mismatch:
    --dryrun-only`` builds the kernels and runs this phase alone (no
    result line).
 
+6. **mesh** — ``phase_mesh``: JAX's production mesh on one card. For
+   each of ``MESH_CELLS`` (granite's ``train_4k`` and ``prefill_32k``,
+   mamba2's ``prefill_32k`` and mistral's ``train_4k``, cut to 4 of 88
+   layers, all at full width) the step of ``repro_torch.launch.steps``
+   as rank 0 of the 256-device ``(data, model)`` mesh: traced on
+   ``meta`` (``dryrun.run_cell(..., "single")``), then built on the card
+   from seed 0 over a fake process group of 256 ranks (DTensor; the
+   group's collectives move no byte, so the phase checks no values: the
+   CPU tests hold the sharded step's values to the one-device step's
+   and to JAX's)
+   and run twice: its FLOPs (this rank's local products, counted by the
+   dry run's tracer, plus the kernels' formulas) equal to the trace's,
+   its peak within 2% of the trace's, ``flash_attention``
+   and ``ssd_scan`` launched by the prefills at the rank's local heads;
+   its step ms printed beside the roofline's compute and memory terms,
+   the collective term on a line of its own. ``python3 chip_smoke.py
+   --mesh-only`` builds the kernels and runs this phase alone (no result
+   line).
+
 The last lines are the card's name and power limit, the ``kernels`` JSON
 line (eleven kernels, each with its main-path launches: the granite
 training runs' counts, the codec kernels' plus the process lane's
 children's and ``phase_compare``'s, ``flash_attention``'s summed over
 the granite, gemma2, zamba2, moonshot, mixtral, internlm2, seamless and
-internvl2 serving runs and ``phase_dryrun``'s granite prefill,
-``ssd_scan``'s over the mamba2 and zamba2 runs and ``phase_dryrun``'s
-mamba2 prefill;
+internvl2 serving runs and ``phase_dryrun``'s and ``phase_mesh``'s
+granite prefills, ``ssd_scan``'s over the mamba2 and zamba2 runs and
+``phase_dryrun``'s and ``phase_mesh``'s mamba2 prefills;
 a twelfth entry, ``flash_attention_f32``, for ``flash_attention``'s f32 body at
 seamless's encoder shape, its launches those of the f32 body alone,
 3,168 in the four seamless requests on f32 frames; and a thirteenth,
@@ -3327,6 +3347,11 @@ DRYRUN_CELLS = (
 REMAT_CELL = ("granite_3_2b", "train_4k_b8")
 #: measured peak against the trace's: within 10% or 256 MiB
 PEAK_REL, PEAK_ABS = 0.10, 256 * 2 ** 20
+#: a mesh cell's measured peak against rank 0's trace, with no floor
+#: (0.00-0.28% apart on an H100, the process's cuBLAS workspaces left
+#: out; ``scripts/mesh_peak.py`` sets the trace and the allocator side
+#: by side)
+MESH_PEAK_REL = 0.02
 
 
 def check_path_kernels(gen):
@@ -3406,13 +3431,14 @@ def check_remat_cell(arch, shape, rec):
 
 def _card_flops(bundle) -> int:
     """FLOPs of one run of a step on the card, counted as the dry run
-    counts them: aten matrix products plus the kernels' formulas."""
-    from torch.utils.flop_counter import FlopCounterMode
+    counts them: the aten matrix products by the dry run's tracer (on a
+    mesh, this rank's local products) plus the kernels' formulas."""
     from repro_torch.kernels import cost
-    with cost.counting() as kc, FlopCounterMode(display=False) as fc:
+    from repro_torch.launch import dryrun
+    with cost.counting() as kc, dryrun.StepTracer(bundle.args) as tr:
         out = bundle.fn(*bundle.args)
     del out
-    return fc.get_total_flops() + kc.flops
+    return tr.flops + kc.flops
 
 
 def dryrun_cell(arch, spec):
@@ -3525,11 +3551,128 @@ def phase_dryrun(gen):
     return counts
 
 
+#: JAX's production mesh on one card (``phase_mesh``): (arch, shape, depth
+#: or None) traced as rank 0 of the 256-device ``single`` mesh and run on
+#: the card as that rank over a fake group of 256
+MESH_CELLS = (
+    ("granite_3_2b", "train_4k", None),
+    ("granite_3_2b", "prefill_32k", None),
+    ("mamba2_1p3b", "prefill_32k", None),
+    ("mistral_large_123b", "train_4k", 4),
+)
+#: ranks of JAX's pod
+MESH_DEVICES = 256
+
+
+def mesh_cell(arch, shape_name, n_layers):
+    """One cell of ``phase_mesh``: the rank-0 trace of the step on the
+    256-device mesh (``dryrun.run_cell(..., "single")``, on ``meta``),
+    then the same rank's step built on the card from seed 0 over a fake
+    group of 256 and run twice (the first under the FLOP counters, the
+    second timed by CUDA events with the peak reset before it)."""
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import fake_group, make_production_mesh
+    from repro_torch.launch.steps import build_step
+    over = None if n_layers is None else {"n_layers": n_layers}
+    cfg = get_config(arch)
+    if over:
+        log(f"mesh: {arch} {shape_name} cut from {cfg.n_layers} to "
+            f"{n_layers} layers (the rank's step is host-bound: the full "
+            "depth's trace and two runs would not fit the smoke's time)")
+        cfg = cfg.replace(**over)
+    rec = dryrun.run_cell(arch, shape_name, "single", overrides=over)
+    if rec["status"] != "ok" or rec["devices"] != MESH_DEVICES:
+        fail(f"mesh: {arch} {shape_name}: {rec}")
+    roof = roofline.roofline_from_cell(rec)
+    pred = rec["memory"]["peak_bytes"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    with fake_group(MESH_DEVICES):
+        mesh = make_production_mesh(device_type=DEVICE)
+        base = torch.cuda.memory_allocated()
+        bundle = build_step(cfg, SHAPES[shape_name], device=DEVICE, seed=0,
+                            mesh=mesh)
+        t0 = time.perf_counter()
+        flops = _card_flops(bundle)
+        t_count = time.perf_counter() - t0
+        if flops != rec["cost"]["flops"]:
+            fail(f"mesh: {arch} {shape_name}: the card counts {flops} "
+                 f"FLOPs, the trace {rec['cost']['flops']}")
+        gc.collect()
+        torch.cuda.synchronize()
+        # what the process holds beside the step's arguments is not the
+        # step's: cuBLAS's workspace of each thread (the backward's
+        # thread too), made by its first product, stays allocated
+        held = torch.cuda.memory_allocated() - sum(
+            st.nbytes() for st in {id(t.untyped_storage()):
+                                   t.untyped_storage() for t in
+                                   dryrun._tensors(bundle.args)}.values())
+        torch.cuda.reset_peak_memory_stats()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        out = bundle.fn(*bundle.args)
+        e1.record()
+        e1.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        ms = e0.elapsed_time(e1)
+        peak = torch.cuda.max_memory_allocated() - held
+        del out, bundle
+    if abs(peak - pred) > MESH_PEAK_REL * pred:
+        fail(f"mesh: {arch} {shape_name}: measured peak {peak / 1e9:.3f} GB"
+             f" against the trace's {pred / 1e9:.3f} GB (limit "
+             f"{MESH_PEAK_REL:.0%})")
+    coll = rec["collectives"]
+    log(f"mesh: {arch} {shape_name} rank 0 of {MESH_DEVICES} "
+        f"({cfg.n_layers} layers, remat {cfg.remat}): FLOPs {flops} on the "
+        f"card = the trace's; peak {peak / 1e9:.3f} GB measured, "
+        f"{pred / 1e9:.3f} GB traced ({(peak - pred) / pred:+.2%}; "
+        f"{(held - base) / 2 ** 20:.1f} MiB held by the process besides, "
+        "not counted); step "
+        f"{ms:.2f} ms by CUDA events ({wall:.1f} ms host wall, counted run "
+        f"{t_count:.1f} s), roofline compute {roof.compute_s * 1e3:.2f} ms, "
+        f"memory {roof.memory_s * 1e3:.2f} ms; trace {rec['lower_s']} s")
+    log(f"mesh: {arch} {shape_name} collectives {coll['count_by_kind']}, "
+        f"{coll['wire_bytes']} wire bytes a device: roofline collective "
+        f"{roof.collective_s * 1e3:.2f} ms over the network; one card runs "
+        "them over a fake group (no byte moves), so the measured step has "
+        "no network time")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_mesh():
+    """JAX's production mesh on one card (``MESH_CELLS``): each cell's
+    step as rank 0 of the 256-device ``(data, model)`` mesh, traced on
+    ``meta`` and run on the card over a fake group, whose collectives
+    return without moving a byte (so the outputs hold no values to check;
+    the CPU tests hold the sharded step's values to the one-device
+    step's and to JAX's). Gates: FLOPs equal to the trace's, peak within
+    2% of it (``MESH_PEAK_REL``), and ``flash_attention`` and
+    ``ssd_scan`` launched (at the rank's local heads) by the prefills.
+    Returns the phase's launch counts."""
+    from repro_torch.kernels import reset_launch_counts
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    for arch, shape_name, n_layers in MESH_CELLS:
+        mesh_cell(arch, shape_name, n_layers)
+    counts = kernel_launches()
+    log(f"mesh: launches {counts['flash_attention']} flash_attention, "
+        f"{counts['ssd_scan']} ssd_scan; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if not counts["flash_attention"] or not counts["ssd_scan"]:
+        fail(f"mesh: the prefills launched no kernel: {counts}")
+    return counts
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--process-group-child"]:
         return process_group_child(int(sys.argv[2]), int(sys.argv[3]))
     dryrun_only = sys.argv[1:2] == ["--dryrun-only"]
+    mesh_only = sys.argv[1:2] == ["--mesh-only"]
     t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3555,8 +3698,8 @@ def main() -> int:
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
-    if dryrun_only:                    # phase_dryrun alone: no result line
-        phase_dryrun(gen)
+    if dryrun_only or mesh_only:       # one phase alone: no result line
+        phase_dryrun(gen) if dryrun_only else phase_mesh()
         log(f"total: {time.perf_counter() - t_main:.1f} s")
         log(smi)
         return 0
@@ -3640,6 +3783,8 @@ def main() -> int:
                  "ssd_scan_f32"):
         counts[name] = sum(c[name] for c in served)
     for name, c in phase_dryrun(gen).items():
+        counts[name] += c
+    for name, c in phase_mesh().items():
         counts[name] += c
 
     kernels = []

@@ -23,6 +23,12 @@ its JAX twin's layer). The places that report:
   :mod:`repro_torch.launch.camr_compare`: one ``all-reduce`` of
   ``[J, K, d]``.
 
+* a DTensor step of :mod:`repro_torch.launch.steps` on a mesh: each
+  all-gather, reduce-scatter, all-reduce and all-to-all its
+  redistributes run on this rank (the dry run's tracer reports them),
+  with the link it crosses (``"nvlink"`` when the group's ranks share
+  an 8-card node, ``"network"`` when it spans nodes).
+
 Nothing is recorded unless a :func:`record_collectives` block is open;
 with none open the executors do no extra work and give the same bits::
 
@@ -46,6 +52,8 @@ _OPEN: list = []
 class CollectiveStats:
     bytes_by_kind: dict = field(default_factory=dict)
     count_by_kind: dict = field(default_factory=dict)
+    #: on-wire bytes by the link they cross, where the reporter knows it
+    wire_by_link: dict = field(default_factory=dict)
 
     @property
     def total_bytes(self) -> int:
@@ -56,14 +64,19 @@ class CollectiveStats:
         """On-wire estimate: all-reduce rings move ~2x their buffer."""
         t = 0
         for kind, b in self.bytes_by_kind.items():
-            t += 2 * b if kind == "all-reduce" else b
+            t += _wire(kind, b)
         return t
 
     def as_dict(self) -> dict:
         return {"bytes_by_kind": dict(self.bytes_by_kind),
                 "count_by_kind": dict(self.count_by_kind),
                 "total_bytes": self.total_bytes,
-                "wire_bytes": self.wire_bytes}
+                "wire_bytes": self.wire_bytes,
+                "wire_bytes_by_link": dict(self.wire_by_link)}
+
+
+def _wire(kind: str, nbytes: int) -> int:
+    return 2 * nbytes if kind == "all-reduce" else nbytes
 
 
 @contextlib.contextmanager
@@ -79,9 +92,13 @@ def record_collectives():
         _OPEN.remove(stats)
 
 
-def note(kind: str, nbytes: int) -> None:
+def note(kind: str, nbytes: int, link: str | None = None) -> None:
     """One collective of ``kind`` whose per-device result is ``nbytes``
-    bytes, into every open ledger (none open: nothing happens)."""
+    bytes, into every open ledger (none open: nothing happens); ``link``
+    names the link it crosses, where known."""
     for st in _OPEN:
         st.bytes_by_kind[kind] = st.bytes_by_kind.get(kind, 0) + int(nbytes)
         st.count_by_kind[kind] = st.count_by_kind.get(kind, 0) + 1
+        if link is not None:
+            st.wire_by_link[link] = (st.wire_by_link.get(link, 0)
+                                     + _wire(kind, int(nbytes)))

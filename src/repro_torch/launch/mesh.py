@@ -15,10 +15,19 @@ Counterpart of the multi-host half of ``repro.launch.mesh``:
 
 One card cannot hold two NCCL ranks, so the group is gloo, and the
 shuffle's process lane moves its cross-process rows through host buffers.
-The production TPU meshes of the JAX module (``make_production_mesh``,
-``data_axes``, ``mesh_devices``: a 256- or 512-chip ``(pod, data,
-model)`` mesh) have no counterpart on one card (ROADMAP.md, Queue 1 item
-12).
+
+The production meshes of the JAX module are here too:
+:func:`make_production_mesh` gives a
+:class:`~torch.distributed.device_mesh.DeviceMesh` of shape ``(16,
+16)`` (``("data", "model")``, 256 devices) or ``(2, 16, 16)`` (``("pod",
+"data", "model")``, 512), :func:`data_axes` the axes that carry the
+batch and :func:`mesh_devices` its size. The mesh spans the default
+process group, which the caller starts: :func:`fake_group` (every
+collective a no-op; the dry run traces rank 0's step on ``meta`` over it
+and ``chip_smoke.py`` runs the same rank's step on one card), a real
+group of that size, or, in the tests, a fake group under
+``torch.distributed._local_tensor.LocalTensorMode``, which simulates
+every rank of a small mesh in one process with real values.
 
 Two processes on one machine, each run with its rank::
 
@@ -33,6 +42,7 @@ Two processes on one machine, each run with its rank::
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 from dataclasses import dataclass
 
@@ -42,11 +52,65 @@ import torch.distributed as dist
 from ..core.schedule import Topology
 from ..device import resolve_device
 
-__all__ = ["CAMRMesh", "init_distributed", "make_camr_mesh",
+__all__ = ["make_production_mesh", "data_axes", "mesh_devices",
+           "fake_group", "CAMRMesh", "init_distributed", "make_camr_mesh",
            "detect_topology", "host_membership"]
 
 #: how long a collective of the group may wait for its peers
 TIMEOUT = datetime.timedelta(seconds=300)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cpu"):
+    """Single pod: (16, 16) ('data', 'model') = 256 devices. Multi-pod:
+    (2, 16, 16) ('pod', 'data', 'model') = 512; the 'pod' axis carries
+    only data parallelism and the cross-pod gradient reduction, never
+    layer-internal collectives. The mesh's devices are the ranks ``0 ..
+    n-1`` of the default process group, which must be up and hold
+    exactly ``n`` ranks; ``device_type`` is where each rank's tensors
+    live (``"cpu"`` for tensors on the CPU or on ``meta``, ``"cuda"`` on
+    a card)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    n = 1
+    for s in shape:
+        n *= s
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        raise RuntimeError(f"a mesh of {n} devices needs a default process "
+                           f"group of {n} ranks (see fake_group)")
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    """Mesh axes carrying the batch dimension."""
+    return ("pod", "data") if "pod" in mesh.mesh_dim_names else ("data",)
+
+
+def mesh_devices(mesh) -> int:
+    return mesh.size()
+
+
+@contextlib.contextmanager
+def fake_group(world_size: int, rank: int = 0):
+    """A default process group of ``world_size`` ranks in which this
+    process is ``rank`` and every collective returns at once without
+    touching its output: what one process needs to run one rank's
+    program of a mesh it does not have (JAX's dry run compiles for 512
+    fake host devices instead). Destroyed on exit; refused when a group
+    is already up (the group is process-wide state)."""
+    # torch ships the store the "fake" backend needs only in its testing
+    # package; the backend itself is public (torch.distributed registers
+    # it), and the store holds no state that a run reads back
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a default process group is already up")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def init_distributed(*, coordinator: str | None = None,

@@ -1,26 +1,37 @@
-"""Roofline of each dry-run cell on one H100, the twin of
+"""Roofline of each dry-run cell on H100s, the twin of
 ``repro.launch.roofline``.
 
-Three terms per (arch x shape), in seconds per step:
+Three terms per (arch x shape x mesh), in seconds per step of one
+device:
 
     compute    = FLOPs / PEAK_FLOPS            (bf16 dense tensor cores)
     memory     = bytes / HBM_BW                (HBM3)
-    collective = collective wire bytes / NVLINK_BW
+    collective = NVLink wire bytes / NVLINK_BW + network wire bytes / NET_BW
 
 The FLOPs and bytes are the eager trace's of
 :mod:`repro_torch.launch.dryrun` (every layer counted as it runs; the
 hand-written kernels by their formulas), the collective bytes the
-collective ledger's (none on one card). The step's memory is the trace's
-peak live bytes (arguments included), against :data:`HBM_BYTES`.
+collective ledger's: none on one card (mesh ``"card"``); on JAX's
+meshes (``"single"``, ``"multipod"``) every number is one device's (rank
+0's trace), as JAX's SPMD module's are, and each collective's bytes go
+to NVLink when its group's ranks share an 8-card HGX node
+(:data:`GPUS_PER_NODE`), else to the network. On the (16, 16) and (2,
+16, 16) meshes every axis spans nodes (16 cards), so every collective
+crosses the network. ``mfu`` divides the model FLOPs by ``devices x
+PEAK_FLOPS x step_time``, as JAX's does. The step's memory is the
+trace's peak live bytes (arguments included), against
+:data:`HBM_BYTES`.
 
-The constants are the NVIDIA H100 SXM5 data sheet's, not measurements:
-989e12 FLOP/s dense bf16 on the tensor cores (the peak ``mfu`` divides
-by, as JAX's formula divides by the chip's bf16 peak; f32 on the CUDA
-cores is 67e12, :data:`PEAK_FLOPS_F32`), 3.35e12 B/s of HBM3, 450e9 B/s
-of NVLink a direction, and 80 GB of device memory.
+The constants are data sheets', not measurements: the NVIDIA H100 SXM5
+sheet's 989e12 FLOP/s dense bf16 on the tensor cores (f32 on the CUDA
+cores 67e12, :data:`PEAK_FLOPS_F32`), 3.35e12 B/s of HBM3, 450e9 B/s of
+NVLink 4 a direction and 80 GB of device memory; the NVIDIA ConnectX-7
+sheet's 400 Gb/s NDR InfiniBand port, one per GPU in a DGX H100 (50e9
+B/s a direction).
 
-Usage: ``PYTHONPATH=src python -m repro_torch.launch.roofline
-[--markdown]`` after ``python -m repro_torch.launch.dryrun --all``.
+Usage: ``PYTHONPATH=src python -m repro_torch.launch.roofline [--mesh
+{card,single,multipod}] [--markdown]`` after ``python -m
+repro_torch.launch.dryrun --all [--mesh ...]``.
 """
 
 from __future__ import annotations
@@ -34,12 +45,15 @@ from .dryrun import RESULTS_DIR
 
 __all__ = ["Roofline", "model_flops", "load_cell", "roofline_from_cell",
            "table", "markdown", "main", "PEAK_FLOPS", "PEAK_FLOPS_F32",
-           "HBM_BW", "NVLINK_BW", "HBM_BYTES"]
+           "HBM_BW", "NVLINK_BW", "NET_BW", "GPUS_PER_NODE", "HBM_BYTES"]
 
 PEAK_FLOPS = 989e12        # bf16 dense, tensor cores (H100 SXM5 sheet)
 PEAK_FLOPS_F32 = 67e12     # f32, CUDA cores (H100 SXM5 sheet)
 HBM_BW = 3.35e12           # B/s, HBM3 (H100 SXM5 sheet)
 NVLINK_BW = 450e9          # B/s a direction, NVLink 4 (H100 SXM5 sheet)
+NET_BW = 50e9              # B/s a direction: ConnectX-7 NDR 400 Gb/s
+#                            InfiniBand (ConnectX-7 sheet), one per GPU
+GPUS_PER_NODE = 8          # an HGX H100 8-GPU board, all-to-all NVLink
 HBM_BYTES = 80e9           # device memory (H100 SXM5 sheet: 80 GB)
 
 
@@ -105,7 +119,7 @@ def model_flops(arch: str, shape_name) -> float:
     return 2.0 * n * shape.global_batch
 
 
-def load_cell(arch: str, shape: str, mesh: str = "single",
+def load_cell(arch: str, shape: str, mesh: str = "card",
               suffix: str = "") -> dict:
     fn = os.path.join(RESULTS_DIR, f"{arch}_{shape}_{mesh}{suffix}.json")
     with open(fn) as f:
@@ -122,7 +136,11 @@ def roofline_from_cell(cell: dict, cost_cell: dict | None = None
     dev = cell["devices"]
     flops_dev = cc["cost"]["flops"]
     bytes_dev = cc["cost"]["bytes_accessed"]
-    wire_dev = cc["collectives"]["wire_bytes"]
+    coll = cc["collectives"]
+    links = coll.get("wire_bytes_by_link") or {
+        "nvlink": coll["wire_bytes"]}
+    coll_s = (links.get("nvlink", 0) / NVLINK_BW
+              + links.get("network", 0) / NET_BW)
     mem = cell["memory"]
     shape = cell["shape"]
     if shape not in SHAPES:
@@ -133,14 +151,14 @@ def roofline_from_cell(cell: dict, cost_cell: dict | None = None
         devices=dev,
         compute_s=flops_dev / PEAK_FLOPS,
         memory_s=bytes_dev / HBM_BW,
-        collective_s=wire_dev / NVLINK_BW,
+        collective_s=coll_s,
         model_flops=model_flops(cell["arch"], shape),
         hlo_flops_dev=flops_dev,
         hbm_gib=(mem["argument_bytes"] + mem["temp_bytes"]) / 2 ** 30,
     )
 
 
-def table(mesh: str = "single") -> list[Roofline]:
+def table(mesh: str = "card") -> list[Roofline]:
     out = []
     if not os.path.isdir(RESULTS_DIR):
         return out
@@ -162,7 +180,7 @@ def table(mesh: str = "single") -> list[Roofline]:
     return out
 
 
-def markdown(mesh: str = "single") -> str:
+def markdown(mesh: str = "card") -> str:
     """Every dry-run record of ``mesh`` as one Markdown table: status,
     argument and peak GB, whether the peak fits :data:`HBM_BYTES`,
     FLOPs, bytes, the three terms, ``dominant`` and ``mfu`` (a skipped
@@ -196,15 +214,17 @@ def markdown(mesh: str = "single") -> str:
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="Roofline of the dry-run "
-                                             "cells on one H100")
+                                             "cells on H100s")
+    ap.add_argument("--mesh", choices=["card", "single", "multipod"],
+                    default="card")
     ap.add_argument("--markdown", action="store_true",
                     help="every cell (skipped ones too) as a Markdown "
                          "table")
     args = ap.parse_args(argv)
     if args.markdown:
-        print(markdown())
+        print(markdown(args.mesh))
         return
-    rows = table()
+    rows = table(args.mesh)
     hdr = (f"{'arch':24s} {'shape':12s} {'comp_s':>9s} {'mem_s':>9s} "
            f"{'coll_s':>8s} {'dom':>10s} {'MFU':>6s} {'useful':>7s} "
            f"{'HBM':>8s}")

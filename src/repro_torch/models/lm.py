@@ -47,21 +47,43 @@ no residual reads (a unit's last MLP product). Prefill, decode and a
 forward without grad are not checkpointed (nothing runs backward);
 ``"none"`` keeps every activation. Both give the same bits: the
 recompute runs the same ops on the same inputs.
+
+``param_specs`` and ``cache_specs`` give the logical axes of every
+parameter and cache leaf (JAX's trees). Under a mesh (the step builders'
+``axis_rules``; the parameters, batch and cache DTensors) the residual
+stream is constrained to JAX's sequence-parallel layout ``("batch",
+"seq", "embed")`` after the embedding, after each sublayer's output is
+added and at the end of each unit (a row-parallel output's partial sum
+becomes a reduce-scatter there), the loss is computed on vocab-split
+logits (:func:`_chunked_loss`), a prefill reads its last
+position without gathering the stream (:func:`_last`), and
+``init_cache`` lays the cache out by ``cache_specs``. Without a mesh
+none of this runs and every path is what it was.
 """
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs import ModelConfig
 from ..kernels import ops
+from ..launch import partitioning as pt
+from ..launch.partitioning import constrain
 from . import layers as L
 
-__all__ = ["slot_names", "init_params", "train_loss", "init_cache",
-           "init_paged_cache", "admit_prefill", "prefill", "decode_step",
-           "poisoned_rows", "DECODE_ROWS"]
+__all__ = ["slot_names", "init_params", "param_specs", "cache_specs",
+           "train_loss", "init_cache", "init_paged_cache", "admit_prefill",
+           "prefill", "decode_step", "poisoned_rows", "DECODE_ROWS"]
+
+#: the residual stream's layout between blocks: batch over data, the
+#: sequence over model (Megatron-SP), features whole
+SP = ("batch", "seq", "embed")
 
 
 def slot_names(cfg: ModelConfig) -> list[str]:
@@ -172,6 +194,66 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | None, *,
     return params
 
 
+def _spec_slot(cfg: ModelConfig, kind: str) -> dict:
+    if kind == "ssm":
+        return {"norm": (None,), "ssm": L.spec_ssm(cfg)}
+    p = {"norm1": (None,), "attn": L.spec_attention(cfg), "norm2": (None,)}
+    if cfg.n_experts:
+        p["moe"] = L.spec_moe(cfg)
+    else:
+        p["mlp"] = L.spec_mlp(cfg)
+    if _has_cross(cfg, kind):
+        p["norm_x"] = (None,)
+        p["cross"] = L.spec_attention(cfg)
+    return p
+
+
+def _lead(tree):
+    """A spec tree with an unsharded leading (stacked-layer) axis."""
+    if isinstance(tree, dict):
+        return {k: _lead(v) for k, v in tree.items()}
+    return (None,) + tuple(tree)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The logical axes of every parameter, in the tree of
+    :func:`init_params` (JAX's ``lm.param_specs``)."""
+    specs: dict = {"embed": (L.VOCAB, L.EMBED), "norm_f": (None,)}
+    if not cfg.tie_embeddings:
+        specs["out"] = (L.EMBED, L.VOCAB)
+    specs["blocks"] = {name: _lead(_spec_slot(cfg, kind))
+                       for name, kind in zip(slot_names(cfg), cfg.pattern)
+                       if kind != "shared_attn"}
+    if "shared_attn" in cfg.pattern:
+        specs["shared"] = _spec_slot(cfg, "shared_attn")
+    if cfg.n_enc_layers:
+        specs["enc"] = {
+            "blocks": _lead(_spec_slot(cfg.replace(family="dense"), "attn")),
+            "norm": (None,)}
+    if cfg.frontend:
+        specs["front"] = {"w": (None, L.EMBED)}
+    return specs
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    """Logical axes of the decode cache (JAX's ``lm.cache_specs``): batch
+    over data, the cache *sequence* over model (flash-decode style: kv
+    head counts are often below the model axis, the sequence always
+    divides it)."""
+    spec = {}
+    for name, kind in zip(slot_names(cfg), cfg.pattern):
+        if kind == "ssm":
+            spec[name] = {"state": (None, "batch", "ssm_heads", None, None)}
+            continue
+        kv = {"k": (None, "batch", None, "seq_kv", None),
+              "v": (None, "batch", None, "seq_kv", None)}
+        ent = {"self": kv}
+        if _has_cross(cfg, kind):
+            ent["cross"] = dict(kv)
+        spec[name] = ent
+    return spec
+
+
 def _cross(cfg, p, h, memory, cache, cache_index, mode):
     """The cross-attention of an enc-dec decoder slot over the encoder
     memory. Training and a prefill attend over ``memory`` (a prefill
@@ -190,8 +272,11 @@ def _cross(cfg, p, h, memory, cache, cache_index, mode):
     B = h.shape[0]
     n = B if torch.is_tensor(cache_index) else len(cache_index)
     q = L.dense(h, p["wq"]).reshape(B, 1, cfg.n_heads, cfg.hd).transpose(1, 2)
-    o = torch.zeros_like(q)
-    o[:n] = ops.attention(q[:n], ck["k"], ck["v"], causal=False)
+    if pt.is_dtensor(q):         # the device lane: every row real
+        o = L._attend(ops.attention, q, ck["k"], ck["v"], causal=False)
+    else:
+        o = torch.zeros_like(q)
+        o[:n] = ops.attention(q[:n], ck["k"], ck["v"], causal=False)
     return L.dense(o.transpose(1, 2).reshape(B, 1, -1), p["wo"])
 
 
@@ -225,8 +310,9 @@ def _apply_slot(cfg, kind, p, x, positions, *, cache=None,
             h, st = L.ssm_block(p["ssm"], h, cfg, train=train,
                                 return_state=cache is not None)
             if cache is not None:
-                cache["state"].copy_(st)
-        return x + h, aux
+                cache["state"].copy_(pt.constrain(
+                    st, ("batch", "ssm_heads", None, None)))
+        return x + constrain(h, SP), aux
     window = cfg.local_window if kind == "local" else cfg.window
     h = L.rms_norm(x, p["norm1"])
     h, _ = L.attention_block(
@@ -234,10 +320,11 @@ def _apply_slot(cfg, kind, p, x, positions, *, cache=None,
         softcap=cfg.attn_softcap, causal=(mode != "encoder"),
         cache=cache["self"] if cache is not None else None,
         cache_index=cache_index, train=train)
-    x = x + h
+    # reduce-scatter the row-parallel output into the SP layout
+    x = x + constrain(h, SP)
     if _has_cross(cfg, kind):
-        x = x + _cross(cfg, p["cross"], L.rms_norm(x, p["norm_x"]), memory,
-                       cache, cache_index, mode)
+        x = x + constrain(_cross(cfg, p["cross"], L.rms_norm(x, p["norm_x"]),
+                                 memory, cache, cache_index, mode), SP)
     h = L.rms_norm(x, p["norm2"])
     if cfg.n_experts:
         h, aux = L.moe_block(p["moe"], h, cfg, mesh=mesh, rows=(
@@ -245,7 +332,7 @@ def _apply_slot(cfg, kind, p, x, positions, *, cache=None,
             and not torch.is_tensor(cache_index) else None))
     else:
         h = L.mlp_block(p["mlp"], h, cfg)
-    return x + h, aux
+    return x + constrain(h, SP), aux
 
 
 def _layer(tree, r: int):
@@ -304,7 +391,7 @@ def _units(cfg, params, x, positions, *, cache=None, cache_index=None,
                                mesh=mesh, memory=memory)
             if a is not None:
                 aux = a if aux is None else aux + a
-        return x, aux
+        return constrain(x, SP), aux
 
     remat = _remat(cfg, mode == "train")
     aux = None
@@ -319,7 +406,13 @@ def _units(cfg, params, x, positions, *, cache=None, cache_index=None,
 
 
 def _embed_tokens(cfg, params, tokens):
-    x = params["embed"][torch.as_tensor(tokens).long()]
+    if pt.is_dtensor(params["embed"]):
+        # the table gathered over data (FSDP), its vocab split over model:
+        # each shard looks up the ids it holds (a masked partial sum)
+        x = constrain(F.embedding(tokens.long(),
+                                  pt.gather_data(params["embed"])), SP)
+    else:
+        x = params["embed"][torch.as_tensor(tokens).long()]
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -340,7 +433,7 @@ def _embed(cfg, params, batch):
             raise ValueError(f"{cfg.name}: a prompt of {x.shape[1]} tokens "
                              f"is shorter than its {n} patch positions")
         x = torch.cat([patches.to(x.dtype), x[:, n:]], dim=1)
-    return x
+    return constrain(x, SP)
 
 
 def _encoder(cfg, params, frames, *, train):
@@ -380,32 +473,76 @@ def _chunked_loss(cfg, params, x, labels):
     ``cfg.remat == "block"`` each chunk's logits-to-NLL runs
     checkpointed, so the backward recomputes one chunk's ``[B, C,
     vocab]`` logits at a time where it would keep all of them; the count
-    of valid labels (integers, no gradient) stays outside."""
+    of valid labels (integers, no gradient) stays outside. On DTensors,
+    JAX's sharding-friendly form: the residual stream gathered over the
+    sequence once and each chunk's logits split over the vocab (model
+    axis), so only ``[B, C]`` scalars cross shards (:func:`_nll_parts`)."""
     B, T, D = x.shape
     C = min(cfg.loss_chunk, T)
     assert T % C == 0
+    if pt.is_dtensor(x):
+        x = pt.constrain(x, ("batch", None, "embed"))
 
     def chunk_nll(xc, li):
-        lg = _logits(cfg, params, xc)
-        vocab_ids = torch.arange(lg.shape[-1], device=xc.device)
-        lg = torch.where(vocab_ids < cfg.vocab, lg,
-                         torch.tensor(-1e30, device=xc.device))
-        valid = li >= 0
-        li = torch.clamp(li, min=0)
-        m = torch.amax(lg, dim=-1)
-        lse = m + torch.log(torch.sum(torch.exp(lg - m[..., None]), dim=-1))
-        gold = torch.gather(lg, -1, li[..., None])[..., 0]
-        return torch.where(valid, lse - gold, 0.0).sum()
+        m, s, gold = _nll_parts(cfg, _logits(cfg, params, xc), li)
+        return torch.where(li >= 0, m + torch.log(s) - gold, 0.0).sum()
 
     remat = _remat(cfg, True)
-    tot = torch.zeros((), dtype=torch.float32, device=x.device)
-    cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+    tot = cnt = None
     for c in range(T // C):
         xc, li = x[:, c * C:(c + 1) * C], labels[:, c * C:(c + 1) * C].long()
-        tot = tot + (_checkpointed(chunk_nll, xc, li) if remat
-                     else chunk_nll(xc, li))
-        cnt = cnt + (li >= 0).sum()
+        nll = (_checkpointed(chunk_nll, xc, li) if remat
+               else chunk_nll(xc, li))
+        n = (li >= 0).sum()
+        tot = nll if tot is None else tot + nll
+        cnt = n if cnt is None else cnt + n
     return tot / torch.clamp(cnt, min=1)
+
+
+def _nll_parts(cfg, lg, li):
+    """The pieces of a chunk's NLL from its logits ``lg [B, C, V]`` and
+    labels ``li [B, C]``: the row max ``m``, ``s = sum(exp(lg - m))`` and
+    the gold logit, the padding past ``cfg.vocab`` masked. On DTensors
+    each rank works on its vocab shard (``local_map``): ``m`` is the
+    shards' maxima reduced (no gradient flows through it, none would: it
+    cancels in ``m + log(s)``), ``s`` and the gold logit (a comparison
+    with the shard's vocab ids, summed) ``Partial`` sums over the vocab's
+    shards. Left to DTensor's cost model, the backward gathers the
+    chunk's whole vocab on every rank."""
+    if not pt.is_dtensor(lg):
+        vocab_ids = torch.arange(lg.shape[-1], device=lg.device)
+        lg = torch.where(vocab_ids < cfg.vocab, lg,
+                         torch.tensor(-1e30, device=lg.device))
+        m = torch.amax(lg, dim=-1)
+        s = torch.sum(torch.exp(lg - m[..., None]), dim=-1)
+        gold = torch.gather(lg, -1, torch.clamp(li, min=0)[..., None])[..., 0]
+        return m, s, gold
+    from torch.distributed._functional_collectives import all_reduce
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = lg.device_mesh
+    v_dims = [i for i, p in enumerate(lg.placements) if p.is_shard(2)]
+    ids = pt.sharded_iota(lg.shape[-1], lg, 2)
+    li = li.redistribute(mesh, tuple(Replicate() if i in v_dims else p
+                                     for i, p in enumerate(lg.placements)))
+    rows = tuple(li.placements)
+    part = tuple(Partial() if i in v_dims else p for i, p in enumerate(rows))
+
+    def parts(lg, ids, li):
+        lg = torch.where(ids < cfg.vocab, lg, -1e30)
+        m = torch.amax(lg, dim=-1).detach()
+        for i in v_dims:
+            m = all_reduce(m, "max", (mesh, i))
+        s = torch.sum(torch.exp(lg - m[..., None]), dim=-1)
+        gold = torch.sum(torch.where(ids == torch.clamp(li, min=0)[..., None],
+                                     lg, 0.0), dim=-1)
+        return m, s, gold
+
+    ins = (tuple(lg.placements), tuple(ids.placements), rows)
+    return local_map(parts, out_placements=(rows, part, part),
+                     in_placements=ins,
+                     in_grad_placements=ins,
+                     device_mesh=mesh)(lg, ids, li)
 
 
 def train_loss(cfg: ModelConfig, params, batch, *, mesh=None):
@@ -432,11 +569,19 @@ def train_loss(cfg: ModelConfig, params, batch, *, mesh=None):
 # --------------------------------------------------------------------- #
 # serving (DESIGN.md §13)
 # --------------------------------------------------------------------- #
-def _ssm_state(cfg: ModelConfig, rows: int, device) -> dict:
+def _ssm_state(cfg: ModelConfig, rows: int, device, make=None) -> dict:
     P = cfg.ssm_d_inner // cfg.ssm_heads
-    return {"state": torch.zeros((cfg.repeats, rows, cfg.ssm_heads,
-                                  cfg.ssm_state, P), dtype=torch.float32,
-                                 device=device)}
+    make = make or functools.partial(torch.zeros, device=device)
+    return {"state": make((cfg.repeats, rows, cfg.ssm_heads, cfg.ssm_state,
+                           P), dtype=torch.float32)}
+
+
+@dataclass(frozen=True)
+class _Leaf:
+    """A leaf's shape and dtype, no storage: the template a sharded cache
+    is laid out from."""
+    shape: tuple
+    dtype: torch.dtype
 
 
 def init_cache(cfg: ModelConfig, B: int, T: int, *, device,
@@ -446,15 +591,25 @@ def init_cache(cfg: ModelConfig, B: int, T: int, *, device,
     ``{"state": f32[R, B, H, S, P]}``; an enc-dec decoder slot also
     ``"cross"`` ``{"k", "v": [R, B, Hkv, Ts, Dh]}`` in the dtype of the
     encoder's ``memory [B, Ts, D]`` (without it JAX's template: ``T``
-    and the model dtype)."""
+    and the model dtype). Under an active mesh (:func:`repro_torch.
+    launch.partitioning.axis_rules`) every leaf is a DTensor placed by
+    :func:`cache_specs`, each rank's shard allocated on ``device``."""
+    if pt.current_mesh() is not None:
+        return pt.shard_like(_init_cache(cfg, B, T, None, memory, _Leaf),
+                             cache_specs(cfg), device)
+    return _init_cache(cfg, B, T, device, memory)
+
+
+def _init_cache(cfg, B, T, device, memory, make=None):
     R, hkv, hd = cfg.repeats, cfg.n_kv_heads, cfg.hd
+    make = make or functools.partial(torch.zeros, device=device)
 
     def z(n=T, dtype=cfg.torch_dtype):
-        return torch.zeros((R, B, hkv, n, hd), dtype=dtype, device=device)
+        return make((R, B, hkv, n, hd), dtype=dtype)
 
     def entry(kind):
         if kind == "ssm":
-            return _ssm_state(cfg, B, device)
+            return _ssm_state(cfg, B, device, make)
         ent = {"self": {"k": z(), "v": z()}}
         if _has_cross(cfg, kind):
             n, dt = ((T, cfg.torch_dtype) if memory is None
@@ -547,7 +702,21 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int | None = None,
     x, _ = _units(cfg, params, x, positions, cache=cache, cache_index=0,
                   mode="prefill", mesh=mesh, memory=memory)
     x = L.rms_norm(x, params["norm_f"])
-    return _logits(cfg, params, x[:, -1:]), cache
+    return _logits(cfg, params, _last(x)), cache
+
+
+def _last(x):
+    """``x[:, -1:]``. A DTensor whose sequence is split takes each
+    shard's last position (one row a shard, no data moved), gathers
+    those few rows and keeps the last: the whole stream is never
+    gathered for one position."""
+    if pt.is_dtensor(x) and any(p.is_shard(1) for p in x.placements):
+        from torch.distributed.tensor.experimental import local_map
+        x = local_map(lambda t: t[:, -1:], out_placements=list(x.placements),
+                      in_placements=(x.placements,),
+                      device_mesh=x.device_mesh)(x)
+        x = pt.constrain(x, ("batch", None, "embed"))
+    return x[:, -1:]
 
 
 #: rows of a decode step: every step of up to this many rows runs its

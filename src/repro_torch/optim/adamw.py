@@ -77,12 +77,16 @@ def tree_leaves(tree) -> list:
 def _zeros_like_tree(tree):
     if isinstance(tree, dict):
         return {k: _zeros_like_tree(v) for k, v in tree.items()}
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, DTensor):      # its shards, placed as the leaf
+        return torch.zeros_like(tree, dtype=torch.float32)
     return torch.zeros(tree.shape, dtype=torch.float32, device=tree.device)
 
 
 def adamw_init(params) -> AdamWState:
     """The tree form's state of ``params`` (nested dicts of tensors): step
-    0, f32 zero moments of the parameters' shapes on their devices."""
+    0, f32 zero moments of the parameters' shapes on their devices (of a
+    DTensor parameter, a DTensor of its placements)."""
     dev = tree_leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       mu=_zeros_like_tree(params),

@@ -703,8 +703,9 @@ def test_cli_and_roofline(tmp_path, monkeypatch, capsys):
     md = capsys.readouterr().out.splitlines()
     assert len(md) == 4 and "| granite_3_2b | long_500k | skipped" in md[2]
     assert md[3].startswith("| mamba2_1p3b | long_500k | ok |")
-    with pytest.raises(ValueError, match="one card"):
-        dryrun.run_cell("mamba2_1p3b", "long_500k", "multipod")
+    with pytest.raises(ValueError, match="choose from card, single, "
+                                         "multipod"):
+        dryrun.run_cell("mamba2_1p3b", "long_500k", "pod")
     assert collections.Counter(os.listdir(tmp_path)) == collections.Counter(
-        ["mamba2_1p3b_long_500k_single.json",
-         "granite_3_2b_long_500k_single.json"])
+        ["mamba2_1p3b_long_500k_card.json",
+         "granite_3_2b_long_500k_card.json"])
