@@ -1,0 +1,7 @@
+"""Mean milliseconds of the step's update phase over the window's steps,
+as the trainer's CUDA events between its phase marks time it
+(``CAMRTrainReport.phase_ms``)."""
+
+
+def read(ctx):
+    return ctx.phase_mean("update")
