@@ -312,6 +312,19 @@ SOURCES = {"xor_encode_gather": (_GATHER, "src/repro/kernels/xor_code.py:240"),
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
+def phase_total(ms: dict) -> float:
+    """A step's ms over the trainer's phases (``phase_ms`` also holds the
+    spans inside them, which would count twice)."""
+    from repro_torch.runtime.train_loop import PHASES
+    return sum(ms[p] for p in PHASES)
+
+
+def phase_list(ms: dict) -> str:
+    """``map 1.0, aggregate 2.0, ...``: a step's phases alone."""
+    from repro_torch.runtime.train_loop import PHASES
+    return ", ".join(f"{p} {ms[p]:.1f}" for p in PHASES)
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -1653,8 +1666,8 @@ def phase_train(tr, pipe, steps=2):
     log(f"{tag}: losses {rep.losses}")
     log(f"{tag}: launches {counts} over {steps} steps")
     for i, ms in enumerate(rep.phase_ms):
-        log(f"{tag}: step {i + 1} {sum(ms.values()):.1f} ms = " + ", ".join(
-            f"{p} {v:.1f}" for p, v in ms.items()))
+        log(f"{tag}: step {i + 1} {phase_total(ms):.1f} ms = "
+            + phase_list(ms))
     log(f"{tag}: {steps} steps {wall:.2f} s wall, peak memory "
         f"{peak / 1e9:.2f} GB (max_memory_allocated) of {total / 1e9:.1f} "
         f"GB, wire bytes {rep.bytes_total} ({rep.bytes_total // steps} per "
@@ -1753,8 +1766,8 @@ def phase_churn(p32, rep32):
         f"shuffle of its contributions on {cols.numel()} of {tr.d_shard} "
         "columns; launches by step "
         + " / ".join(str({n: c[n] for n in healthy}) for c, _, _ in steps))
-    log(f"{tag}: degraded step 2 {sum(ms.values()):.1f} ms = "
-        + ", ".join(f"{p} {v:.1f}" for p, v in ms.items())
+    log(f"{tag}: degraded step 2 {phase_total(ms):.1f} ms = "
+        + phase_list(ms)
         + f"; peak memory {steps[1][2] / 1e9:.2f} GB (healthy steps "
         f"{steps[0][2] / 1e9:.2f} / {steps[2][2] / 1e9:.2f} GB)")
     del tr, pipe
@@ -2031,8 +2044,7 @@ def phase_modes(rep32):
                 fail(f"{tag}: losses not finite: {rep.losses}")
             runs[lane, mode] = (tr.flat.cpu(), rep)
             log(f"{tag}: D={tr.D}, 2 steps {wall:.2f} s wall; " + "; ".join(
-                f"step {i + 1} " + ", ".join(f"{p} {v:.1f}"
-                                             for p, v in ms.items())
+                f"step {i + 1} " + phase_list(ms)
                 for i, ms in enumerate(rep.phase_ms))
                 + f" ms; bytes {rep.bytes_total}, loads {rep.loads}")
             del tr
@@ -2105,7 +2117,7 @@ def phase_modes(rep32):
              f"camr_spmd run's {rep32.losses[0]}")
     ms = rep.phase_ms[0]
     log(f"modes[cell/uncoded]: D={tr.D}, step 1 {wall:.2f} s wall = "
-        + ", ".join(f"{p} {v:.1f}" for p, v in ms.items())
+        + phase_list(ms)
         + f" ms; bytes {rep.bytes_total}, loads {rep.loads}; step 1 losses "
         f"== camr_spmd's within rtol 1e-6 (bitwise: "
         f"{rep.losses[0] == rep32.losses[0]})")
@@ -2163,8 +2175,7 @@ def phase_oracle(camr):
         log(f"{tag}: D={tr.D}, synced gradient bitwise == the engine's; "
             f"loads and bytes ({rep.bytes_total}) == the camr step's; "
             f"launches {dict((n, c) for n, c in counts.items() if c)}; "
-            f"step {wall:.2f} s wall = "
-            + ", ".join(f"{p} {v:.1f}" for p, v in ms.items())
+            f"step {wall:.2f} s wall = " + phase_list(ms)
             + " ms (shuffle: the device sync and the oracle's host engine; "
             "aggregate: the combiner and the memo's copy to the host)")
         del tr

@@ -66,6 +66,7 @@ package's HLO parse).
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from collections import deque
@@ -80,6 +81,7 @@ from ..kernels.xor_code import (xor_decode, xor_decode_gather,
                                 xor_decode_gather16, xor_encode_gather,
                                 xor_encode_gather16, xor_fold)
 from .collective_stats import note
+from .spans import Recorder, current, span
 from .schedule import (EXEC_CACHE, SCHEDULE_CACHE, HostTables,
                        ShuffleProgram, StageTables, Topology, payload_words,
                        resolve_topology)
@@ -605,24 +607,32 @@ def _decode_stage(recv, ctx, st, *, K, k, pk, codec):
     return dec[dev, row, st["dec_order"]].view(K, n, -1)
 
 
-def _stage_coded(wire, st, calls, *, K, k, pk, mode, codec, corrupt=None):
+def _stage_coded(wire, st, calls, *, K, k, pk, mode, codec, corrupt=None,
+                 check=None):
     """One coded stage of every device: encode, exchange (batched,
-    two-level or looped), decode. ``corrupt = (device, row, word, bits)``
-    XORs ``bits`` (an int32 pattern) into one word of that device's Δ
-    after the encode, as a bit flip in transit would: every receiver of
-    the packet, relayed ones included, gets the tampered word."""
-    ctx, delta = _encode_stage(wire, st, K=K, k=k, pk=pk, codec=codec)
-    _tamper(delta, corrupt, 0, K)
-    if mode == "looped":
-        recv = _exchange_looped(delta, st, calls, K=K, k=k, pk=pk)
-    else:
-        recv = _exchange(delta, st, K=K, k=k, pk=pk)
-        if "relay" in st:
-            recv = _relay(recv, st, calls, pk=pk)
+    two-level or looped), decode, each a span (``shuffle.encode``,
+    ``shuffle.exchange``, ``shuffle.decode``). ``corrupt = (device, row,
+    word, bits)`` XORs ``bits`` (an int32 pattern) into one word of that
+    device's Δ after the encode, as a bit flip in transit would: every
+    receiver of the packet, relayed ones included, gets the tampered
+    word. ``check(dec)``, the verified wire's receiver check, runs in the
+    decode's span."""
+    with span("shuffle.encode"):
+        ctx, delta = _encode_stage(wire, st, K=K, k=k, pk=pk, codec=codec)
+        _tamper(delta, corrupt, 0, K)
+    with span("shuffle.exchange"):
+        if mode == "looped":
+            recv = _exchange_looped(delta, st, calls, K=K, k=k, pk=pk)
+        else:
+            recv = _exchange(delta, st, K=K, k=k, pk=pk)
+            if "relay" in st:
+                recv = _relay(recv, st, calls, pk=pk)
     del delta
-    if codec == "multipass":    # rebinding frees the chunk table
-        ctx = _cancellations(ctx, st, K=K, k=k)
-    return _decode_stage(recv, ctx, st, K=K, k=k, pk=pk, codec=codec)
+    with span("shuffle.decode"):
+        if codec == "multipass":    # rebinding frees the chunk table
+            ctx = _cancellations(ctx, st, K=K, k=k)
+        dec = _decode_stage(recv, ctx, st, K=K, k=k, pk=pk, codec=codec)
+        return dec if check is None else check(dec)
 
 
 def _tamper(delta, corrupt, lo: int, hi: int) -> None:
@@ -828,6 +838,12 @@ def camr_shuffle(plan: CAMRPlan, contribs: torch.Tensor, *,
     ``contribs [K_local, J_own, k-1, K, d] -> [K_local, J, d]``, bitwise
     the same rows as the single-process shuffle, and the rows that cross
     processes go over ``torch.distributed`` (:func:`_shuffle_process`).
+
+    Inside an open :class:`~repro_torch.core.spans.Recorder` the parts are
+    timed as spans: ``shuffle.wire`` (the wire buffer), ``shuffle.encode``,
+    ``shuffle.exchange`` and ``shuffle.decode`` (once a coded stage; the
+    verified wire's checksum check in the decode's), ``shuffle.stage3``
+    and ``shuffle.assemble``.
     """
     _check_call(plan, mode=mode, router=router, codec=codec, debug=debug,
                 verify_wire=verify_wire, corrupt=corrupt)
@@ -848,22 +864,27 @@ def camr_shuffle(plan: CAMRPlan, contribs: torch.Tensor, *,
     wp = payload_words(d, contribs.element_size(), k)
     pk = wp // (k - 1)
     pkv = pk + 1 if verify_wire else pk
+    spec = _corrupt_spec(corrupt, K, lambda s: tabs["stages"][s]["n"], pkv)
     # [K, J_own, k-1, K, ...]; the verify lane takes every payload as its
     # int32 wire words (the multipass codec's view) and widens the rows
-    wire = _wire_buffer(contribs, wp, "multipass" if verify_wire else codec)
-    spec = _corrupt_spec(corrupt, K, lambda s: tabs["stages"][s]["n"], pkv)
+    with span("shuffle.wire"):
+        wire = _wire_buffer(contribs, wp,
+                            "multipass" if verify_wire else codec)
+        if verify_wire:
+            wire = _widen(wire, k, pk)
     if verify_wire:
-        wire = _widen(wire, k, pk)
         bad = torch.zeros(K, dtype=torch.int32, device=contribs.device)
 
     # ========== stages 1 + 2: one shared coded-exchange machine ======== #
     stage_vals = {}
     for stage in (1, 2):
         st = tabs["stages"][stage]
+        check = ((lambda dec, st=st: _verify_rows(dec, st, bad, k=k, pk=pk,
+                                                  wp=wp))
+                 if verify_wire else None)
         dec = _stage_coded(wire, st, plan.permutations, K=K, k=k, pk=pkv,
-                           mode=mode, codec=codec, corrupt=spec.get(stage))
-        if verify_wire:
-            dec = _verify_rows(dec, st, bad, k=k, pk=pk, wp=wp)
+                           mode=mode, codec=codec, corrupt=spec.get(stage),
+                           check=check)
         stage_vals[stage] = _from_wire(dec, dtype, d)   # [K, n, d]
     del wire
     vals = contribs.view(_arith_dtype(dtype))
@@ -875,15 +896,17 @@ def camr_shuffle(plan: CAMRPlan, contribs: torch.Tensor, *,
             got.masked_fill_(tabs["s3_zero"][o][:, None, None], 0)
         return got
 
-    s3_out = _stage3(vals, tabs["ar"], tabs["s3_dst"], deliver,
-                     plan.permutations)                  # [K, q-1, J_own, d]
+    with span("shuffle.stage3"):
+        s3_out = _stage3(vals, tabs["ar"], tabs["s3_dst"], deliver,
+                         plan.permutations)              # [K, q-1, J_own, d]
     if debug:
         info = _debug_info(stage_vals, s3_out, vals, tabs["ar"], tabs, 0, K,
                            dtype)
 
     # ========== assemble (reduce-side tables of the program) ========== #
-    out = _assemble(stage_vals, s3_out, vals, tabs["ar"], tabs["ar"], tabs,
-                    J=J, d=d).view(dtype)
+    with span("shuffle.assemble"):
+        out = _assemble(stage_vals, s3_out, vals, tabs["ar"], tabs["ar"],
+                        tabs, J=J, d=d).view(dtype)
     if debug:
         return dict(out=out, **info)
     if verify_wire:
@@ -1071,32 +1094,6 @@ def _process_tables(plan: CAMRPlan, mesh, router: str, glob: dict,
     return tabs
 
 
-class Marks:
-    """Time marks without synchronising the card: CUDA events there, the
-    host clock on the CPU; read once, at the end (of a shuffle, or of a
-    training step)."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks: list = []
-
-    def mark(self) -> None:
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def read(self) -> list:
-        """Milliseconds between consecutive marks."""
-        if self.cuda:
-            self.marks[-1].synchronize()
-            return [a.elapsed_time(b)
-                    for a, b in zip(self.marks, self.marks[1:])]
-        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
-
-
 def _all_to_all(send: torch.Tensor, send_counts, recv_counts, active):
     """One ``all_to_all_single`` of whole rows over the default group:
     ``send`` holds the rows for each other process in rank order
@@ -1251,7 +1248,10 @@ def _shuffle_process(plan: CAMRPlan, contribs: torch.Tensor, mesh, *,
     Records, in ``plan.process_stats``, each stage's bytes and rows sent,
     its ``all_to_all_single`` calls (``exchanges``) and its encode /
     exchange / decode ms (the exchange's host staging and gloo time
-    apart)."""
+    apart), stage 3's with the assembly's as ``ms``. The ms are the
+    device ms of the lane's spans (as :func:`camr_shuffle` names them):
+    set before the call returns, or, inside a caller's open
+    :class:`~repro_torch.core.spans.Recorder`, once that is read."""
     k, K, J, J_own, d = plan.k, plan.K, plan.J, plan.J_own, plan.d
     if mesh.K != K:
         raise ValueError(f"mesh of {mesh.K} workers for a plan of {K}")
@@ -1267,52 +1267,71 @@ def _shuffle_process(plan: CAMRPlan, contribs: torch.Tensor, mesh, *,
     wp = payload_words(d, contribs.element_size(), k)
     pk = wp // (k - 1)
     pkv = pk + 1 if verify_wire else pk
-    wire = _wire_buffer(contribs, wp, "multipass" if verify_wire else codec)
     spec = _corrupt_spec(corrupt, K, lambda s: glob["stages"][s]["n"], pkv)
     if verify_wire:
-        wire = _widen(wire, k, pk)
         bad = torch.zeros(Kl, dtype=torch.int32, device=dev)
-    clock, stats, stage_vals = Marks(dev), {}, {}
-    for stage in (1, 2):
-        st = _local_stage(glob["stages"][stage], lo, hi, k)
-        x = px["stages"][stage]
-        clock.mark()
-        ctx, delta = _encode_stage(wire, st, K=Kl, k=k, pk=pkv, codec=codec)
-        _tamper(delta, spec.get(stage), lo, hi)
-        clock.mark()
-        if mode == "looped":
-            recv, stats[f"stage{stage}"] = _exchange_looped_process(
-                delta, st, x, plan.permutations, k=k, pk=pkv)
-        else:
-            recv, stats[f"stage{stage}"] = _exchange_process(
-                delta, x, plan.permutations, k=k, pk=pkv)
-        del delta
-        clock.mark()
-        if codec == "multipass":
-            ctx = _cancellations(ctx, st, K=Kl, k=k)
-        dec = _decode_stage(recv, ctx, st, K=Kl, k=k, pk=pkv, codec=codec)
-        if verify_wire:
-            dec = _verify_rows(dec, st, bad, k=k, pk=pk, wp=wp)
-        stage_vals[stage] = _from_wire(dec, dtype, d)
-    del wire
-    clock.mark()
-    vals = contribs.view(_arith_dtype(dtype))
-    s3_recs = []
-    ar = torch.arange(Kl, device=dev)
-    s3_out = _stage3(vals, ar, [t[lo:hi] for t in glob["s3_dst"]],
-                     lambda o, pay: _deliver(pay, px["s3"][o], s3_recs),
-                     plan.permutations)
-    if debug:
-        info = _debug_info(stage_vals, s3_out, vals, ar, glob, lo, hi, dtype)
-    out = _assemble(stage_vals, s3_out, vals, ar, ar + lo, px, J=J, d=d)
-    clock.mark()
-    ms = clock.read()
-    for i, stage in enumerate((1, 2)):
-        stats[f"stage{stage}"].update(encode_ms=ms[3 * i],
-                                      exchange_ms=ms[3 * i + 1],
-                                      decode_ms=ms[3 * i + 2])
+    # timed by spans: into the caller's recorder (read at its end), else
+    # into one of this call's own, read before it returns
+    own = Recorder(dev) if current() is None else None
+    stats, stage_vals, timed = {}, {}, {}
+    with own or contextlib.nullcontext():
+        with span("shuffle.wire"):
+            wire = _wire_buffer(contribs, wp,
+                                "multipass" if verify_wire else codec)
+            if verify_wire:
+                wire = _widen(wire, k, pk)
+        for stage in (1, 2):
+            st = _local_stage(glob["stages"][stage], lo, hi, k)
+            x = px["stages"][stage]
+            with span("shuffle.encode") as enc:
+                ctx, delta = _encode_stage(wire, st, K=Kl, k=k, pk=pkv,
+                                           codec=codec)
+                _tamper(delta, spec.get(stage), lo, hi)
+            with span("shuffle.exchange") as exc:
+                if mode == "looped":
+                    recv, stats[f"stage{stage}"] = _exchange_looped_process(
+                        delta, st, x, plan.permutations, k=k, pk=pkv)
+                else:
+                    recv, stats[f"stage{stage}"] = _exchange_process(
+                        delta, x, plan.permutations, k=k, pk=pkv)
+            del delta
+            with span("shuffle.decode") as dcd:
+                if codec == "multipass":
+                    ctx = _cancellations(ctx, st, K=Kl, k=k)
+                dec = _decode_stage(recv, ctx, st, K=Kl, k=k, pk=pkv,
+                                    codec=codec)
+                if verify_wire:
+                    dec = _verify_rows(dec, st, bad, k=k, pk=pk, wp=wp)
+            stage_vals[stage] = _from_wire(dec, dtype, d)
+            timed[f"stage{stage}"] = dict(encode_ms=(enc,), exchange_ms=(exc,),
+                                          decode_ms=(dcd,))
+        del wire
+        vals = contribs.view(_arith_dtype(dtype))
+        s3_recs = []
+        ar = torch.arange(Kl, device=dev)
+        with span("shuffle.stage3") as s3:
+            s3_out = _stage3(vals, ar, [t[lo:hi] for t in glob["s3_dst"]],
+                             lambda o, pay: _deliver(pay, px["s3"][o],
+                                                     s3_recs),
+                             plan.permutations)
+        if debug:
+            info = _debug_info(stage_vals, s3_out, vals, ar, glob, lo, hi,
+                               dtype)
+        with span("shuffle.assemble") as asm:
+            out = _assemble(stage_vals, s3_out, vals, ar, ar + lo, px, J=J,
+                            d=d)
     # stage 3 and the assembly
-    stats["stage3"] = dict(_sum_recs(s3_recs), ms=ms[6])
+    stats["stage3"] = _sum_recs(s3_recs)
+    timed["stage3"] = dict(ms=(s3, asm))
+
+    def fill():                 # each record's ms, once the calls are read
+        for name, keys in timed.items():
+            stats[name].update({key: sum(c.device_ms for c in calls)
+                                for key, calls in keys.items()})
+
+    (own or current()).after_read(fill)
+    if own:
+        own.read()
     plan.process_stats.clear()
     plan.process_stats.update(stats)
     out = out.view(dtype)

@@ -23,6 +23,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..core.spans import span
+
 __all__ = ["AdamWState", "adamw_update", "adamw_init",
            "clip_by_global_norm", "adamw_tree_update", "tree_leaves"]
 
@@ -45,25 +47,29 @@ def adamw_update(params: torch.Tensor, grads: torch.Tensor,
     """One AdamW step of every row of ``params [J, D]`` (f32), in place.
 
     ``grads [J, D]`` f32 is consumed (scaled in place by the clip).
-    Returns the per-row gradient norms ``[J]``.
+    Returns the per-row gradient norms ``[J]``. Inside an open span
+    recorder (:mod:`repro_torch.core.spans`) the clip is timed as
+    ``update.clip`` and the moments and parameters as ``update.adamw``.
     """
-    if max_grad_norm is not None:
-        gn = torch.sqrt(torch.sum(torch.square(grads), dim=1))
-        scale = torch.clamp(max_grad_norm / torch.clamp(gn, min=1e-9),
-                            max=1.0)
-        grads.mul_(scale[:, None])
-    else:
-        gn = torch.zeros(params.shape[0], device=params.device)
-    state.step += 1
-    t = state.step.float()[:, None]
-    bc1 = 1.0 - torch.pow(b1, t)
-    bc2 = 1.0 - torch.pow(b2, t)
-    state.mu.mul_(b1).add_(grads * (1 - b1))
-    state.nu.mul_(b2).add_(torch.square(grads).mul_(1 - b2))
-    delta = state.mu / bc1
-    delta.div_(torch.sqrt(state.nu / bc2).add_(eps))
-    delta.add_(params * weight_decay)
-    params.sub_(delta.mul_(lr))
+    with span("update.clip"):
+        if max_grad_norm is not None:
+            gn = torch.sqrt(torch.sum(torch.square(grads), dim=1))
+            scale = torch.clamp(max_grad_norm / torch.clamp(gn, min=1e-9),
+                                max=1.0)
+            grads.mul_(scale[:, None])
+        else:
+            gn = torch.zeros(params.shape[0], device=params.device)
+    with span("update.adamw"):
+        state.step += 1
+        t = state.step.float()[:, None]
+        bc1 = 1.0 - torch.pow(b1, t)
+        bc2 = 1.0 - torch.pow(b2, t)
+        state.mu.mul_(b1).add_(grads * (1 - b1))
+        state.nu.mul_(b2).add_(torch.square(grads).mul_(1 - b2))
+        delta = state.mu / bc1
+        delta.div_(torch.sqrt(state.nu / bc2).add_(eps))
+        delta.add_(params * weight_decay)
+        params.sub_(delta.mul_(lr))
     return gn
 
 

@@ -73,9 +73,10 @@ from ..checkpoint import CheckpointManager
 from ..configs import ModelConfig
 from ..core import loads as Lo
 from ..core.baselines import UncodedAggregatedEngine
-from ..core.collective import (CODECS, Marks, ShuffleStream,
-                               camr_collective_bytes, make_plan)
+from ..core.collective import (CODECS, ShuffleStream, camr_collective_bytes,
+                               make_plan)
 from ..core.engine import CAMRConfig, CAMREngine
+from ..core.spans import Recorder, span
 from ..data.pipeline import ShardedTokenPipeline, make_camr_job_datasets
 from ..device import resolve_device
 from ..kernels.aggregate import aggregate
@@ -84,14 +85,21 @@ from ..optim import AdamWState, adamw_update, cosine_schedule
 from ..weights import flat_spec, leaves, ravel, split, tree, unravel
 from .jobstream import JobSpec, JobStream
 
-__all__ = ["CAMRTrainReport", "MultiModelCAMRTrainer", "PHASES", "Trainer",
-           "bf16_add"]
+__all__ = ["CAMRTrainReport", "MultiModelCAMRTrainer", "PHASES", "SPANS",
+           "Trainer", "bf16_add"]
 
 #: the multi-model trainer's grad-sync wires
 MODES = ("camr", "camr_spmd", "uncoded")
 
 #: the step's phases, in order, as timed in ``CAMRTrainReport.phase_ms``
 PHASES = ("map", "aggregate", "shuffle", "update")
+#: the spans inside the phases (:mod:`repro_torch.core.spans`), in the
+#: order ``CAMRTrainReport.phase_ms`` reports them
+SPANS = ("map.feed", "map.upload", "map.forward", "map.backward", "map.row",
+         "aggregate.upload", "aggregate.stack", "aggregate.kernel",
+         "shuffle.wire", "shuffle.encode", "shuffle.exchange",
+         "shuffle.decode", "shuffle.stage3", "shuffle.assemble",
+         "update.gather", "update.clip", "update.adamw")
 
 
 @dataclass
@@ -102,9 +110,24 @@ class CAMRTrainReport:
     mode: str = ""
     sync: dict = field(default_factory=dict)   # executor-reuse stats
     grad_sync_dtype: str = "float32"           # shuffle payload dtype
-    #: per step, milliseconds of each of :data:`PHASES` (CUDA events on
-    #: a card, the host clock on the CPU)
+    #: per step, a dict of milliseconds: first each of :data:`PHASES`
+    #: (CUDA events on a card, the host clock on the CPU; consecutive
+    #: phases share their marks), then for each of :data:`SPANS` in order
+    #: ``<span>`` (its device ms, timed as a phase is) and ``<span>:host``
+    #: (the host clock from enter to exit), each summed over the step's
+    #: calls. Every key is present in every step of every mode, 0.0
+    #: where the span did not run (the shuffle's parts in the host
+    #: modes, for one).
     phase_ms: list = field(default_factory=list)
+
+
+def _phase_ms(times: dict) -> dict:
+    """A read :class:`~repro_torch.core.spans.Recorder` -> one step's
+    ``phase_ms`` dict."""
+    ms = {p: times[p][0] for p in PHASES}
+    for name in SPANS:
+        ms[name], ms[name + ":host"] = times.get(name, (0.0, 0.0))
+    return ms
 
 
 def _mean_losses(per_job: list) -> list[float]:
@@ -148,14 +171,6 @@ def _full_f32(device: torch.device):
     finally:
         (mm.allow_tf32, cudnn.allow_tf32,
          mm.allow_bf16_reduced_precision_reduction) = saved
-
-
-class _PhaseClock(Marks):
-    """Marks phase boundaries without synchronising the card; read once
-    per step, as a dict of :data:`PHASES`."""
-
-    def read(self) -> dict:
-        return dict(zip(PHASES, super().read()))
 
 
 class MultiModelCAMRTrainer:
@@ -282,18 +297,22 @@ class MultiModelCAMRTrainer:
         leaf gradient to nearest even straight into the bf16 row (exact
         for bf16 leaves, one rounding for f32 ones): the JAX trainer's
         rounding of its f32 flat gradient, with no f32 row in between."""
-        ps = [t.detach().requires_grad_(True)
-              for t in split(self.flat[j], self._spec)]
-        b = {key: torch.as_tensor(v, device=self.device)
-             for key, v in batch.items()}
-        loss, _ = lm.train_loss(self.cfg, tree(self._spec, ps), b)
-        grads = torch.autograd.grad(loss, ps)
+        with span("map.upload"):         # from pageable memory: blocks
+            b = {key: torch.as_tensor(v, device=self.device)
+                 for key, v in batch.items()}
+        with span("map.forward"):
+            ps = [t.detach().requires_grad_(True)
+                  for t in split(self.flat[j], self._spec)]
+            loss, _ = lm.train_loss(self.cfg, tree(self._spec, ps), b)
+        with span("map.backward"):
+            grads = torch.autograd.grad(loss, ps)
         self._last_loss[j][n] = loss.detach()
         self.map_calls += 1
-        row = torch.empty(self.Dpad, dtype=self._sync_dtype,
-                          device=self.device)
-        torch.cat([g.reshape(-1) for g in grads], out=row[:self.D])
-        row[self.D:] = 0
+        with span("map.row"):
+            row = torch.empty(self.Dpad, dtype=self._sync_dtype,
+                              device=self.device)
+            torch.cat([g.reshape(-1) for g in grads], out=row[:self.D])
+            row[self.D:] = 0
         return row
 
     def _build_contribs(self, map_fn, datasets) -> torch.Tensor:
@@ -317,9 +336,14 @@ class MultiModelCAMRTrainer:
                     for n in prog.placement.batch_subfiles(t):
                         vals.append(map_fn(j, datasets[j][n]))
                         ids.append(a * (k - 1) + b)
-            seg = torch.tensor(ids, dtype=torch.int32, device=self.device)
-            aggregate(torch.stack(vals), seg, S, out=out[s].view(S, -1))
+            with span("aggregate.upload"):
+                seg = torch.tensor(ids, dtype=torch.int32, device=self.device)
+            with span("aggregate.stack"):
+                stacked = torch.stack(vals)
             del vals
+            with span("aggregate.kernel"):
+                aggregate(stacked, seg, S, out=out[s].view(S, -1))
+            del stacked
         return out
 
     def _spmd_stream(self) -> ShuffleStream:
@@ -438,10 +462,12 @@ class MultiModelCAMRTrainer:
         transpose is pure data movement, fused with the exact upcast of a
         bf16 sync to f32; /N and AdamW are elementwise plus the per-job
         clip norm."""
-        grads = torch.empty((self.J, self.Dpad), dtype=torch.float32,
-                            device=self.device)
-        grads.view(self.J, self.K, self.d_shard).copy_(gsync.transpose(0, 1))
-        grads.div_(self.N)
+        with span("update.gather"):
+            grads = torch.empty((self.J, self.Dpad), dtype=torch.float32,
+                                device=self.device)
+            grads.view(self.J, self.K, self.d_shard).copy_(
+                gsync.transpose(0, 1))
+            grads.div_(self.N)
         adamw_update(self.flat, grads, self.opt, lr=self.lr)
 
     # ------------------------------------------------------------------ #
@@ -463,48 +489,52 @@ class MultiModelCAMRTrainer:
     def _step(self, pipeline: ShardedTokenPipeline, report: CAMRTrainReport,
               mode: str) -> None:
         J, N = self.J, self.N
-        clock = _PhaseClock(self.device)
-        clock.mark()
-        self._last_loss = [dict() for _ in range(J)]
-        base = make_camr_job_datasets(pipeline, J, N, self.step)
-        # subfile payloads carry their index: the memo is keyed by
-        # (job, subfile_index)
-        datasets = [[(n, base[j][n]) for n in range(N)] for j in range(J)]
-        cache: dict = {}
+        with Recorder(self.device) as rec:
+            with rec.phase("map"):
+                self._last_loss = [dict() for _ in range(J)]
+                with span("map.feed"):
+                    base = make_camr_job_datasets(pipeline, J, N, self.step)
+                # subfile payloads carry their index: the memo is keyed by
+                # (job, subfile_index)
+                datasets = [[(n, base[j][n]) for n in range(N)]
+                            for j in range(J)]
+                cache: dict = {}
 
-        def map_fn(j, subfile):
-            n, batch = subfile
-            if (j, n) not in cache:       # each (job, subfile) mapped once
-                cache[(j, n)] = self._grad_vec(j, n, batch)
-            return cache[(j, n)]
+                def map_fn(j, subfile):
+                    n, batch = subfile
+                    if (j, n) not in cache:   # each (job, subfile) mapped once
+                        cache[(j, n)] = self._grad_vec(j, n, batch)
+                    return cache[(j, n)]
 
-        for j in range(J):
-            for n in range(N):
-                map_fn(j, datasets[j][n])
-        clock.mark()
-        # the host wires and the oracle take each memo row on the host once
-        host = ({key: self._host_row(row) for key, row in cache.items()}
-                if mode != "camr_spmd" or self.spmd_oracle else None)
-        if mode == "camr_spmd":
-            contribs = self._build_contribs(map_fn, datasets)
-            cache.clear()                 # drop the memo: contribs hold it
-            clock.mark()
-            gsync = (self._sync_spmd(contribs, report) if host is None
-                     else self._sync_spmd(contribs, report, datasets, host))
-            del contribs, host
-        else:
-            cache.clear()
-            clock.mark()
-            sync = (self._sync_interpreter if mode == "camr"
-                    else self._sync_uncoded)
-            gsync = self._device_sync(sync(
-                lambda j, subfile: host[(j, subfile[0])], datasets, report))
-            del host
-        clock.mark()
-        self._apply(gsync)
-        del gsync
-        clock.mark()
-        report.phase_ms.append(clock.read())
+                for j in range(J):
+                    for n in range(N):
+                        map_fn(j, datasets[j][n])
+            with rec.phase("aggregate"):
+                # the host wires and the oracle take each memo row on the
+                # host once
+                host = ({key: self._host_row(row)
+                         for key, row in cache.items()}
+                        if mode != "camr_spmd" or self.spmd_oracle else None)
+                if mode == "camr_spmd":
+                    contribs = self._build_contribs(map_fn, datasets)
+                cache.clear()         # drop the memo: contribs or host hold it
+            with rec.phase("shuffle"):
+                if mode == "camr_spmd":
+                    gsync = (self._sync_spmd(contribs, report) if host is None
+                             else self._sync_spmd(contribs, report, datasets,
+                                                  host))
+                    del contribs
+                else:
+                    sync = (self._sync_interpreter if mode == "camr"
+                            else self._sync_uncoded)
+                    gsync = self._device_sync(sync(
+                        lambda j, subfile: host[(j, subfile[0])], datasets,
+                        report))
+                del host
+            with rec.phase("update"):
+                self._apply(gsync)
+                del gsync
+        report.phase_ms.append(_phase_ms(rec.read()))
         report.losses.append(_mean_losses(
             [{n: float(v) for n, v in d.items()} for d in self._last_loss]))
         self.step += 1

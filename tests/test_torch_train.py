@@ -77,6 +77,7 @@ from repro_torch.models import lm
 from repro_torch.runtime import MultiModelCAMRTrainer, Trainer
 from repro_torch.runtime.train_loop import CAMRTrainReport, _full_f32
 from repro_torch.weights import flat_spec, params_from_jax, ravel, unravel
+from test_torch_spans import PHASE_KEYS
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: the reduced SSM and hybrid configs at the tiny pipeline's vocab
@@ -308,8 +309,7 @@ def test_trainer_three_steps_match_jax(jax_run):
     np.testing.assert_allclose(tr.flat.numpy(), jax_run["flat"], rtol=0,
                                atol=2e-5)
     assert rep.sync["dispatches"] == 3 and rep.sync["compiles"] == 1
-    assert [list(ms) for ms in rep.phase_ms] == [["map", "aggregate",
-                                                  "shuffle", "update"]] * 3
+    assert [list(ms) for ms in rep.phase_ms] == [PHASE_KEYS] * 3
     assert rep.bytes_total == 3 * jcoll.camr_collective_bytes(
         jcoll.make_plan(2, 3, tr.d_shard), dtype=np.float32)["camr_total"]
 
@@ -716,8 +716,7 @@ def test_camr_spmd_camr_and_uncoded_are_bitwise_equal(lane):
         assert torch.equal(tr.flat.view(torch.int32),
                            tr0.flat.view(torch.int32)), mode
         assert rep.losses == rep0.losses, mode
-        assert [list(ms) for ms in rep.phase_ms] == \
-            [["map", "aggregate", "shuffle", "update"]] * 2
+        assert [list(ms) for ms in rep.phase_ms] == [PHASE_KEYS] * 2
     camr, unc = runs["camr"][1], runs["uncoded"][1]
     assert camr.loads["L_total_bus"] == pytest.approx(1.0)
     assert unc.loads["L_total_bus"] == pytest.approx(1.5)
